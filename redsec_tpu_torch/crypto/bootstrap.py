@@ -1,0 +1,386 @@
+"""Batched programmable (gate) bootstrapping on the device.
+
+Every activation gets one PBS:
+
+    mod-switch -> blind rotation (n CMUX rounds of TGSW external products in
+    the CRT-NTT domain) -> sample extract -> key switch
+
+The blind rotation is the whole cost.  On CUDA it runs as ONE launch of the
+``blind_rotate`` kernel (csrc/pbs.cu, bound in crypto/kernels.py), which keeps
+each ciphertext's accumulator on chip for all n rounds; on the CPU the same
+wrapper runs its plain PyTorch twin.  Mod-switch, sample extract and the key
+switch stay plain torch (XLA ops outside any Pallas kernel in the JAX
+package).
+
+All arithmetic is exact, so the output is bit-identical to the JAX package's
+``make_batched_bootstrap`` for the same key and ciphertexts, whatever the
+NTT-domain order.  The port prepares its BK in the radix-2 bit-reversed order
+of ``ntt.ntt_device`` (flavour ``"radix2"``); the kernels use the same
+butterflies.
+
+A numpy oracle of the whole pipeline (``bootstrap_host``) is kept for tests.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..device import int32_matmul, resolve_device
+from . import kernels
+from . import ntt as ntt_mod
+from .keygen import CloudKey, _crt_host
+from .params import TfheParams
+from .torus import mod_switch_to_torus32
+
+BK_LIMB_BITS = 8  # 4 x 8-bit limbs: keeps the row-accumulated external
+# product provably inside the 2-prime CRT range (see ntt.primes_for)
+BK_LIMBS = 32 // BK_LIMB_BITS
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceCloudKey:
+    """Device-resident evaluation key.
+
+    ``bk``: int16 [P, n, rows, 2*limbs, N], the BK's sign-balanced 8-bit limbs
+    forward-NTT'd per CRT prime (residues < 2^15), in the streaming layout the
+    blind-rotation kernel reads one round slice at a time.  ``ksk``: int32
+    [N*t, n+1] multiply-form key-switching key."""
+
+    params: TfheParams
+    plan: ntt_mod.NttPlan
+    bk: torch.Tensor
+    ksk: torch.Tensor
+    rerand: Optional[torch.Tensor] = None
+    # NTT-domain order the BK was transformed with; the kernels and their
+    # twins check it (a key in another order is garbage to them)
+    ntt_flavor: str = "radix2"
+
+    @property
+    def device(self) -> torch.device:
+        return self.bk.device
+
+
+def bootstrap_plan(p: TfheParams) -> ntt_mod.NttPlan | None:
+    """NTT plan for the parameter set, or None when no int32-range NTT primes
+    exist for N (>= 4096: those sets use the JAX package's conv-schoolbook
+    external product, not ported yet).  The CRT range must cover ``rows``
+    accumulated digit x limb products with sign-balanced limbs."""
+    try:
+        return ntt_mod.make_plan(
+            p.N, max_operand=p.half_bg, limb_bits=BK_LIMB_BITS,
+            accum=p.decomp_rows, balanced=True,
+        )
+    except ValueError:
+        return None
+
+
+def int8_limbs(x: torch.Tensor) -> list[torch.Tensor]:
+    """int32 [...] -> 4 sign-balanced limbs (int32 tensors in [-128, 127]).
+
+    Recombination sum(l_i * 256^i) is exact mod 2^32 (the top limb is
+    mod-256-balanced, which suffices: its excess is a multiple of 2^32)."""
+    limbs, cur = [], x
+    for _ in range(4):
+        lo = ((cur + 128) & 255) - 128
+        limbs.append(lo)
+        cur = (cur - lo) >> 8
+    return limbs
+
+
+def prepare_cloud_key(cloud: CloudKey, device: str = "cuda",
+                      chunk: int = 64) -> DeviceCloudKey:
+    """Upload the raw CloudKey and transform the BK into the CRT-NTT domain
+    on the device (through the ``ntt`` kernel on CUDA), ``chunk`` key bits at
+    a time to bound the working set.
+
+    Only the unbundled NTT-plan path is ported: a bundled key or a parameter
+    set without NTT primes raises, as does a plan the CUDA kernels do not take
+    (three primes, a prime >= 2^15)."""
+    dev = resolve_device(device)
+    p = cloud.params
+    if cloud.bk_pair is not None:
+        raise ValueError("bundled (bundle=2) keys are not supported by the port yet")
+    plan = bootstrap_plan(p)
+    if plan is None:
+        raise ValueError(
+            f"{p.name}: no NTT prime plan for N={p.N}; the schoolbook external "
+            "product is not ported yet")
+    if dev.type == "cuda" and not kernels.supported(p, plan):
+        raise ValueError(
+            f"{p.name}: primes {plan.primes} at N={p.N} are outside what the "
+            "CUDA kernels take (2 primes < 2^15, N in 256..1024)")
+    N = p.N
+    bk_raw = torch.as_tensor(cloud.bk.astype(np.int32), device=dev)  # [n, rows, 2, N]
+    parts = [[] for _ in plan.primes]
+    for i0 in range(0, p.n, chunk):
+        bk = bk_raw[i0:i0 + chunk]
+        limbs = torch.stack(int8_limbs(bk), dim=3)  # [c, rows, 2, limbs, N]
+        for pi, prime in enumerate(plan.primes):
+            lmod = (limbs + prime * (limbs < 0).to(torch.int32)).reshape(-1, N)
+            res = kernels.ntt(lmod.contiguous(), plan, pi)
+            parts[pi].append(res.to(torch.int16).reshape(bk.shape[0], p.decomp_rows,
+                                                          2 * BK_LIMBS, N))
+    bk_ntt = torch.stack([torch.cat(ps, dim=0) for ps in parts]).contiguous()
+    ksk = torch.as_tensor(cloud.ksk.reshape(-1, p.n + 1).astype(np.int32), device=dev)
+    rerand = (None if cloud.rerand is None
+              else torch.as_tensor(cloud.rerand.astype(np.int32), device=dev))
+    return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk=ksk, rerand=rerand)
+
+
+def const_test_vector(params: TfheParams, value: int, msize: int) -> np.ndarray:
+    """Test vector for the sign bootstrap: all coefficients = mu, giving
+    +-mu depending on the sign of the phase (binarize_int/unbinarize_int,
+    lib/BinOps_enc.cpp:182-192)."""
+    mu = int(mod_switch_to_torus32(value, msize))
+    return np.full(params.N, mu, dtype=np.int32)
+
+
+def function_test_vector(params: TfheParams, fn: Callable[[np.ndarray], np.ndarray],
+                         msize: int) -> np.ndarray:
+    """Programmable test vector: output value fn(v) for input value v, where v
+    ranges over the message space.  fn must satisfy the negacyclic constraint
+    fn(v + msize/2) = -fn(v); inputs are assumed confined accordingly.
+
+    Coefficient j of the test vector holds the output for phases that
+    mod-switch to j, i.e. input value v ~= j * msize / (2N).
+    """
+    N, msz = params.N, msize
+    j = np.arange(N)
+    v = np.round(j * msz / (2 * N)).astype(np.int64)
+    out = fn(v)
+    return mod_switch_to_torus32(np.asarray(out), msz).astype(np.int32)
+
+
+def gadget_offset(p: TfheParams) -> int:
+    """TFHE v1.1 signed-decomposition offset: sum_j (Bg/2) * 2^(32-(j+1)*Bgbit)
+    (as uint32).  Adding it makes each masked bit-field a balanced digit after
+    subtracting Bg/2."""
+    off = 0
+    for j in range(p.l):
+        off = (off + ((p.bg // 2) << (32 - (j + 1) * p.bg_bit))) & 0xFFFFFFFF
+    return off
+
+
+def _as_i32(u: int) -> int:
+    """uint32 value -> the int32 with the same bits."""
+    return u - (1 << 32) if u >= (1 << 31) else u
+
+
+class RoundOps:
+    """Per-round primitives in torch: mod-switch, negacyclic rotate, gadget
+    decompose, sample extract, key switch.
+
+    torch has no usable uint32 arithmetic; where the JAX package shifts
+    uint32, these shift int32 arithmetically and mask.  That is exact because
+    every mask is no wider than 32 minus its shift (the bits above the field
+    are the only ones the sign extension touches)."""
+
+    def __init__(self, p: TfheParams):
+        self.p = p
+        self._two_n = 2 * p.N
+        self._ms_shift = 32 - p.log2_2N
+        self._offset = _as_i32(gadget_offset(p))
+        self._dec_shifts = [32 - (j + 1) * p.bg_bit for j in range(p.l)]
+        self._ks_shifts = [32 - (j + 1) * p.ks_basebit for j in range(p.ks_t)]
+        kbits = p.ks_basebit * p.ks_t
+        self._prec_offset = (1 << (32 - 1 - kbits)) if kbits < 32 else 0
+
+    def mod_switch(self, x: torch.Tensor) -> torch.Tensor:
+        """torus int32 -> rotation exponent in [0, 2N) (rounded)."""
+        u = x + (1 << (self._ms_shift - 1))
+        return (u >> self._ms_shift) & (self._two_n - 1)
+
+    def rotate(self, polys: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        """X^t * poly (negacyclic) for per-batch exponents t [B] in [0, 2N):
+        out[..., j] = sign(j - t) * polys[..., (j - t) mod N]."""
+        N = self.p.N
+        j = torch.arange(N, device=polys.device, dtype=torch.int32)
+        src = (j[None, :] - t[:, None].to(torch.int32)) % self._two_n
+        sign = torch.where(src >= N, -1, 1).to(torch.int32)
+        shape = [polys.shape[0]] + [1] * (polys.ndim - 2) + [N]
+        idx = (src % N).reshape(shape).expand(polys.shape).to(torch.int64)
+        return torch.gather(polys, -1, idx) * sign.reshape(shape)
+
+    def decompose(self, x: torch.Tensor) -> torch.Tensor:
+        """TFHE signed gadget decomposition: x [B, 2, N] torus -> digits
+        [B, rows, N] int32 in [-Bg/2, Bg/2), row = bloc * l + level."""
+        u = x + self._offset
+        d = torch.stack([(u >> s) & (self.p.bg - 1) for s in self._dec_shifts], dim=2)
+        return (d - self.p.half_bg).reshape(x.shape[0], self.p.decomp_rows, self.p.N)
+
+    def sample_extract(self, acc: torch.Tensor):
+        a_poly = acc[:, 0, :]
+        a_ext = torch.cat([a_poly[:, :1], -a_poly[:, 1:].flip(-1)], dim=-1)
+        return a_ext, acc[:, 1, 0]
+
+    def ks_digits(self, a_n: torch.Tensor) -> torch.Tensor:
+        """Key-switch digit decomposition: [B, N] -> [B, N*t] in [0, base)."""
+        u = a_n + self._prec_offset
+        dig = torch.stack([(u >> s) & (self.p.ks_base - 1) for s in self._ks_shifts],
+                          dim=-1)
+        return dig.reshape(a_n.shape[0], -1)
+
+    def key_switch(self, a_n: torch.Tensor, b_n: torch.Tensor,
+                   ksk: torch.Tensor) -> torch.Tensor:
+        """Subtract digit-scaled rows of the multiply-form KSK [N*t, n+1]:
+        one exact digit x KSK product (limbs of the KSK in fp32, bound
+        N*t*(base-1)*128 < 2^24)."""
+        dig = self.ks_digits(a_n)
+        ssum = int32_matmul(ksk.T, dig.T, self.p.ks_base - 1).T  # [B, n+1]
+        out = -ssum
+        out[:, self.p.n] += b_n
+        return out
+
+
+def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
+    """int32 [B, N] view of one test vector [N] or one per ciphertext [B, N]."""
+    tv = torch.as_tensor(np.asarray(testvect, np.int32) if not isinstance(
+        testvect, torch.Tensor) else testvect, device=device).to(torch.int32)
+    return tv.reshape(-1, N).expand(B, N)
+
+
+def make_bootstrap_impl(p: TfheParams, plan: ntt_mod.NttPlan):
+    """``impl(dkey, ct [B, n+1], testvect [N]|[B, N]) -> [B, n+1]``; the blind
+    rotation is ``kernels.blind_rotate`` (the CUDA kernel on a CUDA tensor,
+    its plain twin on a CPU tensor)."""
+    N, n = p.N, p.n
+    ops = RoundOps(p)
+
+    def impl(dkey: DeviceCloudKey, ct: torch.Tensor, testvect) -> torch.Tensor:
+        abar = ops.mod_switch(ct[:, :n]).contiguous()
+        bbar = ops.mod_switch(ct[:, n])
+        tv = _test_vectors(testvect, ct.shape[0], N, ct.device)
+        acc_b = ops.rotate(tv, (2 * N - bbar) % (2 * N))
+        acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1).contiguous()
+        acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
+        a_n, b_n = ops.sample_extract(acc)
+        return ops.key_switch(a_n, b_n, dkey.ksk)
+
+    return impl
+
+
+def _check_key(dkey: DeviceCloudKey) -> None:
+    if dkey.ntt_flavor != "radix2":
+        raise ValueError(
+            f"device key has NTT flavour {dkey.ntt_flavor!r}; the port's kernels "
+            "and twins take only 'radix2'")
+
+
+def make_batched_bootstrap(dkey: DeviceCloudKey):
+    """Batched PBS bound to a device key: ``(ct [B, n+1], testvect [N]|[B, N])
+    -> [B, n+1]`` int32 on the key's device."""
+    _check_key(dkey)
+    impl = make_bootstrap_impl(dkey.params, dkey.plan)
+
+    def bootstrap(ct, testvect):
+        ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
+        return impl(dkey, ct, testvect)
+
+    return bootstrap
+
+
+def make_chunked_bootstrap(dkey: DeviceCloudKey, chunk: int = 512):
+    """Batched PBS that runs batches larger than ``chunk`` as consecutive
+    ``chunk``-sized slices (bounds the working set of the plain path and of
+    the leveled glue around the kernel)."""
+    _check_key(dkey)
+    impl = make_bootstrap_impl(dkey.params, dkey.plan)
+    N = dkey.params.N
+
+    def run(ct, testvect):
+        ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
+        m = ct.shape[0]
+        if m <= chunk:
+            return impl(dkey, ct, testvect)
+        tv = _test_vectors(testvect, m, N, ct.device)
+        return torch.cat([impl(dkey, ct[i0:i0 + chunk], tv[i0:i0 + chunk])
+                          for i0 in range(0, m, chunk)], dim=0)
+
+    return run
+
+
+# --------------------------------------------------------------------------- #
+# Host reference (numpy, exact) — the test oracle for the device path         #
+# --------------------------------------------------------------------------- #
+
+
+def _rotate_host(poly: np.ndarray, t: int, N: int) -> np.ndarray:
+    ext = np.concatenate([poly, -poly], axis=-1)
+    j = np.arange(N)
+    return ext[..., (j - t) % (2 * N)]
+
+
+def bootstrap_host(cloud: CloudKey, ct: np.ndarray, testvect: np.ndarray) -> np.ndarray:
+    """Single-sample reference bootstrap in numpy int64 (exact)."""
+    p = cloud.params
+    N, n, l, bg_bit = p.N, p.n, p.l, p.bg_bit
+    plan = bootstrap_plan(p)
+    half_bg, mask = p.half_bg, p.bg - 1
+    offset = gadget_offset(cloud.params)
+
+    def mod_switch(x):
+        u = np.int64(x) & 0xFFFFFFFF
+        return int(((u + (1 << (31 - p.log2_2N))) >> (32 - p.log2_2N)) & (2 * N - 1))
+
+    def decompose(x):
+        u = (x.astype(np.int64) & 0xFFFFFFFF) + offset
+        digs = []
+        for j in range(l):
+            digs.append(((u >> (32 - (j + 1) * bg_bit)) & mask) - half_bg)
+        return np.stack(digs)  # [l, N]
+
+    def poly_mul_torus(d, c):
+        """digit poly x torus poly -> torus poly (exact via limbs + CRT;
+        int64 schoolbook when the parameter set has no NTT primes)."""
+        if plan is None:
+            return ntt_mod.negacyclic_mul_host(d, c, N)
+        c_u = c.astype(np.uint32)
+        out = np.zeros(N, dtype=np.int64)
+        for sh in range(0, 32, BK_LIMB_BITS):
+            limb = ((c_u >> np.uint32(sh)) & np.uint32((1 << BK_LIMB_BITS) - 1)).astype(np.int64)
+            residues = []
+            for pi, prime in enumerate(plan.primes):
+                yd = ntt_mod.ntt_host(d % prime, plan, pi)
+                yl = ntt_mod.ntt_host(limb, plan, pi)
+                residues.append(ntt_mod.intt_host(yd * yl % prime, plan, pi))
+            out += _crt_host(residues, plan) << sh
+        return out.astype(np.uint64).astype(np.uint32).astype(np.int32)
+
+    abar = [mod_switch(v) for v in ct[:n]]
+    bbar = mod_switch(ct[n])
+    acc = np.stack(
+        [np.zeros(N, dtype=np.int32),
+         _rotate_host(testvect.astype(np.int32), (2 * N - bbar) % (2 * N), N)]
+    )
+    for i in range(n):
+        rot = _rotate_host(acc, abar[i], N)
+        diff = (rot - acc).astype(np.int32)
+        delta = np.zeros((2, N), dtype=np.int32)
+        for bloc in range(2):
+            digs = decompose(diff[bloc])  # [l, N]
+            for j in range(l):
+                row = bloc * l + j
+                for u in range(2):
+                    delta[u] = (
+                        delta[u] + poly_mul_torus(digs[j], cloud.bk[i, row, u])
+                    ).astype(np.int32)
+        acc = (acc + delta).astype(np.int32)
+
+    a_ext = np.concatenate([acc[0, :1], -acc[0, :0:-1]]).astype(np.int32)
+    b_ext = acc[1, 0]
+
+    t, base, basebit = p.ks_t, p.ks_base, p.ks_basebit
+    prec = (1 << (32 - 1 - basebit * t)) if basebit * t < 32 else 0
+    out = np.zeros(n + 1, dtype=np.int32)
+    out[n] = b_ext
+    for i in range(N):
+        u = (int(a_ext[i]) & 0xFFFFFFFF) + prec
+        for j in range(t):
+            dig = (u >> (32 - (j + 1) * basebit)) & (base - 1)
+            # multiply-form KSK: subtract digit * ksk[i, j] (int32 wraparound)
+            out = (out.astype(np.int64) - dig * cloud.ksk[i, j].astype(np.int64)).astype(np.int32)
+    return out
