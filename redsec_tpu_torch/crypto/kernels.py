@@ -20,9 +20,10 @@ current stream, raises on a non-zero ``cudaGetLastError()``, and adds one to
 its count in ``device.launches``.  Nothing falls back to the twin.
 
 The shared library is built with ``nvcc`` into ``build/kernels/`` at the
-root of the checkout on first use (``build_library``); importing this module
-needs no compiler.  The NTT-domain order of every key tensor these take is
-the radix-2 bit-reversed order of ``ntt.ntt_device`` (flavour "radix2").
+root of the checkout on first use (``build_library``, shared with
+``probe_kernels.py``); importing this module needs no compiler.  The
+NTT-domain order of every key tensor these take is the radix-2 bit-reversed
+order of ``ntt.ntt_device`` (flavour "radix2").
 """
 
 from __future__ import annotations
@@ -43,7 +44,6 @@ from .params import TfheParams
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "pbs.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-LIBRARY = os.path.join(BUILD_DIR, "libredsec_pbs.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNEL_N = (256, 512, 1024)  # N the kernels are instantiated for
@@ -68,39 +68,46 @@ def _nvcc() -> str:
     return path
 
 
-def build_library() -> str:
-    """Compile ``csrc/pbs.cu`` into ``LIBRARY`` unless it is up to date;
-    returns the compiler's messages (``-Xptxas -v``: registers, shared
+def library_path(source: str) -> str:
+    """Where the shared library of ``csrc/<stem>.cu`` is built."""
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"libredsec_{stem}.so")
+
+
+def build_library(source: str) -> str:
+    """Compile one CUDA source into its ``library_path`` unless that is up to
+    date.  Returns the compiler's messages (``-Xptxas -v``: registers, shared
     memory, spills per kernel), empty when nothing was built.  Raises with
     the compiler's output if nvcc fails."""
-    if os.path.exists(LIBRARY) and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE):
+    lib = library_path(source)
+    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(source):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIBRARY}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
+        raise RuntimeError(f"nvcc failed ({res.returncode}) on {source}:\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, lib)
     return res.stdout + res.stderr
 
 
-class _Library:
-    """The loaded shared library, with argtypes declared for every entry."""
+class Library:
+    """A built and loaded shared library of one CUDA source.  ``entries`` maps
+    each C function's name to its argtypes; every entry returns the
+    ``cudaGetLastError()`` of its launch, and the source exports
+    ``redsec_error_string``."""
 
-    def __init__(self):
-        build_library()
-        lib = ctypes.CDLL(LIBRARY)
-        P, I, L, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
-        lib.redsec_error_string.argtypes = [I]
+    def __init__(self, source: str, entries: dict):
+        build_library(source)
+        lib = ctypes.CDLL(library_path(source))
+        lib.redsec_error_string.argtypes = [ctypes.c_int]
         lib.redsec_error_string.restype = ctypes.c_char_p
-        lib.redsec_ntt.argtypes = [P, P, P, I, I, I, I, P]
-        lib.redsec_external_product.argtypes = [P, P, L, P, P, I, I, I, I, I, P]
-        lib.redsec_cmux_round.argtypes = [P, P, P, L, P, P, I, I, I, I, U, I, I, P]
-        lib.redsec_blind_rotate.argtypes = [P, P, P, P, P, I, I, I, I, I, U, I, I, P]
-        for fn in (lib.redsec_ntt, lib.redsec_external_product, lib.redsec_cmux_round,
-                   lib.redsec_blind_rotate):
-            fn.restype = I
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         self.lib = lib
 
     def check(self, name: str, code: int) -> None:
@@ -109,12 +116,19 @@ class _Library:
             raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({code})")
 
 
-_loaded: list[_Library] = []
+_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
+_ENTRIES = {
+    "redsec_ntt": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "redsec_external_product": [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
+    "redsec_cmux_round": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
+    "redsec_blind_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],
+}
+_loaded: list[Library] = []
 
 
-def _lib() -> _Library:
+def _lib() -> Library:
     if not _loaded:
-        _loaded.append(_Library())
+        _loaded.append(Library(SOURCE, _ENTRIES))
     return _loaded[0]
 
 

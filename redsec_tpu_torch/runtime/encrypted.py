@@ -3,17 +3,20 @@
 The cloud side of the reference's ``make cpu-encrypt`` flow
 (nets/mnist/sign1024x1/net.cpp:117-131): evaluation key in, encrypted image
 in, encrypted class scores out.  Layers run eagerly on the key's device;
-every sign activation is one batched PBS whose blind rotation is the
-``blind_rotate`` kernel on CUDA.
+every sign, relu and maxpool boundary is a batched PBS whose blind rotation
+is the ``blind_rotate`` kernel on CUDA.
 
-Ported here: sign and bias-only layers with conv/fc and sumpool, the whole
-model in one eager pass.  Relu, maxpool, majority voting, escalation and the
+Ported here: sign, relu (1-PBS quarter-range and 3-PBS full-range FDFB) and
+bias-only layers with conv/fc, sumpool and maxpool, the whole model in one
+eager pass.  Where the JAX package reads ``REDSEC_INPUT_GAIN`` and
+``REDSEC_RELU_MODE`` from the environment, the builders here take
+``input_gain`` and ``relu_mode``.  Majority voting, escalation and the
 per-layer / staged forwards of the JAX package are later work.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -25,11 +28,15 @@ from ..ops import encrypted as eops
 from .ranges import resolve_pbs_ranges
 
 
-def _resolve_info(model: ModelPlan, params, range_check: bool = True):
-    """Per-layer PbsRange info: per-edge encoding gains and the loud range
-    guard (runtime/ranges.py)."""
+def _resolve_info(model: ModelPlan, params, range_check: bool = True,
+                  input_gain: bool = False, relu_mode: Optional[str] = None):
+    """Per-layer PbsRange info: relu implementation ("quarter" 1-PBS |
+    "full" 3-PBS FDFB), per-edge encoding gains, per-channel relu centering,
+    and the loud range guard (runtime/ranges.py)."""
     return resolve_pbs_ranges(model, params.msg_space, strict=range_check,
-                              sigma_units=params.mod_switch_sigma_units())
+                              input_gain=input_gain,
+                              sigma_units=params.mod_switch_sigma_units(),
+                              relu_mode=relu_mode)
 
 
 def model_out_center(info):
@@ -48,18 +55,27 @@ def model_in_gain(info) -> int:
 
 
 def _run_layer_ops(layer, x, pbs_fn, params, r):
-    """Conv/pool/quant for one layer, with r: PbsRange gains."""
-    if layer.maxpool is not None or layer.quant.mode == Activation.RELU:
-        raise NotImplementedError(
-            "maxpool and relu layers are not ported yet; the port runs sign BNNs")
+    """Conv/pool/quant/maxpool for one layer, with r: PbsRange gains."""
     if layer.conv is not None:
         x = eops.conv_enc(layer.conv, x, params.msg_space, r.in_gain)
     if layer.sumpool is not None:
         x = eops.sumpool_enc(layer.sumpool, x)
     q = layer.quant
     if q.mode == Activation.SIGN:
-        return eops.quant_sign_enc(q, x, pbs_fn, params, r.out_gain, r.in_gain, r.tie_break)
-    return eops.quant_add_bias_enc(q, x, params, r.in_gain, r.center)
+        # a maxpool-feeding sign outputs +-V so the window-OR margin dwarfs
+        # the mod-switch noise (ops/encrypted.py:maxpool_sign_value)
+        ov = (eops.maxpool_sign_value(layer.maxpool, params)
+              if layer.maxpool is not None else r.out_gain)
+        x = eops.quant_sign_enc(q, x, pbs_fn, params, ov, r.in_gain, r.tie_break)
+    elif q.mode == Activation.NONE:
+        x = eops.quant_add_bias_enc(q, x, params, r.in_gain, r.center)
+    elif r.relu_mode == "quarter":
+        x = eops.quant_relu_enc(q, x, pbs_fn, params, r.in_gain, r.out_gain, r.center)
+    else:
+        x = eops.quant_relu_fdfb_enc(q, x, pbs_fn, params, r.in_gain, r.out_gain, r.center)
+    if layer.maxpool is not None:
+        x = eops.maxpool_enc(layer.maxpool, x, pbs_fn, params, r.out_gain)
+    return x
 
 
 def build_forward_impl(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 512,
@@ -85,15 +101,24 @@ def build_forward_impl(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 
 
 
 def build_encrypted_forward(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 512,
-                            range_check: bool = True) -> Callable:
+                            range_check: bool = True, input_gain: bool = False,
+                            relu_mode: Optional[str] = None) -> Callable:
     """Encrypted forward bound to a device key:
     int32 [B, H, W, C, n+1] -> [B, classes, n+1], on the key's device.
 
-    ``range_check``: every PBS boundary's input bound (certified interval
-    arithmetic over the loaded weights, or measured bounds carried on the
-    plan) must fit the message-space budget; violations raise here instead
-    of silently wrapping like the reference (runtime/ranges.py)."""
-    info = _resolve_info(model, dkey.params, range_check)
+    ``range_check``: every PBS boundary's input bound (measured via
+    runtime.ranges.calibrate_ranges when available, else certified interval
+    arithmetic) must fit the message-space budget; violations raise here
+    instead of silently wrapping like the reference (runtime/ranges.py).
+    Relu layers pick the 1-PBS quarter-range or 3-PBS full-range (FDFB)
+    implementation from the same bounds unless ``relu_mode`` ("quarter" |
+    "full") forces one.
+
+    ``input_gain``: also assign a model-input encoding gain; the client must
+    then encrypt pixels scaled by ``forward.in_gain``
+    (``encrypt_images(gain=...)``).  A calibration artifact records both
+    options (runtime/calibration.py:options_from_meta)."""
+    info = _resolve_info(model, dkey.params, range_check, input_gain, relu_mode)
     return build_forward_impl(model, dkey, pbs_chunk, info)
 
 

@@ -16,9 +16,11 @@ optionally a measured bound from a calibration run of the plaintext oracle
 (``calibrate_ranges``); ``resolve_pbs_ranges`` picks the relu implementation
 per layer and fails loudly when no implementation is valid.
 
-A copy of the JAX package's module (numpy only).  ``calibrate_ranges`` runs
-the plaintext oracle and is not ported yet; majority voting and parameter
-escalation are not ported either, so the flip-rate guard judges every
+A copy of the JAX package's module: numpy only, except that
+``calibrate_ranges`` runs the torch plaintext oracle.  Where the JAX package
+reads ``REDSEC_*`` environment variables, the port takes an argument
+(``relu_mode``) or keeps the default as a constant.  Majority voting and
+parameter escalation are not ported, so the flip-rate guard judges every
 boundary as a single unescalated PBS.
 """
 
@@ -28,7 +30,9 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from ..models.spec import Activation, LayerPlan, ModelPlan
 
 # Weight of the modeled upstream-flip cascade in flip-optimal gain
@@ -166,11 +170,61 @@ def certified_pbs_bounds(model: ModelPlan) -> List[Optional[int]]:
     return out
 
 
-def calibrate_ranges(model: ModelPlan, images: np.ndarray) -> List[Optional[int]]:
-    """Measured pre-PBS bounds from a calibration run: not ported yet (the
-    JAX package's version runs its plaintext oracle; calibration artefacts
-    can be carried across with ``redsec_tpu_torch.convert.model_plan``)."""
-    raise NotImplementedError("calibrate_ranges is not ported yet")
+def calibrate_ranges(model: ModelPlan, images: np.ndarray,
+                     device: str = "cuda") -> List[Optional[int]]:
+    """Measure actual max |pre-PBS value| per layer by running the plaintext
+    oracle over a calibration set; stores the result on each LayerPlan
+    (``measured_pre_bound``, ``measured_chan_interval``, ``sign_calib``) so
+    later ``build_encrypted_forward`` calls pick it up.  Mirrors the
+    reference's implicit contract: its 4096 leveled budget is validated only
+    by observed BNN statistics (REDsec paper §IV)."""
+    from . import ptxt as rp
+
+    x = torch.as_tensor(np.asarray(images, np.int32), device=resolve_device(device))
+    bounds: List[Optional[int]] = []
+    for layer in model.layers:
+        pre = x
+        if layer.conv is not None:
+            pre = rp.conv_ptxt(layer.conv, pre)
+        if layer.sumpool is not None:
+            pre = rp.sumpool_ptxt(layer.sumpool, pre)
+        pre = pre.cpu().numpy()
+        q = layer.quant
+        bound = None
+        if q.mode == Activation.SIGN or q.mode == Activation.NONE:
+            b = pre.astype(np.int64) + q.bias.reshape(1, 1, 1, -1)
+            bound = int(np.abs(b).max())
+            if q.mode == Activation.NONE:
+                # per-channel output interval: feeds final-layer decrypt
+                # centering (resolve_pbs_ranges) when logits overflow the
+                # +-msg_space/2 decode range
+                layer.measured_chan_interval = (
+                    b.min(axis=(0, 1, 2)), b.max(axis=(0, 1, 2)))
+            if q.mode == Activation.SIGN:
+                # parity tie-break mask + margin histograms for flip-optimal
+                # gain selection (see PbsRange.tie_break).  For pure-binary
+                # layers the pre+bias parity is deterministic per position
+                # (sum of K +-1 terms == K mod 2), so an all-even observation
+                # over the calibration set is exact, not statistical.
+                mask = (b % 2 == 0).all(axis=0)  # [H, W, C]
+                cap = 1 << 14
+                m_tb = np.abs(np.clip(b + mask[None], -cap, cap)).reshape(-1)
+                m_raw = np.abs(np.clip(b, -cap, cap)).reshape(-1)
+                layer.sign_calib = {
+                    "mask": mask,
+                    "hist": np.bincount(m_tb, minlength=cap + 2),
+                    "hist_raw": np.bincount(m_raw, minlength=cap + 2),
+                }
+        elif q.mode == Activation.RELU:
+            bound = int(np.abs(pre).max())
+            layer.measured_chan_interval = (
+                pre.min(axis=(0, 1, 2)).astype(np.int64),
+                pre.max(axis=(0, 1, 2)).astype(np.int64),
+            )
+        layer.measured_pre_bound = bound
+        bounds.append(bound)
+        x = rp.layer_forward_ptxt(layer, x)
+    return bounds
 
 
 def _phi(z: np.ndarray) -> np.ndarray:
@@ -263,6 +317,7 @@ def resolve_pbs_ranges(
     model: ModelPlan, msg_space: int, strict: bool = True,
     gains: bool = True, gain_headroom: float = 2.0,
     input_gain: bool = False, sigma_units: Optional[float] = None,
+    relu_mode: Optional[str] = None,
 ) -> Dict[int, PbsRange]:
     """Pick the relu implementation, per-edge encoding gains, and guard
     every PBS boundary.
@@ -281,7 +336,14 @@ def resolve_pbs_ranges(
     sign1024x1: 59% of hidden-layer pre-activations sit within +-1 sigma of
     the boundary at unit encoding; at g=8 almost none do.  Gains need
     calibrated or tight certified bounds — with only loose worst-case
-    bounds they stay 1 and behavior is unchanged."""
+    bounds they stay 1 and behavior is unchanged.
+
+    ``relu_mode``: "quarter" or "full" forces that relu implementation on
+    every relu layer (None: chosen per layer from the scaled bound).  "full"
+    is 3x the relu PBS cost, but disagreements from mod-switch noise near the
+    quarter-range seam disappear."""
+    if relu_mode not in (None, "quarter", "full"):
+        raise ValueError(f"relu_mode must be None, 'quarter' or 'full', got {relu_mode!r}")
     certified = certified_pbs_bounds(model)
     out: Dict[int, PbsRange] = {}
     quarter, half = msg_space // 4, msg_space // 2
@@ -454,7 +516,8 @@ def resolve_pbs_ranges(
         q = layer.quant
         eff = r.scaled()
         if q.mode == Activation.RELU:
-            r.relu_mode = "quarter" if (eff is not None and eff < quarter) else "full"
+            r.relu_mode = relu_mode or (
+                "quarter" if (eff is not None and eff < quarter) else "full")
         if r.expected_flip_rate is not None:
             # flip-optimal gain: wraps beyond the budget are DELIBERATE and
             # accounted in expected_flip_rate — the max-bound guard is

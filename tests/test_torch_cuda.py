@@ -17,6 +17,7 @@ from redsec_tpu_torch.crypto import bootstrap as bs
 from redsec_tpu_torch.crypto import kernels as K
 from redsec_tpu_torch.crypto import keygen as kg
 from redsec_tpu_torch.crypto import lwe
+from redsec_tpu_torch.crypto import probe_kernels as PK
 from redsec_tpu_torch.crypto.params import TEST_NOISELESS as P
 
 pytestmark = pytest.mark.cuda
@@ -82,3 +83,58 @@ def test_wrappers_reject_what_the_kernels_do_not_take(key):
         K.external_product(digits, bk, dkey.plan)
     with pytest.raises(ValueError, match="dtype"):
         K.ntt(digits[0].to(torch.int64), dkey.plan, 0)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+@pytest.mark.parametrize("N", [256, 1024])
+def test_rotation_kernels_equal_twin(card, N):
+    rng = np.random.default_rng(3)
+    B = 128
+    x = _ri(rng, -2**31, 2**31, (B, 2, N))
+    x[:, 0, 0] = -2**31  # negates to itself
+    t = _ri(rng, 0, 2 * N, (B,))
+    t[:6] = torch.tensor([0, 1, N - 1, N, N + 1, 2 * N - 1], dtype=torch.int32)
+    want = PK.rotate_plain(x, t)
+    before = {k: K.launches.get(k) for k in ("rotate_rows", "rotate_tile")}
+    assert torch.equal(PK.rotate_rows(x, t), want)
+    for tile in (1, 64, 128):
+        assert torch.equal(PK.rotate_tile(x, t, tile), want)
+    assert K.launches.get("rotate_rows") == before["rotate_rows"] + 1
+    assert K.launches.get("rotate_tile") == before["rotate_tile"] + 3
+    # any int32 exponent acts as t mod 2N, as in the twin
+    far = t - 6 * N
+    assert torch.equal(PK.rotate_rows(x, far), want)
+    assert torch.equal(PK.rotate_tile(x, far, 64), want)
+
+
+def test_toeplitz_kernel_equals_twin(card):
+    w = _ri(np.random.default_rng(4), -2**31, 2**31, (1, 256))
+    before = K.launches.get("toeplitz_tile")
+    assert torch.equal(PK.toeplitz_tile(w), PK.toeplitz_tile_plain(w))
+    assert K.launches.get("toeplitz_tile") == before + 1
+
+
+def test_probe_wrappers_reject_what_the_kernels_do_not_take(card):
+    x = torch.zeros((128, 2, 256), dtype=torch.int32, device="cuda")
+    t = torch.zeros((128,), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        PK.rotate_tile(x, t, tile=48)
+    with pytest.raises(ValueError, match="dtype"):
+        PK.rotate_rows(x.to(torch.int64), t)
+    with pytest.raises(ValueError, match="dtype"):
+        PK.rotate_tile(x, t.to(torch.int64), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.rotate_rows(x.transpose(1, 2).contiguous().transpose(1, 2), t)
+    with pytest.raises(ValueError, match="on cpu"):
+        PK.rotate_rows(x, t.cpu())
+    with pytest.raises(ValueError, match=r"\[B, 2, N\]"):
+        PK.rotate_rows(x[:, :1].contiguous(), t)
+    with pytest.raises(ValueError, match="shape"):
+        PK.toeplitz_tile(torch.zeros((1, 128), dtype=torch.int32, device="cuda"))
+    with pytest.raises(ValueError, match="contiguous"):
+        PK.toeplitz_tile(torch.zeros((1, 512), dtype=torch.int32, device="cuda")[:, ::2])

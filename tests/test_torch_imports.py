@@ -29,6 +29,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import sys\n"
         "import redsec_tpu_torch, redsec_tpu_torch.convert\n"
         "import redsec_tpu_torch.runtime.encrypted, redsec_tpu_torch.crypto.kernels\n"
+        "import redsec_tpu_torch.runtime.calibration, redsec_tpu_torch.crypto.probe_kernels\n"
+        "import redsec_tpu_torch.scripts.bench_rotate, redsec_tpu_torch.scripts.bench_schoolbook\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'redsec_tpu' or m.startswith('redsec_tpu.'))\n"
         "print(','.join(bad))\n"
