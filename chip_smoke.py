@@ -14,26 +14,33 @@ Phases (any failure exits non-zero):
 3. Kernel phase: each kernel against its plain PyTorch twin on the card, on
    the same inputs.  At ``small_v2_tpu`` shapes the NTT runs at every row
    count key preparation gives it, the blind rotation at every batch the
-   forwards give it (full and partial PBS chunks); the round kernels, which
-   the model paths run only inside the blind rotation, on 64 ciphertexts.
-   The rotation probes (one block a row; a block per tile of 64 and of 256
-   rows) run on [512, 2, 1024] and on a batch of 64, the Toeplitz probe on
-   its one shape.  Tolerance: exact equality (every kernel is integer
-   arithmetic mod p or mod 2^32).  Prints each kernel's and twin's time
-   (CUDA events) at its path's largest shape, the least time the card could
-   take for the same work and, for the probes, the time of the one PyTorch
-   call that computes the same function (a gather over the doubled
-   polynomial; ``torch.take`` with a fixed index table).
+   forwards give it (full and partial PBS chunks) and at batches of 133, 5
+   and 1 (a ragged last block; one ciphertext a block); the round kernels,
+   which the model paths run only inside the blind rotation, on 64
+   ciphertexts.  The rotation probes (one block a row; tiles of 64 and of
+   256 rows, each dealt out over enough blocks to fill the card) run on
+   [512, 2, 1024] and on a batch of 64, the Toeplitz probe on its one shape.
+   Tolerance: exact equality (every kernel is integer arithmetic mod p or
+   mod 2^32).  Prints each kernel's and twin's time (CUDA events) at its
+   path's largest shape (the blind rotation's also at the smallest batch of
+   the path, with the ciphertexts a block it chose, the registers and spills
+   ptxas reports for that build, and the dynamic shared memory of the launch
+   as the C entry computes it: ptxas sees none of it and reports 0), the
+   least time the card could take for the same work and, for the probes, the
+   time of the one PyTorch call that computes the same function (a gather
+   over the doubled polynomial; ``torch.take`` with a fixed index table).
 4. Sign slice: keygen ``small_v2_tpu`` (seed 0) -> ``prepare_cloud_key`` on
    the card -> ``mnist/sign1024x1`` with the golden reference weights ->
-   encrypt a batch of synthetic images (numpy seed 1) -> encrypted forward ->
-   decrypt.  The launch counters are zeroed just before and read just
-   after; the run fails unless the NTT kernel prepared the key and the
-   blind-rotation kernel ran every PBS chunk.  The key prepared through the
-   NTT twin must equal the kernel's, and the forward through the plain
-   twins, on the first and the last image, must be bit-identical.  Argmax
-   agreement with the plaintext oracle is printed for information: the real
-   mod-switch noise flips near-boundary signs.
+   encrypt a batch of synthetic images (numpy seed 1) -> encrypted forward
+   (timed after two one-image warm-up forwards, whose times are printed: the
+   first pays the process's start-up on the card) -> decrypt.  The launch
+   counters are zeroed just before and read just after; the run fails
+   unless the NTT kernel prepared the key and the blind-rotation kernel ran
+   every PBS chunk.  The key prepared through the NTT twin must equal the
+   kernel's, and the forward through the plain twins, on the first and the
+   last image, must be bit-identical.  Argmax agreement with the plaintext
+   oracle is printed for information: the real mod-switch noise flips
+   near-boundary signs.
 5. Relu slice: ``mnist/relu1024x1`` with its trained weights and calibration
    artifact (``nets_trained/mnist/relu1024x1``), same key, the same raw
    pixels thinned to MNIST's share of ink and mapped to the relu nets'
@@ -61,6 +68,7 @@ import concurrent.futures
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -98,22 +106,6 @@ def default_arg(fn, name: str):
     return inspect.signature(fn).parameters[name].default
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean time of ``fn()`` on the card over ``reps`` calls, CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 # --------------------------------------------------------------------------- #
 # Work counts: the least bytes and int32 operations each kernel's function    #
 # needs, from its shapes.  Each input is read once and each output written    #
@@ -147,23 +139,46 @@ def bound(bytes_: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def ptxas_usage(ptxas: str, entry: str) -> tuple[int, int]:
+    """Registers a thread and bytes spilled (stores + loads) that ``nvcc
+    -Xptxas -v`` reports for the kernel whose mangled name contains ``entry``."""
+    lines = ptxas.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and entry in line:
+            block = "\n".join(lines[i:i + 5])
+            regs = re.search(r"Used (\d+) registers", block)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", block)
+            if regs and spill:
+                return int(regs.group(1)), int(spill.group(1)) + int(spill.group(2))
+    fail(f"the compiler's report has no entry for {entry}")
+
+
 def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
     """Mean device time, per call of ``fn``, of the CUDA kernels whose name
     contains ``kernel`` over ``reps`` calls (torch.profiler): what the card
     spends, where CUDA events around a small kernel time the host's enqueue.
-    A named kernel must run once a call; ``""`` sums every kernel of a
+    The tracer may miss the first launch after it starts, so it starts one
+    step early: a warm-up step of one call, whose events the profiler drops,
+    then the ``reps`` calls it records.  A named kernel runs once a call and
+    must be seen exactly ``reps`` times.  ``""`` sums every kernel of a
     PyTorch call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
+        torch.cuda.synchronize()  # leaving the context ends the recorded step and keeps it
+    # the step's own annotation also has a span on the device's timeline
     evs = [e for e in prof.key_averages()
-           if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
+           if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
     seen = sum(e.count for e in evs)
     if seen == 0 or (kernel and seen != reps):
         fail(f"the profiler saw {seen} launches of {kernel or 'any kernel'} in {reps} calls")
@@ -225,7 +240,7 @@ def main() -> int:
     from redsec_tpu_torch.crypto import keygen as kg
     from redsec_tpu_torch.crypto import probe_kernels as PK
     from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
-    from redsec_tpu_torch.device import launches
+    from redsec_tpu_torch.device import cuda_ms, launches
     from redsec_tpu_torch.formats.image_io import pixel_transform_for
     from redsec_tpu_torch.models.spec import prep_model
     from redsec_tpu_torch.models.zoo import get_model
@@ -253,7 +268,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = [K.SOURCE, PK.SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        ptxas = "".join(pool.map(K.build_library, sources))
+        ptxas = "".join(pool.map(lambda src: K.build_library(src, force=True), sources))
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
         f.write(ptxas)
     print(f"build: {time.perf_counter() - t0:.1f} s for {len(sources)} sources in parallel "
@@ -384,9 +399,12 @@ def main() -> int:
            2 * acc.numel() * 4 + M * 4 + bk0.numel() * 2, M * cmux_ops(rows, N),
            "redsec_tpu/crypto/pallas_round.py:254")
 
-    # K4 over all n rounds, at every batch the forward gives it; timed at the
-    # full chunk
-    for B4 in k4_batches:
+    # K4 over all n rounds, at every batch the forward gives it and at batches
+    # that take the one-ciphertext-a-block path (1, 5) or end on a ragged
+    # block (133); timed at the full chunk and at the smallest of the path
+    k4_timed = (k4_batches[0], k4_batches[-1])
+    k4_ms, k4_group = {}, {}
+    for B4 in k4_batches + [133, 5, 1]:
         acc0 = ri(-2**31, 2**31, (B4, 2, N))
         abar = ri(0, 2 * N, (B4, n))
         got = K.blind_rotate(acc0, abar, dkey.bk, P, plan)
@@ -396,13 +414,25 @@ def main() -> int:
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
         err = same(f"blind_rotate batch {B4}", got, want)
+        k4_group[B4] = K.blind_rotate_group(B4, P)
+        if B4 in k4_timed:
+            k4_ms[B4] = cuda_ms(lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan), 3)
         if B4 == k4_batches[0]:
-            ms = cuda_ms(lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan), 3)
-            report("blind_rotate", [B4, 2, N], err, ms, pms,
-                   dkey.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
-                   B4 * n * cmux_ops(rows, N), "redsec_tpu/crypto/pallas_blind.py:60")
-        else:
-            print(f"kernel blind_rotate [{B4}, 2, {N}]: bit-identical to twin", flush=True)
+            k4_rec = dict(shape=[B4, 2, N], err=err, pms=pms,
+                          bytes_=dkey.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
+                          ops=B4 * n * cmux_ops(rows, N))
+        print(f"kernel blind_rotate [{B4}, 2, {N}]: bit-identical to twin, "
+              f"{k4_group[B4]} ciphertexts a block" +
+              (f", {k4_ms[B4]:.4f} ms" if B4 in k4_ms else ""), flush=True)
+    build = {f"ciphertexts_per_block_{B4}": k4_group[B4] for B4 in k4_timed}
+    for g in sorted(set(build.values())):  # what ptxas says of each instantiation in use
+        build[f"registers_g{g}"], build[f"spill_bytes_g{g}"] = ptxas_usage(
+            ptxas, f"blind_rotate_kernelILi{N}ELi{g}E")
+        build[f"shared_bytes_g{g}"] = K.blind_rotate_shared_bytes(P, g)
+    report("blind_rotate", k4_rec["shape"], k4_rec["err"], k4_ms[k4_timed[0]], k4_rec["pms"],
+           k4_rec["bytes_"], k4_rec["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
+           **{f"ms_batch{k4_timed[1]}": k4_ms[k4_timed[1]]}, **build)
+    print(f"kernel blind_rotate build: {build}", flush=True)
     del acc0, abar, got, want
 
     # K5, K6: the rotation probes at the bench script's shape and at a batch
@@ -441,8 +471,8 @@ def main() -> int:
                device_ms_tile256=kernel_device_ms(lambda: PK.rotate_tile(x5, t5, 256),
                                                   "rotate_tile_kernel"))
         print(f"kernel rotate_tile tile 256: {ms256:.4f} ms, on the device alone "
-              f"{rec['rotate_tile']['device_ms_tile256']:.4f} ms ({B5 // 256} blocks for "
-              f"the card's 132 SMs)", flush=True)
+              f"{rec['rotate_tile']['device_ms_tile256']:.4f} ms ({B5 // 256} tiles, their "
+              f"rows dealt out over two blocks an SM)", flush=True)
 
     # K7: the Toeplitz tile, its one shape
     w7 = ri(-2**31, 2**31, (1, 2 * PK.TOEPLITZ_TILE))
@@ -479,7 +509,23 @@ def main() -> int:
     raw = rng.integers(0, 256, size=(BATCH, 28, 28, 1))
     images = pixel_transform_for(model.name)(raw)
 
-    del dkey
+    # one image through the forward before the counted run, with the key the
+    # kernel phase prepared: the first forward of a process pays for cuBLAS's
+    # handle and the allocator's first blocks (a quarter of a second)
+    wfwd = build_encrypted_forward(mplan, dkey)
+    wct = encrypt_images(sk, images[:1], P, np.random.default_rng(9), gain=wfwd.in_gain)
+    warm_s = []
+    for _ in range(2):  # the first pays the start-up, the second is one image as it runs after
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wfwd(wct)
+        torch.cuda.synchronize()
+        warm_s.append(time.perf_counter() - t0)
+    print(f"warm-up: first one-image forward {warm_s[0]:.3f} s, second {warm_s[1]:.3f} s "
+          f"(start-up cost {warm_s[0] - warm_s[1]:.3f} s, outside the slice's timed span)",
+          flush=True)
+    del wct
+    del wfwd, dkey
     torch.cuda.empty_cache()
     launches.reset()
     t0 = time.perf_counter()

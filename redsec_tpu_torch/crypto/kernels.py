@@ -50,14 +50,14 @@ KERNEL_N = (256, 512, 1024)  # N the kernels are instantiated for
 
 
 def _plan_ok(plan: ntt_mod.NttPlan) -> bool:
-    return (len(plan.primes) == 2 and all(p < (1 << 15) for p in plan.primes)
+    return (len(plan.primes) == 2 and plan.primes[0] < plan.primes[1] < (1 << 15)
             and plan.N in KERNEL_N)
 
 
 def supported(params: TfheParams, plan: ntt_mod.NttPlan) -> bool:
     """Whether the CUDA kernels take this parameter set and NTT plan: two
     primes below 2^15 (residues fit int16, products fit uint32) and an N they
-    are instantiated for (one thread per butterfly, N/2 threads a block)."""
+    are instantiated for (N/16 threads a polynomial, N/2 threads a block)."""
     return _plan_ok(plan) and params.l * params.bg_bit <= 32
 
 
@@ -74,13 +74,14 @@ def library_path(source: str) -> str:
     return os.path.join(BUILD_DIR, f"libredsec_{stem}.so")
 
 
-def build_library(source: str) -> str:
+def build_library(source: str, force: bool = False) -> str:
     """Compile one CUDA source into its ``library_path`` unless that is up to
-    date.  Returns the compiler's messages (``-Xptxas -v``: registers, shared
-    memory, spills per kernel), empty when nothing was built.  Raises with
-    the compiler's output if nvcc fails."""
+    date (``force`` compiles anyway).  Returns the compiler's messages
+    (``-Xptxas -v``: registers, shared memory, spills per kernel), empty when
+    nothing was built.  Raises with the compiler's output if nvcc fails."""
     lib = library_path(source)
-    if os.path.exists(lib) and os.path.getmtime(lib) >= os.path.getmtime(source):
+    if (not force and os.path.exists(lib)
+            and os.path.getmtime(lib) >= os.path.getmtime(source)):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
@@ -95,7 +96,8 @@ def build_library(source: str) -> str:
 
 class Library:
     """A built and loaded shared library of one CUDA source.  ``entries`` maps
-    each C function's name to its argtypes; every entry returns the
+    each C function's name to its argtypes (all return int); an entry that
+    launches a kernel takes the stream last and returns the
     ``cudaGetLastError()`` of its launch, and the source exports
     ``redsec_error_string``."""
 
@@ -104,16 +106,29 @@ class Library:
         lib = ctypes.CDLL(library_path(source))
         lib.redsec_error_string.argtypes = [ctypes.c_int]
         lib.redsec_error_string.restype = ctypes.c_char_p
+        self.fn = {}
         for name, argtypes in entries.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            self.fn[name] = fn
         self.lib = lib
 
-    def check(self, name: str, code: int) -> None:
+    def launch(self, entry: str, kernel: str, dev: torch.device, *args) -> None:
+        """Call ``entry(*args, stream)`` on ``dev``'s current stream, raise on
+        a non-zero ``cudaGetLastError()`` and add one to ``kernel``'s launch
+        count.  The device guard is entered only when ``dev`` is not already
+        the current device."""
+        fn = self.fn[entry]
+        if dev.index == torch.cuda.current_device():
+            code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        else:
+            with torch.cuda.device(dev):
+                code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         if code != 0:
             msg = self.lib.redsec_error_string(code).decode()
-            raise RuntimeError(f"CUDA kernel {name} failed: {msg} ({code})")
+            raise RuntimeError(f"CUDA kernel {kernel} failed: {msg} ({code})")
+        launches.bump(kernel)
 
 
 _P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
@@ -122,6 +137,8 @@ _ENTRIES = {
     "redsec_external_product": [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     "redsec_cmux_round": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
     "redsec_blind_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],
+    "redsec_blind_rotate_group": [_I, _I, _I],
+    "redsec_blind_rotate_shared_bytes": [_I, _I, _I],
 }
 _loaded: list[Library] = []
 
@@ -130,10 +147,6 @@ def _lib() -> Library:
     if not _loaded:
         _loaded.append(Library(SOURCE, _ENTRIES))
     return _loaded[0]
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -150,28 +163,41 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 def _require_cuda_plan(plan: ntt_mod.NttPlan) -> None:
     if not _plan_ok(plan):
-        raise ValueError(f"CUDA kernels take 2 primes < 2^15 and N in {KERNEL_N}; "
+        raise ValueError(f"CUDA kernels take 2 ascending primes < 2^15 and N in {KERNEL_N}; "
                          f"got primes {plan.primes}, N={plan.N}")
+
+
+def shoup_tables(plan: ntt_mod.NttPlan) -> np.ndarray:
+    """uint32 [P, 4, N, 2]: the kernels' twiddles as pairs (w, w') with
+    w' = floor(w * 2^32 / p), the Shoup companion that turns x * w mod p into
+    one high product and two low ones.  Tables per prime, values and order of
+    ``plan``: 0 twist, 1 forward stage tables concatenated (the stage of
+    half-span h = N >> (s + 1) at offset N - 2h), 2 untwist (psi^-j / N),
+    3 inverse stage tables concatenated (half-span h = 2^s at offset h - 1).
+    The last entry of tables 1 and 3 is unused (0)."""
+    N = plan.N
+    w = np.zeros((len(plan.primes), 4, N), np.uint64)
+    for pi in range(len(plan.primes)):
+        w[pi, 0] = plan.twist[pi]
+        w[pi, 1, :N - 1] = np.concatenate(plan.fwd_tabs[pi])
+        w[pi, 2] = plan.untwist[pi]
+        w[pi, 3, :N - 1] = np.concatenate(plan.inv_tabs[pi])
+    p = np.asarray(plan.primes, np.uint64)[:, None, None]
+    return np.stack([w, (w << np.uint64(32)) // p], axis=-1).astype(np.uint32)
 
 
 _TABLES: dict = {}
 
 
 def kernel_tables(plan: ntt_mod.NttPlan, device) -> torch.Tensor:
-    """int32 [P, 4, N] twiddles in the kernels' layout: twist, forward stage
-    tables concatenated (stage s at N - (N >> s)), untwist, inverse stage
-    tables concatenated (stage s at 2^s - 1)."""
-    key = (plan.N, plan.primes, str(device))
-    if key not in _TABLES:
-        N = plan.N
-        out = np.zeros((len(plan.primes), 4, N), np.int64)
-        for pi in range(len(plan.primes)):
-            out[pi, 0] = plan.twist[pi]
-            out[pi, 1, :N - 1] = np.concatenate(plan.fwd_tabs[pi])
-            out[pi, 2] = plan.untwist[pi]
-            out[pi, 3, :N - 1] = np.concatenate(plan.inv_tabs[pi])
-        _TABLES[key] = torch.as_tensor(out.astype(np.int32), device=device)
-    return _TABLES[key]
+    """``shoup_tables(plan)`` on ``device`` as int32 [P, 4, N, 2] (the bit
+    patterns of the uint32 pairs), built once per plan and device."""
+    key = (plan.N, plan.primes, device)
+    tabs = _TABLES.get(key)
+    if tabs is None:
+        tabs = torch.as_tensor(shoup_tables(plan).view(np.int32), device=device)
+        _TABLES[key] = tabs
+    return tabs
 
 
 # --------------------------------------------------------------------------- #
@@ -195,12 +221,9 @@ def ntt(x: torch.Tensor, plan: ntt_mod.NttPlan, pi: int,
     _require(x, "x", torch.int32, (M, plan.N), x.device)
     tabs = kernel_tables(plan, x.device)
     y = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        code = lib.lib.redsec_ntt(x.data_ptr(), y.data_ptr(), tabs[pi].data_ptr(), M,
-                                  plan.N, plan.primes[pi], int(inverse), _stream(x))
-    lib.check("ntt", code)
-    launches.bump("ntt")
+    tab = tabs.data_ptr() + pi * 4 * plan.N * 8  # this prime's [4, N, 2] int32
+    _lib().launch("redsec_ntt", "ntt", x.device, x.data_ptr(), y.data_ptr(), tab, M,
+                  plan.N, plan.primes[pi], int(inverse))
     return y
 
 
@@ -252,14 +275,9 @@ def external_product(digits: torch.Tensor, bk_round: torch.Tensor,
     _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, N), dev)
     tabs = kernel_tables(plan, dev)
     delta = torch.empty((M, 2, N), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        code = lib.lib.redsec_external_product(
-            digits.data_ptr(), bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N,
-            tabs.data_ptr(), delta.data_ptr(), M, N, rows, plan.primes[0], plan.primes[1],
-            _stream(digits))
-    lib.check("external_product", code)
-    launches.bump("external_product")
+    _lib().launch("redsec_external_product", "external_product", dev, digits.data_ptr(),
+                  bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs.data_ptr(),
+                  delta.data_ptr(), M, N, rows, plan.primes[0], plan.primes[1])
     return delta
 
 
@@ -294,14 +312,9 @@ def cmux_round(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
     _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, N), dev)
     tabs = kernel_tables(plan, dev)
     out = torch.empty_like(acc)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        code = lib.lib.redsec_cmux_round(
-            acc.data_ptr(), t.data_ptr(), bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N,
-            tabs.data_ptr(), out.data_ptr(), M, N, *_gadget_args(params),
-            plan.primes[0], plan.primes[1], _stream(acc))
-    lib.check("cmux_round", code)
-    launches.bump("cmux_round")
+    _lib().launch("redsec_cmux_round", "cmux_round", dev, acc.data_ptr(), t.data_ptr(),
+                  bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs.data_ptr(),
+                  out.data_ptr(), M, N, *_gadget_args(params), plan.primes[0], plan.primes[1])
     return out
 
 
@@ -333,12 +346,19 @@ def blind_rotate(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
     _require(bk, "bk", torch.int16, (2, n, rows, 2 * bs.BK_LIMBS, N), dev)
     tabs = kernel_tables(plan, dev)
     out = torch.empty_like(acc0)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        code = lib.lib.redsec_blind_rotate(
-            acc0.data_ptr(), abar.data_ptr(), bk.data_ptr(), tabs.data_ptr(),
-            out.data_ptr(), B, n, N, *_gadget_args(params), plan.primes[0],
-            plan.primes[1], _stream(acc0))
-    lib.check("blind_rotate", code)
-    launches.bump("blind_rotate")
+    _lib().launch("redsec_blind_rotate", "blind_rotate", dev, acc0.data_ptr(),
+                  abar.data_ptr(), bk.data_ptr(), tabs.data_ptr(), out.data_ptr(), B, n, N,
+                  *_gadget_args(params), plan.primes[0], plan.primes[1])
     return out
+
+
+def blind_rotate_group(batch: int, params: TfheParams) -> int:
+    """Ciphertexts one block of K4 owns at this batch on the current card
+    (what the C entry chooses: 2 when the batch exceeds the SM count, so
+    that one key load serves both, else 1)."""
+    return _lib().fn["redsec_blind_rotate_group"](batch, params.N, params.l)
+
+
+def blind_rotate_shared_bytes(params: TfheParams, group: int) -> int:
+    """Dynamic shared memory of one K4 block that owns ``group`` ciphertexts."""
+    return _lib().fn["redsec_blind_rotate_shared_bytes"](params.N, params.l, group)

@@ -27,8 +27,7 @@ import os
 
 import torch
 
-from ..device import launches
-from .kernels import _I, _P, _PKG, Library, _require, _stream
+from .kernels import _I, _P, _PKG, Library, _require
 
 SOURCE = os.path.join(_PKG, "csrc", "probes.cu")
 TOEPLITZ_TILE = 128  # the tile is [128, 128], cut from one doubled row of 256
@@ -79,30 +78,24 @@ def rotate_rows(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return rotate_plain(x, t)
     _check_rotation(x, t)
     out = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        code = lib.lib.redsec_rotate_rows(x.data_ptr(), t.data_ptr(), out.data_ptr(),
-                                          x.shape[0], x.shape[2], _stream(x))
-    lib.check("rotate_rows", code)
-    launches.bump("rotate_rows")
+    _lib().launch("redsec_rotate_rows", "rotate_rows", x.device, x.data_ptr(), t.data_ptr(),
+                  out.data_ptr(), x.shape[0], x.shape[2])
     return out
 
 
 def rotate_tile(x: torch.Tensor, t: torch.Tensor, tile: int = 64) -> torch.Tensor:
-    """K6: see ``rotate_plain``.  One block per ``tile`` batch rows, looping
-    over them; the batch must be a multiple of ``tile`` (on either device)."""
+    """K6: see ``rotate_plain``.  The batch is cut into tiles of ``tile``
+    rows; a tile's rows are dealt out over as many blocks as fill the card,
+    each staging its rows' exponents in shared memory and looping over them.
+    The batch must be a multiple of ``tile`` (on either device)."""
     if tile <= 0 or x.shape[0] % tile != 0:
         raise ValueError(f"batch {x.shape[0]} is not a multiple of the tile {tile}")
     if x.device.type == "cpu":
         return rotate_plain(x, t)
     _check_rotation(x, t)
     out = torch.empty_like(x)
-    lib = _lib()
-    with torch.cuda.device(x.device):
-        code = lib.lib.redsec_rotate_tile(x.data_ptr(), t.data_ptr(), out.data_ptr(),
-                                          x.shape[0], x.shape[2], tile, _stream(x))
-    lib.check("rotate_tile", code)
-    launches.bump("rotate_tile")
+    _lib().launch("redsec_rotate_tile", "rotate_tile", x.device, x.data_ptr(), t.data_ptr(),
+                  out.data_ptr(), x.shape[0], x.shape[2], tile)
     return out
 
 
@@ -126,9 +119,6 @@ def toeplitz_tile(w: torch.Tensor) -> torch.Tensor:
         return toeplitz_tile_plain(w)
     _require(w, "w", torch.int32, (1, 2 * TOEPLITZ_TILE), w.device)
     out = torch.empty((TOEPLITZ_TILE, TOEPLITZ_TILE), dtype=torch.int32, device=w.device)
-    lib = _lib()
-    with torch.cuda.device(w.device):
-        code = lib.lib.redsec_toeplitz_tile(w.data_ptr(), out.data_ptr(), _stream(w))
-    lib.check("toeplitz_tile", code)
-    launches.bump("toeplitz_tile")
+    _lib().launch("redsec_toeplitz_tile", "toeplitz_tile", w.device, w.data_ptr(),
+                  out.data_ptr())
     return out

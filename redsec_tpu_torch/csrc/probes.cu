@@ -20,10 +20,16 @@
 // could see a negative value.  Any int32 t is accepted and acts as t mod 2N.
 //
 // rotate_rows: one block per batch row, as the TPU grid has one program per
-// row.  rotate_tile: one block per T rows with the tile's exponents staged
-// in shared memory and a loop over the rows, as the TPU kernel's fori_loop;
-// T is a launch argument.  Stores are coalesced (thread k writes element k);
-// loads are coalesced up to the row's shift.
+// row; stores are coalesced (thread k writes element k), loads are coalesced
+// up to the row's shift.  rotate_tile: the batch is cut into tiles of T rows
+// (a launch argument) as the TPU kernel's grid; a block stages its rows'
+// exponents in shared memory and loops over the rows, as the TPU kernel's
+// fori_loop.  One block a tile leaves the card empty (8 blocks at T = 64, 2
+// at T = 256 for 132 SMs), so the grid's second dimension deals a tile's rows
+// out over S blocks (block (i, s) takes rows s, s + S, ... of tile i), with S
+// chosen at launch so that there are at least two blocks an SM.  Each thread
+// writes four neighbouring outputs as one 16-byte store where N is a
+// multiple of 4; their sources are neighbours too, up to the wrap at N.
 //
 // The Toeplitz probe expands one doubled key row w[256] into the tile
 // out[j, k] = w[(127 + k - j) mod 256] (the TPU's strided roll: row j rolled
@@ -73,15 +79,44 @@ __global__ void rotate_rows_kernel(const uint32_t* __restrict__ x, const int32_t
   rotate_row(x + row, out + row, mod_2n(t[blockIdx.x], N), N);
 }
 
+// Four outputs k .. k + 3 of one row as one 16-byte store.
+__device__ __forceinline__ void rotate_row4(const uint32_t* __restrict__ x,
+                                            uint32_t* __restrict__ out, int tm, int N) {
+  for (int k = 4 * threadIdx.x; k < N; k += 4 * blockDim.x) {
+    uint32_t v[2][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      int src = k + e - tm;  // in (-2N, N)
+      if (src < 0) src += 2 * N;
+      const bool neg = src >= N;
+      const int j = neg ? src - N : src;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const uint32_t w = x[c * N + j];
+        v[c][e] = neg ? 0u - w : w;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      *reinterpret_cast<uint4*>(out + c * N + k) = make_uint4(v[c][0], v[c][1], v[c][2], v[c][3]);
+  }
+}
+
+// Block (i, s) of a (B / T, S) grid: rows s, s + S, ... of tile i.
 __global__ void rotate_tile_kernel(const uint32_t* __restrict__ x, const int32_t* __restrict__ t,
                                    uint32_t* __restrict__ out, int N, int T) {
-  extern __shared__ int ts[];  // the tile's exponents, T ints
+  extern __shared__ int ts[];  // this block's exponents, ceil(T / S) ints
+  const int S = gridDim.y, s = blockIdx.y;
   const long long first = static_cast<long long>(blockIdx.x) * T;
-  for (int r = threadIdx.x; r < T; r += blockDim.x) ts[r] = mod_2n(t[first + r], N);
+  const int mine = (T - s + S - 1) / S;  // rows of the tile that fall to this block
+  for (int r = threadIdx.x; r < mine; r += blockDim.x) ts[r] = mod_2n(t[first + s + r * S], N);
   __syncthreads();
-  for (int r = 0; r < T; ++r) {
-    const long long row = (first + r) * 2 * N;
-    rotate_row(x + row, out + row, ts[r], N);
+  for (int r = 0; r < mine; ++r) {
+    const long long row = (first + s + r * S) * 2 * N;
+    if (N % 4 == 0)
+      rotate_row4(x + row, out + row, ts[r], N);
+    else
+      rotate_row(x + row, out + row, ts[r], N);
   }
 }
 
@@ -107,12 +142,22 @@ int redsec_rotate_rows(const int32_t* x, const int32_t* t, int32_t* out, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6: the same function, one block per tile of T rows; B must be a multiple of T.
+// K6: the same function by tiles of T rows, each tile's rows dealt out over S
+// blocks; B must be a multiple of T.
 int redsec_rotate_tile(const int32_t* x, const int32_t* t, int32_t* out, int B, int N, int T,
                        cudaStream_t stream) {
-  if (B <= 0 || N <= 0 || N > (1 << 29) || T <= 0 || B % T != 0 || T > 12288)
+  if (B <= 0 || N <= 0 || N > (1 << 29) || T <= 0 || B % T != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  rotate_tile_kernel<<<B / T, kRotateThreads, T * sizeof(int), stream>>>(
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = B / T;
+  int S = (2 * sms + tiles - 1) / tiles;  // at least two blocks an SM, at most one a row
+  S = S > T ? T : S;
+  const size_t bytes = sizeof(int) * ((T + S - 1) / S);
+  if (bytes > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  rotate_tile_kernel<<<dim3(tiles, S), kRotateThreads, bytes, stream>>>(
       reinterpret_cast<const uint32_t*>(x), t, reinterpret_cast<uint32_t*>(out), N, T);
   return static_cast<int>(cudaGetLastError());
 }

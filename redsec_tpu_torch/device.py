@@ -1,4 +1,4 @@
-"""Device resolution and kernel launch counters.
+"""Device resolution, kernel launch counters and the CUDA-event timer.
 
 Every entry point of the package takes ``device`` and defaults to ``"cuda"``;
 asking for CUDA where PyTorch has none raises instead of quietly running on the
@@ -43,6 +43,21 @@ class LaunchCounter:
 
 
 launches = LaunchCounter()
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean time of ``fn()`` on the card over ``reps`` calls, CUDA events,
+    after ``warmup`` untimed calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def int32_matmul(x: torch.Tensor, w: torch.Tensor, w_max: int) -> torch.Tensor:

@@ -11,8 +11,9 @@ raises):
   select-r4     radix-4: 6 stages of 4-way select
   ext-circ      doubled-poly circular shifts (no per-stage negation)
   cuda-rows     the ``rotate_rows`` kernel, one block per batch row
-  cuda-tile64   the ``rotate_tile`` kernel, a block per 64 rows with a row loop
-  cuda-tile256  the same with 256 rows a block
+  cuda-tile64   the ``rotate_tile`` kernel, tiles of 64 rows, each tile's rows
+                dealt out over blocks that loop over theirs
+  cuda-tile256  the same with tiles of 256 rows
 
 The first three are plain PyTorch; the last three are the CUDA kernels of
 ``csrc/probes.cu`` (on ``--device cpu`` their wrappers run the plain twin,

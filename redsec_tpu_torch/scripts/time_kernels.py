@@ -1,0 +1,101 @@
+"""Time the blind-rotation kernels K1-K4 of one checkout on the card.
+
+    python -m redsec_tpu_torch.scripts.time_kernels
+    python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent
+
+``--root`` names the checkout whose ``redsec_tpu_torch`` is imported (default:
+the one this file lies in), so two checkouts can be timed one after the other
+inside one call on one card, which is the only way their times compare.  Only
+the wrappers' public signatures are used (the timer is this checkout's
+``device.cuda_ms`` whichever checkout is timed).  Every kernel is first held
+against its plain twin (exact equality), then timed with CUDA events: K1 at
+[6144, 1024], K2 and K3 on 64 ciphertexts, K4 at a full chunk of 512 and at 32.
+One JSON line per run ends the output.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+K4_BATCHES = (512, 32)  # a full PBS chunk and the smallest chunk of the model paths
+K4_REPS = 3
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
+                    help="checkout to import redsec_tpu_torch from")
+    ap.add_argument("--tag", default="change", help="name of this checkout in the output")
+    args = ap.parse_args(argv)
+    spec = importlib.util.spec_from_file_location(
+        "time_kernels_device", os.path.join(os.path.dirname(HERE), "device.py"))
+    own_device = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(own_device)
+    ms = own_device.cuda_ms
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import numpy as np
+    import torch
+
+    from redsec_tpu_torch.crypto import bootstrap as bs
+    from redsec_tpu_torch.crypto import kernels as K
+    from redsec_tpu_torch.crypto import keygen as kg
+    from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
+
+    if not torch.cuda.is_available():
+        raise SystemExit("time_kernels needs a CUDA card")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    ptxas = K.build_library(K.SOURCE)
+    build_s = time.perf_counter() - t0
+    for line in ptxas.splitlines():  # registers, spills and shared memory per kernel
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"{args.tag} ptxas: {line.strip()}", flush=True)
+    _, cloud = kg.keygen(P, seed=0)
+    dkey = bs.prepare_cloud_key(cloud, device="cuda")
+    plan, N, n, rows = dkey.plan, P.N, P.n, P.decomp_rows
+    gen = np.random.default_rng(7)
+
+    def ri(lo, hi, shape):
+        return torch.as_tensor(gen.integers(lo, hi, size=shape, dtype=np.int64)
+                               .astype(np.int32), device=dev)
+
+    def same(name, got, want):
+        if not torch.equal(got, want):
+            raise SystemExit(f"{args.tag}: {name} differs from its plain twin")
+
+    out = {"tag": args.tag, "card": card, "build_s": build_s}
+    x = ri(0, plan.primes[0], (6144, N))
+    same("ntt", K.ntt(x, plan, 0), K.ntt_plain(x, plan, 0))
+    same("ntt inverse", K.ntt(x, plan, 0, True), K.ntt_plain(x, plan, 0, True))
+    out["ntt_ms"] = ms(lambda: K.ntt(x, plan, 0), 50)
+    bk0 = dkey.bk[:, 0].contiguous()
+    digits = ri(-P.half_bg, P.half_bg, (64, rows, N))
+    same("external_product", K.external_product(digits, bk0, plan),
+         K.external_product_plain(digits, bk0, plan))
+    out["external_product_ms"] = ms(lambda: K.external_product(digits, bk0, plan), 50)
+    acc = ri(-2**31, 2**31, (64, 2, N))
+    t = ri(0, 2 * N, (64,))
+    same("cmux_round", K.cmux_round(acc, t, bk0, P, plan), K.cmux_round_plain(acc, t, bk0, P, plan))
+    out["cmux_round_ms"] = ms(lambda: K.cmux_round(acc, t, bk0, P, plan), 50)
+    for B in K4_BATCHES:
+        acc0, abar = ri(-2**31, 2**31, (B, 2, N)), ri(0, 2 * N, (B, n))
+        same(f"blind_rotate batch {B}", K.blind_rotate(acc0, abar, dkey.bk, P, plan),
+             K.blind_rotate_plain(acc0, abar, dkey.bk, P, plan))
+        out[f"blind_rotate_ms_{B}"] = ms(lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan),
+                                         K4_REPS)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -35,11 +35,12 @@ def _ri(rng, lo, hi, shape):
     return torch.as_tensor(rng.integers(lo, hi, size=shape).astype(np.int32), device="cuda")
 
 
-def test_ntt_kernel_equals_twin(key):
+@pytest.mark.parametrize("rows", [1, 37, 64])  # a block takes 8 rows: ragged and full grids
+def test_ntt_kernel_equals_twin(key, rows):
     plan = key[2].plan
     rng = np.random.default_rng(0)
     for pi, p in enumerate(plan.primes):
-        x = _ri(rng, 0, p, (37, P.N))
+        x = _ri(rng, 0, p, (rows, P.N))
         for inv in (False, True):
             assert torch.equal(K.ntt(x, plan, pi, inv), K.ntt_plain(x, plan, pi, inv))
 
@@ -73,6 +74,41 @@ def test_pbs_kernel_path_equals_plain_path_and_host(key):
     np.testing.assert_array_equal(got[0].cpu().numpy(), bs.bootstrap_host(cloud, ct[0], tv))
     np.testing.assert_array_equal(lwe.decrypt_integers(sk.lwe_key, got.cpu().numpy(), P),
                                   np.where(vals >= 0, 1, -1))
+
+
+@pytest.fixture(scope="module")
+def key_1024():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from redsec_tpu_torch.crypto.params import SMALL_V2_TPU
+
+    _, cloud = kg.keygen(SMALL_V2_TPU, seed=0)
+    return SMALL_V2_TPU, bs.prepare_cloud_key(cloud, device="cuda")
+
+
+def _blind_rotate_equals_twin(params, dkey, batch):
+    rng = np.random.default_rng(batch)
+    acc0 = _ri(rng, -2**31, 2**31, (batch, 2, params.N))
+    abar = _ri(rng, 0, 2 * params.N, (batch, params.n))
+    before = K.launches.get("blind_rotate")
+    got = K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan)
+    assert K.launches.get("blind_rotate") == before + 1
+    assert torch.equal(got, K.blind_rotate_plain(acc0, abar, dkey.bk, params, dkey.plan))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want_group = 2 if batch > sms and K.blind_rotate_shared_bytes(params, 2) <= 232448 else 1
+    assert K.blind_rotate_group(batch, params) == want_group
+
+
+# one ciphertext a block up to the card's SM count, two beyond it; an odd
+# batch beyond it ends on a block with one ciphertext missing
+@pytest.mark.parametrize("batch", [1, 5, 132, 133, 267])
+def test_blind_rotate_kernel_equals_twin_at_small_and_ragged_batches_n256(key, batch):
+    _blind_rotate_equals_twin(P, key[2], batch)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 133])
+def test_blind_rotate_kernel_equals_twin_at_small_and_ragged_batches_n1024(key_1024, batch):
+    _blind_rotate_equals_twin(*key_1024, batch)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(key):
@@ -110,6 +146,14 @@ def test_rotation_kernels_equal_twin(card, N):
     far = t - 6 * N
     assert torch.equal(PK.rotate_rows(x, far), want)
     assert torch.equal(PK.rotate_tile(x, far, 64), want)
+
+
+@pytest.mark.parametrize("tile", [64, 256, 512])  # 8, 2 and 1 tiles, the last the whole batch
+def test_rotate_tile_kernel_equals_twin_at_the_bench_shape(card, tile):
+    rng = np.random.default_rng(5)
+    x = _ri(rng, -2**31, 2**31, (512, 2, 1024))
+    t = _ri(rng, -4096, 4096, (512,))
+    assert torch.equal(PK.rotate_tile(x, t, tile), PK.rotate_plain(x, t))
 
 
 def test_toeplitz_kernel_equals_twin(card):
