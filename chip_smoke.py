@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # the whole run (a few minutes on an H100)
-    python3 chip_smoke.py --profile  # also trace one forward per slice (device time by kernel)
+    python3 chip_smoke.py --profile  # also trace one forward per slice and the CIFAR
+                                     # forward (device time by kernel, idle share)
 
 Phases (any failure exits non-zero):
 
@@ -20,6 +21,9 @@ Phases (any failure exits non-zero):
    ciphertexts.  The rotation probes (one block a row; tiles of 64 and of
    256 rows, each dealt out over enough blocks to fill the card) run on
    [512, 2, 1024] and on a batch of 64, the Toeplitz probe on its one shape.
+   The blind rotation also runs at ``small_v2``, the command line's default
+   set (20 digit rows: one ciphertext a block at every batch), at batches
+   512 and 133, timed at 512: the ``kernels`` line's ``blind_rotate_small_v2``.
    Tolerance: exact equality (every kernel is integer arithmetic mod p or
    mod 2^32).  Prints each kernel's and twin's time (CUDA events) at its
    path's largest shape (the blind rotation's also at the smallest batch of
@@ -51,7 +55,31 @@ Phases (any failure exits non-zero):
    blind-rotation kernel must have run exactly one launch per PBS chunk
    (counters zeroed before, read after), and the plain path must be
    bit-identical on the first and the last image.
-6. Probe entry points: ``redsec_tpu_torch.scripts.bench_rotate`` and
+6. The command line, in process (``cli.main``), at ``small_v2``: ``keygen``
+   into ``build/smoke_cli``, ``encrypt-image`` of a written ``image.ptxt``,
+   ``run-encrypted`` (its JSON line: bootstraps, K4 launches, seconds),
+   ``decrypt-image``, ``stats``, ``ptxt`` on a CSV of the slice's images.
+   The score ciphertexts ``run-encrypted`` wrote must be bit-identical to
+   the library path's on the same ciphertext file, the class
+   ``decrypt-image`` prints must be their argmax, and ``python -m
+   redsec_tpu_torch decrypt-image`` in a subprocess must print it too.
+7. ``cifar/binarynet`` at full width, one image (numpy seed 1), through the
+   command line at ``small_v2_tpu`` with its trained weights and calibration
+   (``nets_trained/cifar/binarynet``): the forward must report the JAX
+   package's choice for it (staged), run
+   exactly 521,216 bootstraps in 1,018 blind-rotation launches (counted at
+   the kernel's door and by the counters), and its K4 share of the wall time
+   is read from CUDA events around each launch.  The decrypted argmax is
+   printed beside the plaintext oracle's, for information.
+8. ``utils.debug.layerwise_compare`` on sign1024x1, printed.  At
+   ``small_v2_noiseless`` (``small_v2``'s shape with no sampled noise; four
+   images) every leveled stage (conv, sumpool, bias) must equal the
+   plaintext oracle exactly.  At ``small_v2_tpu`` (one image) a decrypted sum
+   of noisy samples may round a few units off, so every leveled stage's
+   largest distance from the oracle must stay inside the parameters' noise
+   band (``noise_band_units``: five sigma of the mod-switch error), as must
+   the pre-activation of every sign that flipped, at both sets.
+9. Probe entry points: ``redsec_tpu_torch.scripts.bench_rotate`` and
    ``bench_schoolbook`` run through their ``main`` with the counters zeroed
    before; every candidate is checked equal inside them, and the run fails
    unless each probe kernel was launched as often as the scripts call it.
@@ -65,10 +93,13 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import inspect
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -235,13 +266,17 @@ def main() -> int:
 
     import numpy as np
 
+    from redsec_tpu_torch import cli
     from redsec_tpu_torch.crypto import bootstrap as bs
     from redsec_tpu_torch.crypto import kernels as K
     from redsec_tpu_torch.crypto import keygen as kg
     from redsec_tpu_torch.crypto import probe_kernels as PK
+    from redsec_tpu_torch.crypto.params import SMALL_V2 as P2
+    from redsec_tpu_torch.crypto.params import SMALL_V2_NOISELESS as PQ
     from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
     from redsec_tpu_torch.device import cuda_ms, launches
-    from redsec_tpu_torch.formats.image_io import pixel_transform_for
+    from redsec_tpu_torch.formats import keys as kio
+    from redsec_tpu_torch.formats.image_io import pixel_transform_for, write_image_ptxt
     from redsec_tpu_torch.models.spec import prep_model
     from redsec_tpu_torch.models.zoo import get_model
     from redsec_tpu_torch.models.spec import Activation
@@ -251,6 +286,7 @@ def main() -> int:
     )
     from redsec_tpu_torch.runtime.ranges import resolve_pbs_ranges
     from redsec_tpu_torch.scripts import bench_rotate, bench_schoolbook
+    from redsec_tpu_torch.utils.debug import LEVELED, format_reports, layerwise_compare
     from redsec_tpu_torch.utils.metrics import model_stats, summarize
 
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -431,9 +467,42 @@ def main() -> int:
         build[f"shared_bytes_g{g}"] = K.blind_rotate_shared_bytes(P, g)
     report("blind_rotate", k4_rec["shape"], k4_rec["err"], k4_ms[k4_timed[0]], k4_rec["pms"],
            k4_rec["bytes_"], k4_rec["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
-           **{f"ms_batch{k4_timed[1]}": k4_ms[k4_timed[1]]}, **build)
+           params=P.name, **{f"ms_batch{k4_timed[1]}": k4_ms[k4_timed[1]]}, **build)
     print(f"kernel blind_rotate build: {build}", flush=True)
     del acc0, abar, got, want
+
+    # K4 at small_v2, the CLI's default set: 20 digit rows, one ciphertext a
+    # block at every batch (two no longer fit a block's shared memory)
+    _, cloud2 = kg.keygen(P2, seed=0)
+    dkey2 = bs.prepare_cloud_key(cloud2, device="cuda")
+    plan2, rows2 = dkey2.plan, P2.decomp_rows
+    for B4 in (pbs_chunk, 133):
+        acc0 = ri(-2**31, 2**31, (B4, 2, N))
+        abar = ri(0, 2 * N, (B4, n))
+        got = K.blind_rotate(acc0, abar, dkey2.bk, P2, plan2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = K.blind_rotate_plain(acc0, abar, dkey2.bk, P2, plan2)
+        torch.cuda.synchronize()
+        pms2 = (time.perf_counter() - t0) * 1e3
+        err = same(f"blind_rotate {P2.name} batch {B4}", got, want)
+        group = K.blind_rotate_group(B4, P2)
+        if group != 1:
+            fail(f"blind_rotate at {P2.name} batch {B4} took {group} ciphertexts a block")
+        if B4 == pbs_chunk:
+            ms2 = cuda_ms(lambda: K.blind_rotate(acc0, abar, dkey2.bk, P2, plan2), 3)
+            k4_2 = dict(shape=[B4, 2, N], err=err, ms=ms2, pms=pms2,
+                        bytes_=dkey2.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
+                        ops=B4 * n * cmux_ops(rows2, N))
+        print(f"kernel blind_rotate {P2.name} [{B4}, 2, {N}], {rows2} digit rows: "
+              f"bit-identical to twin, {group} ciphertext a block"
+              + (f", {ms2:.4f} ms" if B4 == pbs_chunk else ""), flush=True)
+    report("blind_rotate_small_v2", k4_2["shape"], k4_2["err"], k4_2["ms"], k4_2["pms"],
+           k4_2["bytes_"], k4_2["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
+           params=P2.name, counter="blind_rotate", digit_rows=rows2,
+           ciphertexts_per_block=1, shared_bytes_g1=K.blind_rotate_shared_bytes(P2, 1),
+           shared_bytes_g2=K.blind_rotate_shared_bytes(P2, 2))
+    del acc0, abar, got, want, dkey2
 
     # K5, K6: the rotation probes at the bench script's shape and at a batch
     # of 64; K6 at both tiles the script runs, where the tile divides the batch
@@ -550,7 +619,7 @@ def main() -> int:
     if counts.get("blind_rotate", 0) != want_k4:
         fail(f"the forward launched the blind_rotate kernel "
              f"{counts.get('blind_rotate', 0)} times, not {want_k4}")
-    by_path = {"sign1024x1": counts}
+    by_path = {"sign1024x1": (P.name, counts)}
 
     def check_scores(out, scores):
         if tuple(out.shape) != (BATCH, 10, n + 1):
@@ -639,7 +708,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t_r = time.perf_counter() - t0
         rcounts = dict(launches.counts)
-        by_path[tag] = rcounts
+        by_path[tag] = (P.name, rcounts)
         rscores = decrypt_scores(sk, rout, P, rfwd.out_gain, rfwd.out_center)
         per_image = summarize(rplan)["total_bootstraps"] * (3 if run == "full" else 1)
         want_k4 = sum(len(range(0, b, pbs_chunk)) for b in sizes)
@@ -666,7 +735,213 @@ def main() -> int:
                        "launches": rcounts, "argmax_agreement": ragree}
         del rfwd, rout, rct
 
-    # ---- phase 6: the probes' entry points (each checks its candidates equal)
+    # ---- phase 6: the README's client/server flow through the port's CLI,
+    # in process (so the launch counters see it), at the CLI's default set
+    work = os.path.join(HERE, "build", "smoke_cli")  # key files (70 MB): kept out of OUT_DIR
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+
+    def run_cli(*argv):
+        """``cli.main(argv)`` with its standard output captured and echoed."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            ret = cli.main([str(a) for a in argv])
+        text = buf.getvalue()
+        print("\n".join(f"  | {line[:160]}" for line in text.splitlines()), flush=True)
+        return text, ret
+
+    def decrypted_class(text):
+        found = re.findall(r"^Classification Result: (\d+)$", text, re.M)
+        if len(found) != 1:
+            fail(f"decrypt-image printed {len(found)} classification results")
+        return int(found[0])
+
+    def library_scores(wdir, model_plan, opts):
+        """The same ciphertext file through the library path: its scores, the
+        score ciphertexts, the forward, the key and the input ciphertexts."""
+        lsk = kio.load_secret_key(os.path.join(wdir, "secret.key.npz"))
+        lkey = bs.prepare_cloud_key(kio.load_cloud_key(os.path.join(wdir, "eval.key.npz")))
+        lct, _, _, _, _ = kio.load_ciphertexts(os.path.join(wdir, "image.ctxt.npz"))
+        lfwd = build_encrypted_forward(model_plan, lkey, **opts)
+        lout = lfwd(lct.reshape(-1, *ptxt_shape(model_plan), lct.shape[-1]))
+        return decrypt_scores(lsk, lout, lkey.params, lfwd.out_gain, lfwd.out_center), \
+            lout, lfwd, lkey, lct
+
+    def ptxt_shape(model_plan):
+        d = model_plan.in_dim
+        return d.h, d.w, d.in_dep
+
+    cli_dir = os.path.join(work, "mnist")
+    launches.reset()
+    t0 = time.perf_counter()
+    run_cli("keygen", "--params", P2.name, "--seed", 0, "--out-dir", cli_dir)
+    write_image_ptxt(os.path.join(cli_dir, "image.ptxt"), 0, raw[0])
+    run_cli("encrypt-image", "--secret", os.path.join(cli_dir, "secret.key.npz"),
+            "--image-ptxt", os.path.join(cli_dir, "image.ptxt"),
+            "--out", os.path.join(cli_dir, "image.ctxt.npz"))
+    _, crec = run_cli("run-encrypted", "--model", model.name, "--weights", weights,
+                      "--eval", os.path.join(cli_dir, "eval.key.npz"),
+                      "--image", os.path.join(cli_dir, "image.ctxt.npz"),
+                      "--out", os.path.join(cli_dir, "out.ctxt.npz"))
+    torch.cuda.synchronize()
+    ccounts = dict(launches.counts)
+    by_path["cli/sign1024x1"] = (P2.name, ccounts)
+    print(f"cli/sign1024x1 ({P2.name}) launches: {ccounts}, flow "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    want_k4 = sum(len(range(0, s.bootstraps, pbs_chunk)) for s in model_stats(mplan)
+                  if s.bootstraps)
+    if (crec["k4_launches"], ccounts.get("blind_rotate"), ccounts.get("ntt")) != (
+            want_k4, want_k4, want_ntt):
+        fail(f"cli/sign1024x1: {crec['k4_launches']} K4 launches reported, counters "
+             f"{ccounts}; expected {want_k4} K4 and {want_ntt} NTT")
+    if crec["pbs"] != pbs_per_image or crec["mode"] != "whole":
+        fail(f"cli/sign1024x1: run-encrypted reports {crec}")
+    text, _ = run_cli("decrypt-image", "--secret", os.path.join(cli_dir, "secret.key.npz"),
+                      "--output", os.path.join(cli_dir, "out.ctxt.npz"))
+    cls = decrypted_class(text)
+    lscores, lout, _, _, _ = library_scores(cli_dir, mplan, {})
+    cli_ct = kio.load_ciphertexts(os.path.join(cli_dir, "out.ctxt.npz"))[0]
+    if not np.array_equal(lout.cpu().numpy(), cli_ct):
+        fail("the score ciphertexts run-encrypted wrote differ from the library path's")
+    if int(lscores[0].argmax()) != cls:
+        fail(f"decrypt-image printed class {cls}, the library path gives "
+             f"{int(lscores[0].argmax())}")
+    text, _ = run_cli("stats", "--model", model.name, "--weights", weights)
+    if json.loads(text)["total_bootstraps"] != pbs_per_image:
+        fail("stats disagrees with summarize")
+    csv = os.path.join(cli_dir, "data.csv")
+    with open(csv, "w") as f:
+        for label, img in zip(preds, raw):
+            f.write(f"{int(label)}," + ",".join(str(int(v)) for v in img.reshape(-1)) + "\n")
+    text, _ = run_cli("ptxt", "--model", model.name, "--weights", weights, "--csv", csv)
+    if "Correct: 100.000000%" not in text:  # the labels are the oracle's own predictions
+        fail("ptxt does not reproduce the oracle's predictions")
+    sub = subprocess.run([sys.executable, "-m", "redsec_tpu_torch", "decrypt-image",
+                          "--secret", os.path.join(cli_dir, "secret.key.npz"),
+                          "--output", os.path.join(cli_dir, "out.ctxt.npz")],
+                         capture_output=True, text=True, cwd=HERE, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=HERE))
+    if sub.returncode != 0 or decrypted_class(sub.stdout) != cls:
+        fail(f"python -m redsec_tpu_torch decrypt-image: {sub.returncode} {sub.stderr[-500:]}")
+    print(f"cli/sign1024x1: out.ctxt.npz bit-identical to the library path's scores; "
+          f"decrypt-image class {cls} = their argmax (also "
+          f"through python -m); {crec['pbs']} PBS in {crec['seconds']:.3f} s, "
+          f"{crec['pbs_per_s']:.2f} PBS/s on {card}", flush=True)
+    slices["cli/sign1024x1"] = {"params": P2.name, **crec, "class": cls}
+
+    # ---- phase 7: cifar/binarynet at full width, one image, through the CLI
+    # with its trained weights and calibration (staged forward)
+    cifar = os.path.join(HERE, "nets_trained", "cifar", "binarynet")
+    cplan = prep_model(get_model("cifar/binarynet"), os.path.join(cifar, "var_prep.dat"))
+    cmeta = calibration.load_calibration(os.path.join(cifar, "calibration.npz"), cplan)
+    if cmeta["params"] != P.name:
+        fail(f"cifar/binarynet is calibrated for {cmeta['params']}, not {P.name}")
+    cdir = os.path.join(work, "cifar")
+    craw = np.random.default_rng(1).integers(0, 256, size=(32, 32, 3))
+    cstats = [s.bootstraps for s in model_stats(cplan) if s.bootstraps]
+    want_pbs = sum(cstats)
+    want_k4 = sum(len(range(0, b, pbs_chunk)) for b in cstats)
+    k4_events, seen = [], []
+
+    def timed_k4(acc0, *rest, _real=K.blind_rotate):
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = _real(acc0, *rest)
+        ev[1].record()
+        k4_events.append(ev)
+        seen.append(acc0.shape[0])
+        return res
+
+    launches.reset()
+    t0 = time.perf_counter()
+    run_cli("keygen", "--params", P.name, "--seed", 0, "--out-dir", cdir)
+    write_image_ptxt(os.path.join(cdir, "image.ptxt"), 0, craw)
+    text, _ = run_cli("encrypt-image", "--secret", os.path.join(cdir, "secret.key.npz"),
+                      "--model", "cifar/binarynet", "--calib",
+                      os.path.join(cifar, "calibration.npz"),
+                      "--image-ptxt", os.path.join(cdir, "image.ptxt"),
+                      "--out", os.path.join(cdir, "image.ctxt.npz"))
+    if f"input gain {cmeta['in_gain']})" not in text:
+        fail(f"encrypt-image did not apply the input gain {cmeta['in_gain']}")
+    with mock.patch.object(K, "blind_rotate", timed_k4):
+        _, frec = run_cli("run-encrypted", "--model", "cifar/binarynet",
+                          "--weights", os.path.join(cifar, "var_prep.dat"),
+                          "--eval", os.path.join(cdir, "eval.key.npz"),
+                          "--image", os.path.join(cdir, "image.ctxt.npz"),
+                          "--calib", os.path.join(cifar, "calibration.npz"),
+                          "--out", os.path.join(cdir, "out.ctxt.npz"))
+    torch.cuda.synchronize()
+    fcounts = dict(launches.counts)
+    by_path["cli/cifar_binarynet"] = (P.name, fcounts)
+    k4_ms_total = sum(a.elapsed_time(b) for a, b in k4_events)
+    print(f"cli/cifar_binarynet launches: {fcounts}, flow {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if (frec["mode"], frec["pbs"], frec["k4_launches"]) != ("staged", want_pbs, want_k4) or \
+            fcounts.get("blind_rotate") != want_k4 or sum(seen) != want_pbs:
+        fail(f"cifar/binarynet: run-encrypted reports {frec}, counters {fcounts}, "
+             f"{sum(seen)} bootstraps at the kernel's door; expected staged, {want_pbs} "
+             f"PBS, {want_k4} K4 launches")
+    text, _ = run_cli("decrypt-image", "--secret", os.path.join(cdir, "secret.key.npz"),
+                      "--output", os.path.join(cdir, "out.ctxt.npz"))
+    ccls = decrypted_class(text)
+    coracle = int(ptxt.predict(cplan, pixel_transform_for("cifar/binarynet")(craw[None]),
+                               device="cuda")[0])
+    k4_share = k4_ms_total / (frec["seconds"] * 1e3)
+    print(f"cli/cifar_binarynet: 1 image x {frec['pbs']} PBS in {frec['seconds']:.3f} s "
+          f"(staged, {frec['k4_launches']} K4 launches, K4 {k4_ms_total:.1f} ms = "
+          f"{k4_share:.4f} of the forward's wall time): {frec['pbs_per_s']:.2f} PBS/s, "
+          f"{1 / frec['seconds']:.4f} images/s on {card}; decrypted argmax {ccls}, "
+          f"plaintext oracle {coracle} (informational)", flush=True)
+    slices["cli/cifar_binarynet"] = {"params": P.name, **frec, "images_per_s":
+                                     1 / frec["seconds"], "k4_ms": k4_ms_total,
+                                     "k4_share": k4_share, "class": ccls,
+                                     "oracle_class": coracle}
+    if args.profile:
+        copts = calibration.options_from_meta(cmeta)
+        _, _, pfwd, pkey, pct = library_scores(cdir, cplan, copts)
+        profile_forward(pfwd, pct.reshape(-1, 32, 32, 3, pct.shape[-1]), card,
+                        "cifar_binarynet")
+        del pfwd, pkey, pct
+
+    # ---- phase 8: the reference's per-stage comparison on the card, at no
+    # sampled noise (leveled stages exact) and at real noise (inside the band)
+    def layerwise(tag, params, lkey, lsk, limages, exact):
+        launches.reset()
+        t0 = time.perf_counter()
+        reports = layerwise_compare(mplan, lkey, lsk, limages, np.random.default_rng(5))
+        # small_v2_noiseless gives the blind rotation small_v2's shape
+        by_path[f"layerwise/{tag}"] = (P2.name if params is PQ else params.name,
+                                       dict(launches.counts))
+        band = params.noise_band_units()
+        print(f"layerwise_compare sign1024x1 at {params.name}, {len(limages)} image(s) "
+              f"({time.perf_counter() - t0:.1f} s; noise band {band} units):\n"
+              + format_reports(reports), flush=True)
+        stages = [(r.layer, r.stage) for r in reports]
+        if stages != [(0, "sumpool"), (0, "sign"), (1, "conv"), (1, "sign"), (2, "conv"),
+                      (2, "add_bias")]:
+            fail(f"layerwise_compare reported {stages}")
+        for r in reports:
+            leveled = r.stage in LEVELED
+            if leveled and exact and not r.exact:
+                fail(f"{tag}: L{r.layer} {r.stage} is {r.max_abs_err} units off the "
+                     f"plaintext oracle at {params.name}, which samples no noise")
+            if (r.max_abs_err if leveled else r.max_mismatch_margin) > band:
+                fail(f"{tag}: L{r.layer} {r.stage} is off the plaintext oracle by more "
+                     f"than the noise band ({r.max_abs_err} units, flipped margin "
+                     f"{r.max_mismatch_margin}, band {band})")
+        return {f"L{r.layer}_{r.stage}": {"agreement": r.agreement, "max_abs_err":
+                                          r.max_abs_err, "worst_margin":
+                                          r.max_mismatch_margin} for r in reports}
+
+    qsk, qcloud = kg.keygen(PQ, seed=0)
+    qkey = bs.prepare_cloud_key(qcloud, device="cuda")
+    slices["layerwise"] = {
+        PQ.name: layerwise("sign1024x1_noiseless", PQ, qkey, qsk, images[:4], exact=True),
+        P.name: layerwise("sign1024x1", P, dkey, sk, images[:1], exact=False)}
+    del qkey
+    shutil.rmtree(work)
+
+    # ---- phase 9: the probes' entry points (each checks its candidates equal)
     bench = {}
     for tag, mod, argv, expect in (
             ("bench_rotate", bench_rotate, ["--batch", "512", "--iters", "50"],
@@ -678,15 +953,19 @@ def main() -> int:
         bench[tag] = mod.main(argv)
         torch.cuda.synchronize()
         pcounts = dict(launches.counts)
-        by_path[tag] = pcounts
+        by_path[tag] = (None, pcounts)
         print(f"{tag} {' '.join(argv)}: {time.perf_counter() - t0:.1f} s, launches {pcounts}",
               flush=True)
         # one launch per check, then a warm-up chain and a timed chain
         if pcounts != expect:
             fail(f"{tag} launched {pcounts}, expected {expect}")
 
+    # each kernel's launches on the paths of its parameter set (the two
+    # blind_rotate shapes share one counter)
     for name, r in rec.items():
-        r["launches_by_path"] = {k: v[name] for k, v in by_path.items() if v.get(name)}
+        counter, params = r.get("counter", name), r.get("params")
+        r["launches_by_path"] = {k: c[counter] for k, (pn, c) in by_path.items()
+                                 if c.get(counter) and params in (None, pn)}
         r["launches"] = sum(r["launches_by_path"].values())
     never = [name for name, r in rec.items()
              if r["launches"] == 0 and name not in ("external_product", "cmux_round")]

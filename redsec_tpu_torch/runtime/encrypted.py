@@ -10,8 +10,8 @@ Ported here: sign, relu (1-PBS quarter-range and 3-PBS full-range FDFB) and
 bias-only layers with conv/fc, sumpool and maxpool, the whole model in one
 eager pass.  Where the JAX package reads ``REDSEC_INPUT_GAIN`` and
 ``REDSEC_RELU_MODE`` from the environment, the builders here take
-``input_gain`` and ``relu_mode``.  Majority voting, escalation and the
-per-layer / staged forwards of the JAX package are later work.
+``input_gain`` and ``relu_mode``.  Majority voting and escalation are later
+work.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ..crypto import lwe
 from ..crypto.bootstrap import DeviceCloudKey, make_chunked_bootstrap
 from ..models.spec import Activation, ModelPlan
 from ..ops import encrypted as eops
+from ..utils.metrics import model_stats
 from .ranges import resolve_pbs_ranges
 
 
@@ -100,11 +101,40 @@ def build_forward_impl(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 
     return forward
 
 
+def _pbs_per_image(model: ModelPlan, info) -> int:
+    """Bootstraps one image costs under the resolved ``info``: one per sign,
+    maxpool output and quarter-range relu activation, three per full-range
+    (FDFB) relu activation."""
+    return sum(st.bootstraps * (3 if info[i].relu_mode == "full" else 1)
+               for i, st in enumerate(model_stats(model)))
+
+
+# the JAX package's staged-forward slice: its jit="auto" rule stages a model
+# whose biggest layer holds more bootstraps an image than this
+JAX_PBS_MACRO = 16384
+
+
+def jax_forward_mode(model: ModelPlan) -> str:
+    """The forward the JAX package's ``jit="auto"`` picks for ``model``:
+    "staged" when the biggest layer holds more than ``JAX_PBS_MACRO``
+    bootstraps an image, else "whole" (its ``jit=True``) below 8 layers and
+    "layer" from 8 on."""
+    biggest = max((st.bootstraps for st in model_stats(model)), default=0)
+    if biggest > JAX_PBS_MACRO:
+        return "staged"
+    return "whole" if len(model.layers) < 8 else "layer"
+
+
 def build_encrypted_forward(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 512,
                             range_check: bool = True, input_gain: bool = False,
-                            relu_mode: Optional[str] = None) -> Callable:
+                            relu_mode: Optional[str] = None, escalate=None) -> Callable:
     """Encrypted forward bound to a device key:
     int32 [B, H, W, C, n+1] -> [B, classes, n+1], on the key's device.
+
+    One eager forward serves every model.  The JAX package's whole-model,
+    per-layer and staged forwards exist to bound its compiled programs; they
+    give the same ciphertexts as this one.  ``forward.mode`` names the one
+    its ``jit="auto"`` would pick (``jax_forward_mode``), for reports only.
 
     ``range_check``: every PBS boundary's input bound (measured via
     runtime.ranges.calibrate_ranges when available, else certified interval
@@ -117,9 +147,20 @@ def build_encrypted_forward(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: i
     ``input_gain``: also assign a model-input encoding gain; the client must
     then encrypt pixels scaled by ``forward.in_gain``
     (``encrypt_images(gain=...)``).  A calibration artifact records both
-    options (runtime/calibration.py:options_from_meta)."""
+    options (runtime/calibration.py:options_from_meta).
+
+    ``escalate`` (a second key for chosen layers) raises: escalation is not
+    ported yet.  The JAX package's per-program bootstrap ceiling
+    (``REDSEC_MAX_PROGRAM_BOOTS``) guards a TPU remote-compile backend and has
+    no counterpart: a CUDA launch has no such ceiling."""
+    if escalate is not None:
+        raise NotImplementedError("escalation (a second key for chosen layers) is not "
+                                  "ported yet")
     info = _resolve_info(model, dkey.params, range_check, input_gain, relu_mode)
-    return build_forward_impl(model, dkey, pbs_chunk, info)
+    forward = build_forward_impl(model, dkey, pbs_chunk, info)
+    forward.mode = jax_forward_mode(model)
+    forward.pbs_per_image = _pbs_per_image(model, info)
+    return forward
 
 
 def encrypt_images(sk, images: np.ndarray, params, rng=None, gain: int = 1) -> np.ndarray:

@@ -111,6 +111,28 @@ def test_blind_rotate_kernel_equals_twin_at_small_and_ragged_batches_n1024(key_1
     _blind_rotate_equals_twin(*key_1024, batch)
 
 
+@pytest.fixture(scope="module")
+def key_small_v2():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from redsec_tpu_torch.crypto.params import SMALL_V2
+
+    _, cloud = kg.keygen(SMALL_V2, seed=0)
+    return SMALL_V2, bs.prepare_cloud_key(cloud, device="cuda")
+
+
+# the CLI's default set: 20 digit rows, so two ciphertexts no longer fit a
+# block's shared memory (one a block at every batch) and the MAC reduces
+# inside its row loop
+@pytest.mark.parametrize("batch", [1, 133, 512])
+def test_blind_rotate_kernel_equals_twin_at_small_v2(key_small_v2, batch):
+    params, dkey = key_small_v2
+    assert params.decomp_rows == 20
+    assert K.blind_rotate_shared_bytes(params, 2) > 232448
+    _blind_rotate_equals_twin(params, dkey, batch)
+    assert K.blind_rotate_group(batch, params) == 1
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(key):
     dkey = key[2]
     bk = dkey.bk[:, 0]  # a strided view: the kernel reads contiguous slices

@@ -18,7 +18,7 @@ import torch
 from redsec_tpu_torch.crypto import bootstrap as bs
 from redsec_tpu_torch.crypto import kernels as K
 from redsec_tpu_torch.crypto import ntt as ntt_mod
-from redsec_tpu_torch.crypto.params import SMALL_V2_TPU, TEST_NOISELESS
+from redsec_tpu_torch.crypto.params import SMALL_V2, SMALL_V2_TPU, TEST_NOISELESS
 
 U32 = np.uint64(0xFFFFFFFF)
 LIMIT = np.uint64(1) << np.uint64(32)
@@ -212,7 +212,7 @@ def test_lazy_inverse_transform_stays_in_range_and_equals_intt_device(N, pi, pat
     np.testing.assert_array_equal(model_ntt_inv(lazy, tab, p).astype(np.int64), want)
 
 
-@pytest.mark.parametrize("P", [TEST_NOISELESS, SMALL_V2_TPU], ids=lambda P: P.name)
+@pytest.mark.parametrize("P", [TEST_NOISELESS, SMALL_V2_TPU, SMALL_V2], ids=lambda P: P.name)
 def test_modelled_external_product_equals_plain_twin(P):
     plan = bs.bootstrap_plan(P)
     rng = np.random.default_rng(5)
