@@ -24,6 +24,17 @@ Phases (any failure exits non-zero):
    The blind rotation also runs at ``small_v2``, the command line's default
    set (20 digit rows: one ciphertext a block at every batch), at batches
    512 and 133, timed at 512: the ``kernels`` line's ``blind_rotate_small_v2``.
+   The NTT also runs at ``small``'s three primes (40961 above 2^15) and at
+   N = 2048 (12289, 40961: ``ntt_n2048``); the blind rotation at the
+   instances of this slice's keys, at batches 512, 133 and 1, timed at 512:
+   ``small_v2_n2048`` (N 2048), ``small`` (three primes), bundled
+   ``small_v2_tpu`` and ``small_v2_tpu2`` (``bundle=2``: n/2 rounds of 3 x 2l
+   digit rows; three primes at tpu2), each with its ciphertexts a block,
+   chunk of digit rows, shared bytes, registers and spills.  Every key
+   prepared on the card in this phase (``small_v2`` and the four above) must
+   equal, bit for bit, the same key prepared with the NTT twin in the
+   kernel's place: that holds K1 at exactly the row counts each preparation
+   launches it at.
    Tolerance: exact equality (every kernel is integer arithmetic mod p or
    mod 2^32).  Prints each kernel's and twin's time (CUDA events) at its
    path's largest shape (the blind rotation's also at the smallest batch of
@@ -71,7 +82,18 @@ Phases (any failure exits non-zero):
    the kernel's door and by the counters), and its K4 share of the wall time
    is read from CUDA events around each launch.  The decrypted argmax is
    printed beside the plaintext oracle's, for information.
-8. ``utils.debug.layerwise_compare`` on sign1024x1, printed.  At
+8. This slice's paths, ``mnist/sign1024x1`` at full width on the 8 images:
+   the command line (keygen, encrypt-image, run-encrypted, decrypt-image)
+   at ``small_v2_n2048`` and at ``small``, the score ciphertexts
+   bit-identical to the library path's and the printed classes their
+   argmax; bundled ``small_v2_tpu`` and ``small_v2_tpu2`` keys through the
+   library path (launch counts exact, agreement with the oracle printed);
+   escalation: ``calibrate --escalate 1 --majority-plan 0:3`` (layer 1's
+   signs through a same-seed ``small_v2_n2048`` key, layer 0's voted at
+   k = 3), ``run-encrypted`` refusing it without ``--eval2`` and running it
+   with, launches counted at the kernels' doors by key, the score
+   ciphertexts bit-identical to the library path's.
+9. ``utils.debug.layerwise_compare`` on sign1024x1, printed.  At
    ``small_v2_noiseless`` (``small_v2``'s shape with no sampled noise; four
    images) every leveled stage (conv, sumpool, bias) must equal the
    plaintext oracle exactly.  At ``small_v2_tpu`` (one image) a decrypted sum
@@ -79,7 +101,7 @@ Phases (any failure exits non-zero):
    largest distance from the oracle must stay inside the parameters' noise
    band (``noise_band_units``: five sigma of the mod-switch error), as must
    the pre-activation of every sign that flipped, at both sets.
-9. Probe entry points: ``redsec_tpu_torch.scripts.bench_rotate`` and
+10. Probe entry points: ``redsec_tpu_torch.scripts.bench_rotate`` and
    ``bench_schoolbook`` run through their ``main`` with the counters zeroed
    before; every candidate is checked equal inside them, and the run fails
    unless each probe kernel was launched as often as the scripts call it.
@@ -152,17 +174,21 @@ def ntt_ops(N: int) -> int:
 
 
 def ext_product_ops(rows: int, N: int, primes: int = 2) -> int:
-    """One ciphertext's external product: per prime, `rows` forward and 8
-    inverse transforms, the row MAC (multiply + add per product), then the
-    CRT (about 6 operations a value) and the limb recombination (2)."""
+    """One ciphertext's external product over `rows` digit rows (3 * 2l for a
+    bundled round): per prime, `rows` forward and 8 inverse transforms, the
+    row MAC (multiply + add per product), then the CRT (about 6 operations a
+    value a prime beyond the first) and the limb recombination (2)."""
     per_prime = (rows + 8) * ntt_ops(N) + 2 * rows * 8 * N
-    return primes * per_prime + 8 * N * 8
+    return primes * per_prime + 8 * N * (6 * (primes - 1) + 2)
 
 
-def cmux_ops(rows: int, N: int) -> int:
+def cmux_ops(rows: int, N: int, primes: int = 2, bundle: int = 1) -> int:
     """One CMUX round: rotate-diff (2N), decompose (3 per digit), external
-    product, accumulate (2N)."""
-    return 2 * N + 3 * rows * N + ext_product_ops(rows, N) + 2 * N
+    product, accumulate (2N).  A bundled round (two key bits) makes three
+    differences from four rotations (8N) and contracts 3 * rows digit rows."""
+    if bundle == 2:
+        return 8 * N + 9 * rows * N + ext_product_ops(3 * rows, N, primes) + 2 * N
+    return 2 * N + 3 * rows * N + ext_product_ops(rows, N, primes) + 2 * N
 
 
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
@@ -274,6 +300,7 @@ def main() -> int:
     from redsec_tpu_torch.crypto.params import SMALL_V2 as P2
     from redsec_tpu_torch.crypto.params import SMALL_V2_NOISELESS as PQ
     from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
+    from redsec_tpu_torch.crypto.params import get_params
     from redsec_tpu_torch.device import cuda_ms, launches
     from redsec_tpu_torch.formats import keys as kio
     from redsec_tpu_torch.formats.image_io import pixel_transform_for, write_image_ptxt
@@ -282,7 +309,7 @@ def main() -> int:
     from redsec_tpu_torch.models.spec import Activation
     from redsec_tpu_torch.runtime import calibration, ptxt
     from redsec_tpu_torch.runtime.encrypted import (
-        build_encrypted_forward, decrypt_scores, encrypt_images,
+        build_encrypted_forward, decrypt_scores, encrypt_images, majority_ks,
     )
     from redsec_tpu_torch.runtime.ranges import resolve_pbs_ranges
     from redsec_tpu_torch.scripts import bench_rotate, bench_schoolbook
@@ -397,6 +424,20 @@ def main() -> int:
         return torch.as_tensor(gen.integers(lo, hi, size=shape, dtype=np.int64)
                                .astype(np.int32), device=dev)
 
+    def check_key(tag, cloud, dkey):
+        """K1 at exactly the shapes a key's preparation launches it: the key
+        prepared through the kernel must equal, bit for bit, the key prepared
+        with the plain twin in its place."""
+        rounds = dkey.bk.shape[1]
+        rows_k = sorted({min(key_chunk, rounds - i) * dkey.bk.shape[2] * dkey.bk.shape[3]
+                         for i in range(0, rounds, key_chunk)}, reverse=True)
+        with mock.patch.object(K, "ntt", K.ntt_plain):
+            pkey = bs.prepare_cloud_key(cloud, device="cuda")
+        if not torch.equal(pkey.bk, dkey.bk):
+            fail(f"{tag}: the key prepared through the ntt kernel differs from the plain one")
+        print(f"key {tag}: prepared through the ntt kernel at rows {rows_k} x primes "
+              f"{list(dkey.plan.primes)}, bit-identical to the plain preparation", flush=True)
+
     # K1: both primes, forward and inverse, at every row count of key preparation
     err = 0
     for M1 in ntt_rows:
@@ -406,12 +447,29 @@ def main() -> int:
                 err = max(err, same(
                     f"ntt [{M1}, {N}] prime {p} inverse={inv}",
                     K.ntt(x, plan, pi, inverse=inv), K.ntt_plain(x, plan, pi, inverse=inv)))
+    # and at the three primes of small (40961 above 2^15), at its key's rows
+    PS = get_params("small")
+    plan_s = bs.bootstrap_plan(PS)
+    M1s = min(key_chunk, PS.n) * PS.decomp_rows * 2 * bs.BK_LIMBS
+    for pi, p in enumerate(plan_s.primes):
+        x = ri(0, p, (M1s, N))
+        x[0, :8] = p - 1
+        for inv in (False, True):
+            err = max(err, same(f"ntt [{M1s}, {N}] prime {p} inverse={inv}",
+                                K.ntt(x, plan_s, pi, inverse=inv),
+                                K.ntt_plain(x, plan_s, pi, inverse=inv)))
     M1 = ntt_rows[0]
     x0 = ri(0, plan.primes[0], (M1, N))
     ms = cuda_ms(lambda: K.ntt(x0, plan, 0), 20)
     pms = cuda_ms(lambda: K.ntt_plain(x0, plan, 0), 5)
+    xw = ri(0, plan_s.primes[2], (M1, N))
+    ms_w = cuda_ms(lambda: K.ntt(xw, plan_s, 2), 20)
+    # every set of the paths at N = 1024 (the bundled keys' too)
     report("ntt", [M1, N], err, ms, pms, 2 * M1 * N * 4, M1 * ntt_ops(N),
-           "redsec_tpu/crypto/pallas_ntt.py:147")
+           "redsec_tpu/crypto/pallas_ntt.py:147",
+           params=(P.name, P2.name, PS.name, f"{P.name}/bundle2", "small_v2_tpu2/bundle2"),
+           primes=sorted(set(plan.primes) | set(plan_s.primes)), ms_prime40961=ms_w)
+    print(f"kernel ntt [{M1}, {N}] at prime {plan_s.primes[2]}: {ms_w:.4f} ms", flush=True)
 
     # K2 and K3 on M = 64, with round 0's slice of the prepared key
     M = 64
@@ -439,7 +497,7 @@ def main() -> int:
     # that take the one-ciphertext-a-block path (1, 5) or end on a ragged
     # block (133); timed at the full chunk and at the smallest of the path
     k4_timed = (k4_batches[0], k4_batches[-1])
-    k4_ms, k4_group = {}, {}
+    k4_ms, k4_cfg = {}, {}
     for B4 in k4_batches + [133, 5, 1]:
         acc0 = ri(-2**31, 2**31, (B4, 2, N))
         abar = ri(0, 2 * N, (B4, n))
@@ -450,7 +508,7 @@ def main() -> int:
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
         err = same(f"blind_rotate batch {B4}", got, want)
-        k4_group[B4] = K.blind_rotate_group(B4, P)
+        k4_cfg[B4] = K.blind_rotate_config(B4, P)
         if B4 in k4_timed:
             k4_ms[B4] = cuda_ms(lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan), 3)
         if B4 == k4_batches[0]:
@@ -458,13 +516,14 @@ def main() -> int:
                           bytes_=dkey.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
                           ops=B4 * n * cmux_ops(rows, N))
         print(f"kernel blind_rotate [{B4}, 2, {N}]: bit-identical to twin, "
-              f"{k4_group[B4]} ciphertexts a block" +
+              f"{k4_cfg[B4]['group']} ciphertexts a block" +
               (f", {k4_ms[B4]:.4f} ms" if B4 in k4_ms else ""), flush=True)
-    build = {f"ciphertexts_per_block_{B4}": k4_group[B4] for B4 in k4_timed}
-    for g in sorted(set(build.values())):  # what ptxas says of each instantiation in use
+    build = {f"ciphertexts_per_block_{B4}": k4_cfg[B4]["group"] for B4 in k4_timed}
+    for B4 in k4_timed:  # what ptxas says of each instantiation in use
+        g = k4_cfg[B4]["group"]
         build[f"registers_g{g}"], build[f"spill_bytes_g{g}"] = ptxas_usage(
-            ptxas, f"blind_rotate_kernelILi{N}ELi{g}E")
-        build[f"shared_bytes_g{g}"] = K.blind_rotate_shared_bytes(P, g)
+            ptxas, f"blind_rotate_kernelILi{N}ELi{g}ELi2ELi1E")
+        build[f"shared_bytes_g{g}"] = k4_cfg[B4]["shared_bytes"]
     report("blind_rotate", k4_rec["shape"], k4_rec["err"], k4_ms[k4_timed[0]], k4_rec["pms"],
            k4_rec["bytes_"], k4_rec["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
            params=P.name, **{f"ms_batch{k4_timed[1]}": k4_ms[k4_timed[1]]}, **build)
@@ -486,7 +545,8 @@ def main() -> int:
         torch.cuda.synchronize()
         pms2 = (time.perf_counter() - t0) * 1e3
         err = same(f"blind_rotate {P2.name} batch {B4}", got, want)
-        group = K.blind_rotate_group(B4, P2)
+        cfg2 = K.blind_rotate_config(B4, P2)
+        group = cfg2["group"]
         if group != 1:
             fail(f"blind_rotate at {P2.name} batch {B4} took {group} ciphertexts a block")
         if B4 == pbs_chunk:
@@ -500,9 +560,75 @@ def main() -> int:
     report("blind_rotate_small_v2", k4_2["shape"], k4_2["err"], k4_2["ms"], k4_2["pms"],
            k4_2["bytes_"], k4_2["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
            params=P2.name, counter="blind_rotate", digit_rows=rows2,
-           ciphertexts_per_block=1, shared_bytes_g1=K.blind_rotate_shared_bytes(P2, 1),
-           shared_bytes_g2=K.blind_rotate_shared_bytes(P2, 2))
+           ciphertexts_per_block=1, shared_bytes_g1=cfg2["shared_bytes"],
+           shared_bytes_g2=cfg2["shared_bytes_g2"])
+    check_key(P2.name, cloud2, dkey2)
     del acc0, abar, got, want, dkey2
+
+    # K1 at N = 2048 and K4 at the instances of this slice's keys: N = 2048
+    # (primes 12289 and 40961), three primes (small), bundled rounds
+    # (small_v2_tpu: 36 digit rows; small_v2_tpu2: 30 rows, three primes);
+    # one ciphertext a block, at batches 512, 133 and 1, timed at 512
+    PN = get_params("small_v2_n2048")
+    P3 = get_params("small_v2_tpu2")
+    new_keys = {}  # (set name, bundle) -> (secret key, cloud key), seed 0
+    for Pn, bundle in ((PN, 1), (PS, 1), (P, 2), (P3, 2)):
+        t0 = time.perf_counter()
+        new_keys[(Pn.name, bundle)] = kg.keygen(Pn, seed=0, bundle=bundle)
+        dkn = bs.prepare_cloud_key(new_keys[(Pn.name, bundle)][1], device="cuda")
+        print(f"keygen {Pn.name} bundle {bundle}: {time.perf_counter() - t0:.1f} s "
+              f"(host, with the key's preparation)", flush=True)
+        pn, Nn, Rn = dkn.plan, Pn.N, Pn.decomp_rows
+        path = Pn.name if bundle == 1 else f"{Pn.name}/bundle2"
+        check_key(path, new_keys[(Pn.name, bundle)][1], dkn)
+        if Nn == 2048:
+            M1n = min(key_chunk, Pn.n) * Rn * 2 * bs.BK_LIMBS
+            err = 0
+            for pi, p in enumerate(pn.primes):
+                x = ri(0, p, (M1n, Nn))
+                x[0, :8] = p - 1
+                for inv in (False, True):
+                    err = max(err, same(f"ntt [{M1n}, {Nn}] prime {p} inverse={inv}",
+                                        K.ntt(x, pn, pi, inverse=inv),
+                                        K.ntt_plain(x, pn, pi, inverse=inv)))
+            ms = cuda_ms(lambda: K.ntt(x, pn, 1), 20)
+            pms = cuda_ms(lambda: K.ntt_plain(x, pn, 1), 5)
+            report("ntt_n2048", [M1n, Nn], err, ms, pms, 2 * M1n * Nn * 4, M1n * ntt_ops(Nn),
+                   "redsec_tpu/crypto/pallas_ntt.py:147", params=(Pn.name,), primes=pn.primes,
+                   counter="ntt", timed_prime=pn.primes[1])
+            del x
+        k4n = {}
+        for B4 in (pbs_chunk, 133, 1):
+            acc0 = ri(-2**31, 2**31, (B4, 2, Nn))
+            abar = ri(0, 2 * Nn, (B4, Pn.n))
+            got = K.blind_rotate(acc0, abar, dkn.bk, Pn, pn)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = K.blind_rotate_plain(acc0, abar, dkn.bk, Pn, pn)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            err = same(f"blind_rotate {path} batch {B4}", got, want)
+            cfg = K.blind_rotate_config(B4, Pn, pn, bundle)
+            if B4 == pbs_chunk:
+                k4n = dict(err=err, pms=pms, cfg=cfg,
+                           ms=cuda_ms(lambda: K.blind_rotate(acc0, abar, dkn.bk, Pn, pn), 3),
+                           bytes_=dkn.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
+                           ops=B4 * (Pn.n // bundle) * cmux_ops(Rn, Nn, len(pn.primes), bundle))
+            print(f"kernel blind_rotate {path} [{B4}, 2, {Nn}], {len(pn.primes)} primes "
+                  f"{pn.primes}: bit-identical to twin ({pms:.0f} ms), {cfg}"
+                  + (f", {k4n['ms']:.4f} ms" if B4 == pbs_chunk else ""), flush=True)
+        G, D = k4n["cfg"]["group"], 3 if bundle == 2 else 1
+        regs, spill = ptxas_usage(ptxas, f"blind_rotate_kernelILi{Nn}ELi{G}ELi{len(pn.primes)}"
+                                         f"ELi{D}E")
+        report(f"blind_rotate_{Pn.name}" + ("_bundle2" if bundle == 2 else ""),
+               [pbs_chunk, 2, Nn], k4n["err"], k4n["ms"], k4n["pms"], k4n["bytes_"],
+               k4n["ops"], "redsec_tpu/crypto/pallas_blind.py:60", params=path,
+               counter="blind_rotate", primes=pn.primes, bundle=bundle,
+               digit_rows=Rn * D, rounds=Pn.n // bundle,
+               ciphertexts_per_block=G, chunk_rows=k4n["cfg"]["chunk_rows"],
+               shared_bytes=k4n["cfg"]["shared_bytes"], registers=regs, spill_bytes=spill)
+        del acc0, abar, got, want, dkn
+        torch.cuda.empty_cache()
 
     # K5, K6: the rotation probes at the bench script's shape and at a batch
     # of 64; K6 at both tiles the script runs, where the tile divides the batch
@@ -903,7 +1029,195 @@ def main() -> int:
                         "cifar_binarynet")
         del pfwd, pkey, pct
 
-    # ---- phase 8: the reference's per-stage comparison on the card, at no
+    # ---- phase 8: this slice's paths on sign1024x1 at full width, batch 8:
+    # the CLI at small_v2_n2048 and at small, bundled keys through the library
+    # path, and escalation with a majority-voted boundary through the CLI
+    data_csv = os.path.join(work, "data.csv")  # the slice's images, labelled by the oracle
+    with open(data_csv, "w") as f:
+        for label, img in zip(preds, raw):
+            f.write(f"{int(label)}," + ",".join(str(int(v)) for v in img.reshape(-1)) + "\n")
+
+    def decrypted_classes(text):
+        return [int(c) for c in re.findall(r"^Classification Result: (\d+)$", text, re.M)]
+
+    def sign_k4_launches(per_image_boots):
+        return sum(len(range(0, b * BATCH, pbs_chunk)) for b in per_image_boots if b)
+
+    sign_boots = [s.bootstraps for s in model_stats(mplan)]
+    for Pn in (PN, PS):
+        tag = f"cli/{Pn.name}"
+        ndir = os.path.join(work, Pn.name)
+        launches.reset()
+        t0 = time.perf_counter()
+        run_cli("keygen", "--params", Pn.name, "--seed", 0, "--out-dir", ndir)
+        run_cli("encrypt-image", "--secret", os.path.join(ndir, "secret.key.npz"),
+                "--csv", data_csv, "--rows", f"0:{BATCH}",
+                "--out", os.path.join(ndir, "image.ctxt.npz"))
+        _, nrec = run_cli("run-encrypted", "--model", model.name, "--weights", weights,
+                          "--eval", os.path.join(ndir, "eval.key.npz"),
+                          "--image", os.path.join(ndir, "image.ctxt.npz"),
+                          "--out", os.path.join(ndir, "out.ctxt.npz"))
+        torch.cuda.synchronize()
+        ncounts = dict(launches.counts)
+        by_path[tag] = (Pn.name, ncounts)
+        plan_n = bs.bootstrap_plan(Pn)
+        want = (sign_k4_launches(sign_boots),
+                len(plan_n.primes) * len(range(0, Pn.n, key_chunk)))
+        print(f"{tag} launches: {ncounts}, flow {time.perf_counter() - t0:.1f} s", flush=True)
+        if (nrec["k4_launches"], ncounts.get("blind_rotate"), ncounts.get("ntt")) != (
+                want[0], want[0], want[1]) or nrec["pbs"] != pbs_per_image * BATCH:
+            fail(f"{tag}: run-encrypted reports {nrec}, counters {ncounts}; expected "
+                 f"{want[0]} K4 and {want[1]} NTT launches, {pbs_per_image * BATCH} PBS")
+        text, _ = run_cli("decrypt-image", "--secret", os.path.join(ndir, "secret.key.npz"),
+                          "--output", os.path.join(ndir, "out.ctxt.npz"))
+        lscores, lout, _, _, _ = library_scores(ndir, mplan, {})
+        if not np.array_equal(lout.cpu().numpy(),
+                              kio.load_ciphertexts(os.path.join(ndir, "out.ctxt.npz"))[0]):
+            fail(f"{tag}: the score ciphertexts run-encrypted wrote differ from the library "
+                 f"path's")
+        classes = decrypted_classes(text)
+        if classes != [int(c) for c in lscores.argmax(axis=1)]:
+            fail(f"{tag}: decrypt-image printed {classes}, the library path gives "
+                 f"{lscores.argmax(axis=1).tolist()}")
+        nagree = float((np.asarray(classes) == preds).mean())
+        print(f"{tag}: out.ctxt.npz bit-identical to the library path's scores, decrypted "
+              f"argmax {classes} = theirs; {BATCH} images x {pbs_per_image} PBS in "
+              f"{nrec['seconds']:.3f} s, {nrec['pbs_per_s']:.2f} PBS/s, "
+              f"{BATCH / nrec['seconds']:.4f} images/s; argmax agreement with the plaintext "
+              f"oracle {nagree:.3f} (informational) on {card}", flush=True)
+        slices[tag] = {"params": Pn.name, **nrec, "classes": classes, "argmax_agreement": nagree}
+        del lout
+
+    # bundled keys (keygen(..., bundle=2); the command line has no bundle
+    # option, as the JAX package's has none) through the library path
+    for Pn in (P, P3):
+        tag = f"bundled/{Pn.name}"
+        bsk, bcloud = new_keys[(Pn.name, 2)]
+        launches.reset()
+        t0 = time.perf_counter()
+        bkey = bs.prepare_cloud_key(bcloud, device="cuda")
+        torch.cuda.synchronize()
+        t_bprep = time.perf_counter() - t0
+        bfwd = build_encrypted_forward(mplan, bkey)
+        bct = encrypt_images(bsk, images, Pn, np.random.default_rng(1), gain=bfwd.in_gain)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bout = bfwd(bct)
+        torch.cuda.synchronize()
+        t_b = time.perf_counter() - t0
+        bcounts = dict(launches.counts)
+        by_path[tag] = (f"{Pn.name}/bundle2", bcounts)
+        want = (sign_k4_launches(sign_boots),
+                len(bkey.plan.primes) * len(range(0, Pn.n // 2, key_chunk)))
+        if (bcounts.get("blind_rotate"), bcounts.get("ntt")) != want or bkey.bundle != 2:
+            fail(f"{tag}: counters {bcounts}, expected {want[0]} K4 and {want[1]} NTT launches")
+        bscores = decrypt_scores(bsk, bout, Pn, bfwd.out_gain, bfwd.out_center)
+        check_scores(bout, bscores)
+        bagree = float((bscores.argmax(axis=1) == preds).mean())
+        print(f"{tag}: {BATCH} images x {pbs_per_image} PBS in {t_b:.3f} s (key prepared in "
+              f"{t_bprep:.3f} s, primes {bkey.plan.primes}), {pbs_per_image * BATCH / t_b:.2f} "
+              f"PBS/s, launches {bcounts}; argmax agreement with the plaintext oracle "
+              f"{bagree:.3f} (informational: bundled and plain ciphertexts differ) on {card}",
+              flush=True)
+        slices[tag] = {"params": Pn.name, "bundle": 2, "images": BATCH, "forward_s": t_b,
+                       "pbs_per_s": pbs_per_image * BATCH / t_b, "launches": bcounts,
+                       "argmax_agreement": bagree}
+        del bkey, bfwd, bout
+
+    # escalation: a calibration (on 16 other synthetic images) that escalates
+    # layer 1's 1,024 signs to a same-seed small_v2_n2048 key and votes layer
+    # 0's 196 signs at k = 3; run-encrypted refuses it without --eval2
+    edir = os.path.join(work, "escalation")
+    os.makedirs(edir)
+    ecsv = os.path.join(edir, "calib.csv")
+    craw16 = np.random.default_rng(11).integers(0, 256, size=(16, 28, 28, 1))
+    with open(ecsv, "w") as f:
+        for img in craw16:
+            f.write("0," + ",".join(str(int(v)) for v in img.reshape(-1)) + "\n")
+    esc_layers, vote_plan = "1", "0:3"
+    run_cli("calibrate", "--model", model.name, "--weights", weights, "--csv", ecsv,
+            "--rows", "0:16", "--params", P.name, "--input-gain", "--escalate", esc_layers,
+            "--escalate-params", PN.name, "--majority-plan", vote_plan,
+            "--out", os.path.join(edir, "cal.npz"))
+    run_cli("keygen", "--params", P.name, "--seed", 0, "--out-dir", edir)
+    run_cli("encrypt-image", "--secret", os.path.join(edir, "secret.key.npz"), "--csv",
+            data_csv, "--rows", f"0:{BATCH}", "--calib", os.path.join(edir, "cal.npz"),
+            "--out", os.path.join(edir, "image.ctxt.npz"))
+    erun = ["run-encrypted", "--model", model.name, "--weights", weights,
+            "--eval", os.path.join(edir, "eval.key.npz"),
+            "--image", os.path.join(edir, "image.ctxt.npz"),
+            "--calib", os.path.join(edir, "cal.npz"), "--out", os.path.join(edir, "out.ctxt.npz")]
+    try:
+        run_cli(*erun)
+        fail("run-encrypted ran an escalating calibration without --eval2")
+    except SystemExit as e:
+        if "--eval2" not in str(e):
+            raise
+    door = {}  # launches at the kernels' doors by parameter set
+
+    def door_k4(acc0, abar, bk, params, plan_, _real=K.blind_rotate):
+        door[("blind_rotate", params.name)] = door.get(("blind_rotate", params.name), 0) + 1
+        return _real(acc0, abar, bk, params, plan_)
+
+    def door_ntt(x, plan_, pi, inverse=False, _real=K.ntt):
+        key = ("ntt", PN.name if plan_.N == 2048 else P.name)
+        door[key] = door.get(key, 0) + 1
+        return _real(x, plan_, pi, inverse)
+
+    launches.reset()
+    with mock.patch.object(K, "blind_rotate", door_k4), mock.patch.object(K, "ntt", door_ntt):
+        _, erec = run_cli(*erun, "--eval2", os.path.join(work, PN.name, "eval.key.npz"))
+    torch.cuda.synchronize()
+    ecounts = dict(launches.counts)
+    for pn in (P.name, PN.name):
+        by_path[f"escalation/{pn}"] = (pn, {k: v for (k, q), v in door.items() if q == pn})
+    if sum(v for (k, _), v in door.items() if k == "blind_rotate") != ecounts["blind_rotate"]:
+        fail(f"escalation: {door} at the kernels' doors, counters {ecounts}")
+    eplan = prep_model(model, weights)  # the calibration goes onto a plan of its own
+    emeta = calibration.load_calibration(os.path.join(edir, "cal.npz"), eplan)
+    eopts = calibration.options_from_meta(emeta)
+    eks = majority_ks(eplan, eopts["majority"], eopts["majority_from"], eopts["majority_plan"])
+    votes = {i: k for i, k in eks.items() if k > 1}
+    # layer 0: k copies, then the vote sum's one PBS each; layer 1 at N = 2048
+    want_esc = {P.name: len(range(0, 3 * sign_boots[0] * BATCH, pbs_chunk))
+                + len(range(0, sign_boots[0] * BATCH, pbs_chunk)),
+                PN.name: len(range(0, sign_boots[1] * BATCH, pbs_chunk))}
+    got_esc = {pn: door.get(("blind_rotate", pn), 0) for pn in want_esc}
+    want_pbs = BATCH * (sign_boots[0] * 4 + sign_boots[1])
+    if (erec["mode"], erec["pbs"], got_esc, votes) != ("staged", want_pbs, want_esc, {0: 3}):
+        fail(f"escalation: run-encrypted reports {erec}, K4 launches by key {got_esc}, votes "
+             f"{votes}; expected staged, {want_pbs} PBS, {want_esc}, {{0: 3}}")
+    # the library path on the same files: the same key pair and options
+    e1 = bs.prepare_cloud_key(kio.load_cloud_key(os.path.join(edir, "eval.key.npz")))
+    e2 = bs.prepare_cloud_key(kio.load_cloud_key(os.path.join(work, PN.name, "eval.key.npz")))
+    layers_e, _ = calibration.escalation_from_meta(emeta)
+    efwd = build_encrypted_forward(eplan, e1, **eopts, escalate=(layers_e, e2))
+    ect = kio.load_ciphertexts(os.path.join(edir, "image.ctxt.npz"))[0]
+    eout = efwd(ect.reshape(-1, 28, 28, 1, ect.shape[-1])).cpu().numpy()
+    if not np.array_equal(eout, kio.load_ciphertexts(os.path.join(edir, "out.ctxt.npz"))[0]):
+        fail("escalation: the score ciphertexts run-encrypted wrote differ from the library "
+             "path's")
+    text, _ = run_cli("decrypt-image", "--secret", os.path.join(edir, "secret.key.npz"),
+                      "--output", os.path.join(edir, "out.ctxt.npz"))
+    eclasses = decrypted_classes(text)
+    esk = kio.load_secret_key(os.path.join(edir, "secret.key.npz"))
+    escores = decrypt_scores(esk, eout, P, efwd.out_gain, efwd.out_center)
+    if eclasses != [int(c) for c in escores.argmax(axis=1)]:
+        fail(f"escalation: decrypt-image printed {eclasses}, the library path gives "
+             f"{escores.argmax(axis=1).tolist()}")
+    eagree = float((np.asarray(eclasses) == preds).mean())
+    print(f"escalation: layer {esc_layers} through {PN.name} (--eval2), layer 0 voted at k=3: "
+          f"{erec['pbs']} PBS in {erec['seconds']:.3f} s, {erec['pbs_per_s']:.2f} PBS/s, K4 "
+          f"launches by key {got_esc}; out.ctxt.npz bit-identical to the library path's, "
+          f"decrypted argmax {eclasses}; argmax agreement with the plaintext oracle "
+          f"{eagree:.3f} (informational) on {card}", flush=True)
+    slices["escalation"] = {"params": P.name, "escalate": {esc_layers: PN.name},
+                            "majority_plan": vote_plan, **erec, "k4_launches_by_key": got_esc,
+                            "classes": eclasses, "argmax_agreement": eagree}
+    del e1, e2, efwd, eplan
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the reference's per-stage comparison on the card, at no
     # sampled noise (leveled stages exact) and at real noise (inside the band)
     def layerwise(tag, params, lkey, lsk, limages, exact):
         launches.reset()
@@ -941,7 +1255,7 @@ def main() -> int:
     del qkey
     shutil.rmtree(work)
 
-    # ---- phase 9: the probes' entry points (each checks its candidates equal)
+    # ---- phase 10: the probes' entry points (each checks its candidates equal)
     bench = {}
     for tag, mod, argv, expect in (
             ("bench_rotate", bench_rotate, ["--batch", "512", "--iters", "50"],
@@ -960,12 +1274,14 @@ def main() -> int:
         if pcounts != expect:
             fail(f"{tag} launched {pcounts}, expected {expect}")
 
-    # each kernel's launches on the paths of its parameter set (the two
-    # blind_rotate shapes share one counter)
+    # each kernel's launches on the paths of its parameter sets (the records
+    # of one kernel's shapes share its counter; a bundled key's path is
+    # "<set>/bundle2")
     for name, r in rec.items():
         counter, params = r.get("counter", name), r.get("params")
+        sets = (params,) if params is None or isinstance(params, str) else tuple(params)
         r["launches_by_path"] = {k: c[counter] for k, (pn, c) in by_path.items()
-                                 if c.get(counter) and params in (None, pn)}
+                                 if c.get(counter) and (params is None or pn in sets)}
         r["launches"] = sum(r["launches_by_path"].values())
     never = [name for name, r in rec.items()
              if r["launches"] == 0 and name not in ("external_product", "cmux_round")]

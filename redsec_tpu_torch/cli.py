@@ -86,9 +86,13 @@ def cmd_calibrate(args):
     later evaluated (e.g. the net's training split, or held-out rows) —
     runtime/calibration.py records them for provenance.  The resulting
     .npz is public metadata: it is derived from plaintext weights and
-    plaintext sample data only.  ``--input-gain`` and ``--relu-mode`` are
-    the JAX package's ``REDSEC_INPUT_GAIN`` / ``REDSEC_RELU_MODE``, recorded
-    in the artifact under the same names."""
+    plaintext sample data only.  ``--input-gain``, ``--relu-mode``,
+    ``--majority-plan``, ``--escalate`` and ``--escalate-params`` are the JAX
+    package's ``REDSEC_INPUT_GAIN``, ``REDSEC_RELU_MODE``,
+    ``REDSEC_MAJORITY_PLAN``, ``REDSEC_ESCALATE`` and
+    ``REDSEC_ESCALATE_PARAMS``, recorded in the artifact under those names
+    (a per-layer plan states any vote count a global ``REDSEC_MAJORITY`` from
+    a layer on would)."""
     from .crypto.params import get_params
     from .formats import image_io
     from .models.spec import prep_model
@@ -104,11 +108,22 @@ def cmd_calibrate(args):
     params = get_params(args.params)
     # resolve once strictly so a calibration that cannot pass the flip-rate
     # guard fails HERE (at the deployer's desk), not at serving time
+    from .runtime.calibration import ESCALATE_PARAMS
+    from .runtime.encrypted import majority_ks
+
+    esc = None
+    if args.escalate:
+        esc = ({int(v) for v in args.escalate.split(",") if v.strip()},
+               get_params(args.escalate_params or ESCALATE_PARAMS))
     resolve_pbs_ranges(plan, params.msg_space, strict=not args.no_guard,
                        input_gain=args.input_gain,
-                       sigma_units=params.mod_switch_sigma_units(), relu_mode=args.relu_mode)
+                       sigma_units=params.mod_switch_sigma_units(), relu_mode=args.relu_mode,
+                       majority_ks=majority_ks(plan, majority_plan=args.majority_plan),
+                       escalate=esc)
     meta = save_calibration(args.out, plan, args.params, calib_rows=f"{args.csv}[{args.rows}]",
-                            input_gain=args.input_gain, relu_mode=args.relu_mode)
+                            input_gain=args.input_gain, relu_mode=args.relu_mode,
+                            majority_plan=args.majority_plan, escalate=args.escalate,
+                            escalate_params=args.escalate_params)
     print(f"calibration ({len(rows)} rows) -> {args.out}")
     print(json.dumps({k: meta[k] for k in
                       ("model", "params", "weights_sha", "in_gain", "gains",
@@ -162,9 +177,6 @@ def cmd_run_encrypted(args):
     from .models.spec import prep_model
     from .runtime.encrypted import build_encrypted_forward
 
-    if args.eval2:
-        raise SystemExit("--eval2: escalation (a second key for chosen layers) is not "
-                         "ported yet")
     dev = resolve_device(args.device)
     cloud = kio.load_cloud_key(args.eval)
     t0 = time.time()
@@ -174,13 +186,23 @@ def cmd_run_encrypted(args):
     opts = {}
     if args.calib:
         # restore the persisted calibration (gains / centers / tie-breaks /
-        # relu modes) and the options it was saved under, so this process
-        # resolves exactly what was calibrated
-        from .runtime.calibration import load_calibration, options_from_meta
+        # relu modes / majority voting) and the options it was saved under,
+        # so this process resolves exactly what was calibrated
+        from .runtime.calibration import (escalation_from_meta, load_calibration,
+                                          options_from_meta)
 
         meta = load_calibration(args.calib, plan)
         opts = options_from_meta(meta)
         print(f"calibration {args.calib}: in_gain={meta['in_gain']} options={opts}")
+        esc_layers, esc_name = escalation_from_meta(meta)
+        if esc_layers:
+            if not args.eval2:
+                raise SystemExit(
+                    f"calibration escalates layers {sorted(esc_layers)} to "
+                    f"{esc_name}: pass --eval2 <eval key at {esc_name} "
+                    f"geometry, same-seed keygen>")
+            dkey2 = bs.prepare_cloud_key(kio.load_cloud_key(args.eval2), device=dev)
+            opts["escalate"] = (esc_layers, dkey2)
     ct, params, label, _, _ = kio.load_ciphertexts(args.image)
     d = plan.in_dim
     ct = ct.reshape(-1, d.h, d.w, d.in_dep, ct.shape[-1])
@@ -299,8 +321,8 @@ def main(argv=None):
     p.add_argument("--model", required=True)
     p.add_argument("--weights", required=True)
     p.add_argument("--eval", required=True)
-    p.add_argument("--eval2", help="second eval key for escalated layers (not ported "
-                                   "yet: raises)")
+    p.add_argument("--eval2", help="second eval key for the layers the calibration "
+                                   "escalates (same-seed keygen at the escalation set)")
     p.add_argument("--image", required=True)
     p.add_argument("--calib", help="calibration artifact from `calibrate` — "
                                    "enables the production accuracy "
@@ -327,6 +349,14 @@ def main(argv=None):
                         "package's REDSEC_INPUT_GAIN=1)")
     p.add_argument("--relu-mode", choices=["quarter", "full"],
                    help="force one relu implementation (REDSEC_RELU_MODE)")
+    p.add_argument("--majority-plan",
+                   help="per-layer vote counts, e.g. 5:5,7:7 (REDSEC_MAJORITY_PLAN)")
+    p.add_argument("--escalate",
+                   help="layers whose bootstraps run through the --eval2 key, e.g. 6,7 "
+                        "(REDSEC_ESCALATE)")
+    p.add_argument("--escalate-params",
+                   help="parameter set of the escalation key (REDSEC_ESCALATE_PARAMS; "
+                        "default small_v2_n2048)")
     device_arg(p)
     p.set_defaults(fn=cmd_calibrate)
 

@@ -46,15 +46,21 @@ class DeviceCloudKey:
     """Device-resident evaluation key.
 
     ``bk``: int16 [P, n, rows, 2*limbs, N], the BK's sign-balanced 8-bit limbs
-    forward-NTT'd per CRT prime (residues < 2^15), in the streaming layout the
-    blind-rotation kernel reads one round slice at a time.  ``ksk``: int32
-    [N*t, n+1] multiply-form key-switching key."""
+    forward-NTT'd per CRT prime, in the streaming layout the blind-rotation
+    kernel reads one round slice at a time.  Residues are below 2^16 and kept
+    as 16-bit patterns (40961 does not fit a signed int16): every reader
+    zero-extends them (``kernels.residues``).  With ``bundle`` 2 the key
+    carries interleaved pair entries for the 2-bit bundled blind rotation:
+    [P, n/2, 3*rows, 2*limbs, N], per pair the rows of TGSW(s_2i),
+    TGSW(s_2i+1) and TGSW(s_2i * s_2i+1).  ``ksk``: int32 [N*t, n+1]
+    multiply-form key-switching key."""
 
     params: TfheParams
     plan: ntt_mod.NttPlan
     bk: torch.Tensor
     ksk: torch.Tensor
     rerand: Optional[torch.Tensor] = None
+    bundle: int = 1
     # NTT-domain order the BK was transformed with; the kernels and their
     # twins check it (a key in another order is garbage to them)
     ntt_flavor: str = "radix2"
@@ -64,15 +70,17 @@ class DeviceCloudKey:
         return self.bk.device
 
 
-def bootstrap_plan(p: TfheParams) -> ntt_mod.NttPlan | None:
+def bootstrap_plan(p: TfheParams, bundled: bool = False) -> ntt_mod.NttPlan | None:
     """NTT plan for the parameter set, or None when no int32-range NTT primes
     exist for N (>= 4096: those sets use the JAX package's conv-schoolbook
-    external product, not ported yet).  The CRT range must cover ``rows``
-    accumulated digit x limb products with sign-balanced limbs."""
+    external product, not ported yet).  The CRT range must cover the digit x
+    limb products accumulated in the NTT domain with sign-balanced limbs:
+    ``rows`` of them for a plain round, ``3*rows`` for a bundled one (which is
+    why bundled ``small_v2_tpu2`` takes a third prime)."""
     try:
         return ntt_mod.make_plan(
             p.N, max_operand=p.half_bg, limb_bits=BK_LIMB_BITS,
-            accum=p.decomp_rows, balanced=True,
+            accum=(3 if bundled else 1) * p.decomp_rows, balanced=True,
         )
     except ValueError:
         return None
@@ -97,38 +105,50 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda",
     on the device (through the ``ntt`` kernel on CUDA), ``chunk`` key bits at
     a time to bound the working set.
 
-    Only the unbundled NTT-plan path is ported: a bundled key or a parameter
-    set without NTT primes raises, as does a plan the CUDA kernels do not take
-    (three primes, a prime >= 2^15)."""
+    Every NTT-plan branch of the JAX package is ported: two or three primes,
+    N up to 2048, plain and bundled (``bk_pair``) keys.  A parameter set
+    without NTT primes (the schoolbook sets, N >= 4096) raises, as does on
+    CUDA a combination the kernels are not built for (``kernels.supported``):
+    nothing falls back."""
     dev = resolve_device(device)
     p = cloud.params
-    if cloud.bk_pair is not None:
-        raise ValueError("bundled (bundle=2) keys are not supported by the port yet")
-    plan = bootstrap_plan(p)
+    bundled = cloud.bk_pair is not None
+    plan = bootstrap_plan(p, bundled)
     if plan is None:
         raise ValueError(
             f"{p.name}: no NTT prime plan for N={p.N}; the schoolbook external "
             "product is not ported yet")
-    if dev.type == "cuda" and not kernels.supported(p, plan):
+    bundle = 2 if bundled else 1
+    if dev.type == "cuda" and not kernels.supported(p, plan, bundle):
         raise ValueError(
-            f"{p.name}: primes {plan.primes} at N={p.N} are outside what the "
-            "CUDA kernels take (2 primes < 2^15, N in 256..1024)")
+            f"{p.name}: primes {plan.primes} at N={p.N}, bundle {bundle}, are outside "
+            "what the CUDA kernels take (2 or 3 primes < 2^16, N in 256..2048, "
+            "bundled keys up to N = 1024)")
     N = p.N
-    bk_raw = torch.as_tensor(cloud.bk.astype(np.int32), device=dev)  # [n, rows, 2, N]
+    bk_host = cloud.bk
+    if bundled:
+        # interleave per pair: [bk(s_2i) rows | bk(s_2i+1) rows | bk(pair)] so
+        # one round slice feeds the bundled round's single 3*rows contraction
+        rows, n2 = p.decomp_rows, p.n // 2
+        bk_host = np.concatenate([cloud.bk.reshape(n2, 2, rows, 2, N),
+                                  cloud.bk_pair[:, None]], axis=1).reshape(n2, 3 * rows, 2, N)
+    bk_raw = torch.as_tensor(bk_host.astype(np.int32), device=dev)  # [n', R, 2, N]
+    n_rounds, R = bk_raw.shape[0], bk_raw.shape[1]
     parts = [[] for _ in plan.primes]
-    for i0 in range(0, p.n, chunk):
+    for i0 in range(0, n_rounds, chunk):
         bk = bk_raw[i0:i0 + chunk]
-        limbs = torch.stack(int8_limbs(bk), dim=3)  # [c, rows, 2, limbs, N]
+        limbs = torch.stack(int8_limbs(bk), dim=3)  # [c, R, 2, limbs, N]
         for pi, prime in enumerate(plan.primes):
             lmod = (limbs + prime * (limbs < 0).to(torch.int32)).reshape(-1, N)
             res = kernels.ntt(lmod.contiguous(), plan, pi)
-            parts[pi].append(res.to(torch.int16).reshape(bk.shape[0], p.decomp_rows,
-                                                          2 * BK_LIMBS, N))
+            # residues up to 2^16 - 1 keep their 16-bit pattern
+            parts[pi].append(res.to(torch.int16).reshape(bk.shape[0], R, 2 * BK_LIMBS, N))
     bk_ntt = torch.stack([torch.cat(ps, dim=0) for ps in parts]).contiguous()
     ksk = torch.as_tensor(cloud.ksk.reshape(-1, p.n + 1).astype(np.int32), device=dev)
     rerand = (None if cloud.rerand is None
               else torch.as_tensor(cloud.rerand.astype(np.int32), device=dev))
-    return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk=ksk, rerand=rerand)
+    return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk=ksk, rerand=rerand,
+                          bundle=bundle)
 
 
 def const_test_vector(params: TfheParams, value: int, msize: int) -> np.ndarray:
@@ -246,7 +266,7 @@ def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
 def make_bootstrap_impl(p: TfheParams, plan: ntt_mod.NttPlan):
     """``impl(dkey, ct [B, n+1], testvect [N]|[B, N]) -> [B, n+1]``; the blind
     rotation is ``kernels.blind_rotate`` (the CUDA kernel on a CUDA tensor,
-    its plain twin on a CPU tensor)."""
+    its plain twin on a CPU tensor), plain or bundled as the key is."""
     N, n = p.N, p.n
     ops = RoundOps(p)
 

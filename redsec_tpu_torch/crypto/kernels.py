@@ -23,7 +23,14 @@ The shared library is built with ``nvcc`` into ``build/kernels/`` at the
 root of the checkout on first use (``build_library``, shared with
 ``probe_kernels.py``); importing this module needs no compiler.  The
 NTT-domain order of every key tensor these take is the radix-2 bit-reversed
-order of ``ntt.ntt_device`` (flavour "radix2").
+order of ``ntt.ntt_device`` (flavour "radix2"), and BK residues are 16-bit
+patterns of int16 (``residues`` zero-extends them).
+
+``ntt`` and ``blind_rotate`` take every NTT plan of the JAX package (two or
+three primes below 2^16, N = 256 .. 2048) and bundled keys up to N = 1024
+(``supported``); ``external_product`` and ``cmux_round``, which the model
+paths run only inside ``blind_rotate``, take two primes up to N = 1024, as
+the Pallas kernels they replace do.
 """
 
 from __future__ import annotations
@@ -46,19 +53,30 @@ SOURCE = os.path.join(_PKG, "csrc", "pbs.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-KERNEL_N = (256, 512, 1024)  # N the kernels are instantiated for
+KERNEL_N = (256, 512, 1024, 2048)  # N the kernels are instantiated for
+ROUND_KERNEL_N = (256, 512, 1024)  # N of the one-round kernels K2 and K3
+
+
+def _primes_ok(plan: ntt_mod.NttPlan, count: tuple) -> bool:
+    pr = plan.primes
+    return (len(pr) in count and all(a < b for a, b in zip(pr, pr[1:]))
+            and pr[-1] < (1 << 16))
 
 
 def _plan_ok(plan: ntt_mod.NttPlan) -> bool:
-    return (len(plan.primes) == 2 and plan.primes[0] < plan.primes[1] < (1 << 15)
-            and plan.N in KERNEL_N)
+    """Primes ascending and below 2^16 (residues are 16-bit patterns of the
+    int16 BK), two or three of them, and an N the kernels are built for;
+    N = 2048 has only two NTT primes (12289, 40961)."""
+    return (_primes_ok(plan, (2, 3)) and plan.N in KERNEL_N
+            and (plan.N < 2048 or len(plan.primes) == 2))
 
 
-def supported(params: TfheParams, plan: ntt_mod.NttPlan) -> bool:
-    """Whether the CUDA kernels take this parameter set and NTT plan: two
-    primes below 2^15 (residues fit int16, products fit uint32) and an N they
-    are instantiated for (N/16 threads a polynomial, N/2 threads a block)."""
-    return _plan_ok(plan) and params.l * params.bg_bit <= 32
+def supported(params: TfheParams, plan: ntt_mod.NttPlan, bundle: int = 1) -> bool:
+    """Whether the CUDA kernels take this parameter set, NTT plan and key
+    bundling.  A bundled round's three differences do not fit shared memory
+    beside the N = 2048 transforms, so bundled keys stop at N = 1024."""
+    return (_plan_ok(plan) and params.l * params.bg_bit <= 32 and params.N == plan.N
+            and (bundle == 1 or (bundle == 2 and params.n % 2 == 0 and plan.N < 2048)))
 
 
 def _nvcc() -> str:
@@ -136,9 +154,9 @@ _ENTRIES = {
     "redsec_ntt": [_P, _P, _P, _I, _I, _I, _I, _P],
     "redsec_external_product": [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     "redsec_cmux_round": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
-    "redsec_blind_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],
-    "redsec_blind_rotate_group": [_I, _I, _I],
-    "redsec_blind_rotate_shared_bytes": [_I, _I, _I],
+    "redsec_blind_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _I, _I,
+                            _P],
+    "redsec_blind_rotate_config": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 _loaded: list[Library] = []
 
@@ -163,8 +181,21 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 def _require_cuda_plan(plan: ntt_mod.NttPlan) -> None:
     if not _plan_ok(plan):
-        raise ValueError(f"CUDA kernels take 2 ascending primes < 2^15 and N in {KERNEL_N}; "
-                         f"got primes {plan.primes}, N={plan.N}")
+        raise ValueError(f"CUDA kernels take 2 or 3 ascending primes < 2^16 (2 at N = 2048) "
+                         f"and N in {KERNEL_N}; got primes {plan.primes}, N={plan.N}")
+
+
+def _require_round_plan(plan: ntt_mod.NttPlan) -> None:
+    if not (_primes_ok(plan, (2,)) and plan.N in ROUND_KERNEL_N):
+        raise ValueError(f"the one-round kernels take 2 ascending primes < 2^16 and N in "
+                         f"{ROUND_KERNEL_N}; got primes {plan.primes}, N={plan.N}")
+
+
+def residues(bk: torch.Tensor) -> torch.Tensor:
+    """int16 BK residues -> int32 in [0, 2^16): the BK keeps each residue as
+    its 16-bit pattern (40961 does not fit a signed int16), so every reader
+    zero-extends."""
+    return bk.to(torch.int32) & 0xFFFF
 
 
 def shoup_tables(plan: ntt_mod.NttPlan) -> np.ndarray:
@@ -234,17 +265,20 @@ def ntt(x: torch.Tensor, plan: ntt_mod.NttPlan, pi: int,
 
 def external_product_plain(digits: torch.Tensor, bk_round: torch.Tensor,
                            plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """digits int32 [M, rows, N] (signed gadget digits) x BK round slice int16
-    [P, rows, 2*limbs, N] (NTT domain) -> torus delta int32 [M, 2, N]:
-    forward NTT per prime, lazy MAC over rows, inverse NTT, CRT, and the
-    recombination of the 4 BK limbs."""
+    """digits int32 [M, R, N] (signed gadget digits) x BK round slice int16
+    [P, R, 2*limbs, N] (NTT domain) -> torus delta int32 [M, 2, N]: forward
+    NTT per prime, lazy MAC over the R rows, inverse NTT, CRT, and the
+    recombination of the 4 BK limbs.  R is the round's digit rows, or three
+    times that for a bundled round (one contraction over its three
+    differences)."""
     M, rows, N = digits.shape
     limbs = bs.BK_LIMBS
     conv = []
     for pi, p in enumerate(plan.primes):
         dn = ntt_mod.ntt_device(digits + p * (digits < 0).to(torch.int32), plan, pi)
-        bki = bk_round[pi].to(torch.int32)  # [rows, 8, N]
-        # lazy int32 MAC: `group` products of residues stay below 2^31
+        bki = residues(bk_round[pi])  # [R, 8, N]
+        # lazy int32 MAC: `group` products of residues stay below 2^31 (one
+        # at 40961, whose square is 1.68e9)
         group = max(1, (2**31 - 1) // ((p - 1) ** 2))
         total, part = None, None
         for j in range(rows):
@@ -265,10 +299,10 @@ def external_product_plain(digits: torch.Tensor, bk_round: torch.Tensor,
 
 def external_product(digits: torch.Tensor, bk_round: torch.Tensor,
                      plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """K2: see ``external_product_plain``."""
+    """K2: see ``external_product_plain`` (two primes, N up to 1024)."""
     if digits.device.type == "cpu":
         return external_product_plain(digits, bk_round, plan)
-    _require_cuda_plan(plan)
+    _require_round_plan(plan)
     M, rows, N = digits.shape
     dev = digits.device
     _require(digits, "digits", torch.int32, (M, rows, plan.N), dev)
@@ -295,16 +329,34 @@ def cmux_round_plain(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
     return acc + external_product_plain(digits, bk_round, plan)
 
 
+def bundled_round_plain(acc: torch.Tensor, ti: torch.Tensor, tj: torch.Tensor,
+                        bk_round: torch.Tensor, params: TfheParams,
+                        plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """One 2-bit bundled CMUX round (the JAX package's ``bundle == 2`` body):
+    u = X^ti acc - acc, v = X^tj acc - acc, w = X^tj u - u; the digits of
+    [u, v, w] stacked so that row = which * rows + bloc * l + level, against
+    the round's interleaved BK slice int16 [P, 3 * rows, 8, N]
+    ([bk(s_2i) | bk(s_2i+1) | bk(s_2i * s_2i+1)])."""
+    ops = bs.RoundOps(params)
+    M, N = acc.shape[0], params.N
+    u = ops.rotate(acc, ti) - acc
+    v = ops.rotate(acc, tj) - acc
+    w = ops.rotate(u, tj) - u
+    digits = ops.decompose(torch.stack([u, v, w], dim=1).reshape(3 * M, 2, N))
+    return acc + external_product_plain(digits.reshape(M, 3 * params.decomp_rows, N),
+                                        bk_round, plan)
+
+
 def _gadget_args(params: TfheParams):
     return params.l, params.bg_bit, bs.gadget_offset(params)
 
 
 def cmux_round(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
                params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """K3: see ``cmux_round_plain``."""
+    """K3: see ``cmux_round_plain`` (two primes, N up to 1024)."""
     if acc.device.type == "cpu":
         return cmux_round_plain(acc, t, bk_round, params, plan)
-    _require_cuda_plan(plan)
+    _require_round_plan(plan)
     M, N, rows = acc.shape[0], params.N, params.decomp_rows
     dev = acc.device
     _require(acc, "acc", torch.int32, (M, 2, N), dev)
@@ -323,11 +375,28 @@ def cmux_round(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 
+def key_bundle(bk: torch.Tensor, params: TfheParams) -> int:
+    """1 for a BK of n rounds [P, n, rows, 8, N], 2 for a bundled one of n/2
+    rounds [P, n/2, 3 * rows, 8, N]."""
+    if bk.shape[1] == params.n and bk.shape[2] == params.decomp_rows:
+        return 1
+    if 2 * bk.shape[1] == params.n and bk.shape[2] == 3 * params.decomp_rows:
+        return 2
+    raise ValueError(f"BK shape {tuple(bk.shape)} is neither plain nor bundled for "
+                     f"n={params.n}, rows={params.decomp_rows}")
+
+
 def blind_rotate_plain(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
                        params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
     """acc0 int32 [B, 2, N], abar int32 [B, n] in [0, 2N), prepared BK int16
-    [P, n, rows, 8, N] -> accumulator after all n CMUX rounds."""
+    [P, n, rows, 8, N] -> accumulator after all n CMUX rounds; a bundled BK
+    [P, n/2, 3 * rows, 8, N] runs n/2 bundled rounds on exponent pairs."""
     acc = acc0
+    if key_bundle(bk, params) == 2:
+        for i in range(params.n // 2):
+            acc = bundled_round_plain(acc, abar[:, 2 * i], abar[:, 2 * i + 1], bk[:, i],
+                                      params, plan)
+        return acc
     for i in range(params.n):
         acc = cmux_round_plain(acc, abar[:, i], bk[:, i], params, plan)
     return acc
@@ -335,30 +404,44 @@ def blind_rotate_plain(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
 
 def blind_rotate(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
                  params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """K4: see ``blind_rotate_plain``.  One launch runs all n rounds."""
+    """K4: see ``blind_rotate_plain``.  One launch runs all rounds."""
     if acc0.device.type == "cpu":
         return blind_rotate_plain(acc0, abar, bk, params, plan)
-    _require_cuda_plan(plan)
+    bundle = key_bundle(bk, params)
+    if not supported(params, plan, bundle):
+        raise ValueError(f"{params.name}: primes {plan.primes} at N={plan.N}, bundle "
+                         f"{bundle}: outside what blind_rotate_kernel is built for")
     B, N, n, rows = acc0.shape[0], params.N, params.n, params.decomp_rows
     dev = acc0.device
     _require(acc0, "acc0", torch.int32, (B, 2, N), dev)
     _require(abar, "abar", torch.int32, (B, n), dev)
-    _require(bk, "bk", torch.int16, (2, n, rows, 2 * bs.BK_LIMBS, N), dev)
+    _require(bk, "bk", torch.int16, (len(plan.primes), n // bundle,
+                                     rows * (3 if bundle == 2 else 1), 2 * bs.BK_LIMBS, N), dev)
     tabs = kernel_tables(plan, dev)
     out = torch.empty_like(acc0)
+    pr = tuple(plan.primes) + (0,) * (3 - len(plan.primes))
     _lib().launch("redsec_blind_rotate", "blind_rotate", dev, acc0.data_ptr(),
                   abar.data_ptr(), bk.data_ptr(), tabs.data_ptr(), out.data_ptr(), B, n, N,
-                  *_gadget_args(params), plan.primes[0], plan.primes[1])
+                  *_gadget_args(params), len(plan.primes), *pr, bundle)
     return out
 
 
-def blind_rotate_group(batch: int, params: TfheParams) -> int:
-    """Ciphertexts one block of K4 owns at this batch on the current card
-    (what the C entry chooses: 2 when the batch exceeds the SM count, so
-    that one key load serves both, else 1)."""
-    return _lib().fn["redsec_blind_rotate_group"](batch, params.N, params.l)
-
-
-def blind_rotate_shared_bytes(params: TfheParams, group: int) -> int:
-    """Dynamic shared memory of one K4 block that owns ``group`` ciphertexts."""
-    return _lib().fn["redsec_blind_rotate_shared_bytes"](params.N, params.l, group)
+def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = None,
+                        bundle: int = 1) -> dict:
+    """How K4 runs at this batch on the current card, as the C entry chooses
+    it: ``group`` ciphertexts a block (2 when the batch exceeds the SM count
+    and two fit shared memory, so that one key load serves both),
+    ``chunk_rows`` digit rows transformed and multiplied at a time (all of
+    them where shared memory holds them), the block's dynamic
+    ``shared_bytes``, and ``shared_bytes_g2``, what two ciphertexts a block
+    would take with all their digit rows (above the 232,448 a block may have
+    where they do not fit)."""
+    plan = plan or bs.bootstrap_plan(params, bundle == 2)
+    out = (ctypes.c_int * 4)()
+    code = _lib().fn["redsec_blind_rotate_config"](batch, params.N, params.l,
+                                                   len(plan.primes), bundle, out)
+    if code != 0:
+        raise ValueError(f"blind_rotate_kernel has no instance for N={params.N}, "
+                         f"{len(plan.primes)} primes, bundle {bundle}")
+    return {"group": out[0], "chunk_rows": out[1], "shared_bytes": out[2],
+            "shared_bytes_g2": out[3]}

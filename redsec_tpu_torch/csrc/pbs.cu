@@ -18,62 +18,95 @@
 // JAX package bit for bit.  Torus arithmetic is uint32 (signed overflow is
 // undefined in C++).
 //
-// Design.  A block has N/2 threads and owns G ciphertexts (G = 2 when the
-// batch exceeds the card's SM count, else 1; a ragged last block computes on
-// a zero accumulator and stores nothing for the missing ciphertext).
+// Design.  A block has N/2 threads (N/4 at N = 2048) and owns G ciphertexts
+// (G = 2 when the batch exceeds the card's SM count and two fit shared
+// memory, else 1; a ragged last block computes on a zero accumulator and
+// stores nothing for the missing ciphertext).  Every NTT-plan branch of the
+// JAX package has an instance: N = 256 .. 2048, two or three primes below
+// 2^16, plain rounds and 2-bit bundled ones (blind_rotate_kernel<N, G, P, D>,
+// D = 1 or 3 differences a round).
 //
 // * Transforms run in registers.  N/16 threads share one polynomial, 16
-//   coefficients a thread, so a block transforms 8 polynomials at once (the
-//   digit rows of one prime, then the 8 accumulator polynomials, are
-//   independent).  A transform is three register passes of 4 + 4 + log2(N/256)
-//   radix-2 stages with two exchanges through shared memory between them:
-//   two __syncthreads() a batch of 8 transforms, about 30 a CMUX round
-//   (the first version had one barrier a stage and about 500 a round).
-//   The exchange buffers are padded by N/256 words every N/16 so that all
-//   three access patterns are free of bank conflicts, and there are two per
-//   polynomial (first and second exchange) so that no barrier is needed
-//   between reading one and writing the next.
-// * Lazy arithmetic, p < 2^15.  Every twiddle w comes with w' = floor(w *
+//   coefficients a thread, so a block transforms 8 polynomials at once (4 at
+//   N = 2048: 8 would need 1,024 threads and twice an SM's registers).  A
+//   transform is three register passes of 4 + 4 + log2(N/256) radix-2
+//   stages with two exchanges through shared memory between them (the last
+//   pass on runs of four coefficients, of eight at N = 2048): two
+//   __syncthreads() a batch of transforms (the first version had one
+//   barrier a stage).  The exchange buffers are padded by N/256 words every
+//   N/16 so that the three access patterns avoid bank conflicts, and there
+//   are two per polynomial (first and second exchange) so that no barrier is
+//   needed between reading one and writing the next.
+// * Lazy arithmetic, p < 2^16.  Every twiddle w comes with w' = floor(w *
 //   2^32 / p) (Shoup): x * w mod p = x*w - umulhi(x, w')*p lies in [0, 2p)
 //   for ANY uint32 x.  Forward (decimation in frequency): the sum x + y is
 //   not reduced, so a value entering stage s is below B0 * 2^s, where B0
 //   bounds the twisted input; the difference x - y + B0 * 2^s is
 //   non-negative and goes through the Shoup product; one Barrett reduction
-//   to [0, p) ends the transform.  The twist is a Shoup product (B0 = 2p)
-//   or, for gadget digits in [-Bg/2, Bg/2) with Bg * p * N < 2^32, the single
-//   multiply-add d * psi^k + (Bg/2) * p (B0 = Bg * p).  Inverse (decimation
-//   in time): t = y * w in [0, 2p), outputs x + t and x - t + 2p grow by 2p
-//   a stage (< 24p after 10); the untwist's Shoup product and one
-//   conditional subtraction end it in [0, p).  The first twiddle of every
-//   stage is 1; the stages of the last register pass skip that product.
-//   The MAC adds products of residues without reducing as long as they fit
-//   a uint32 beside a carried value below 2p (all 12 rows at small_v2_tpu's
-//   primes, at least four for any p < 2^15).
+//   to [0, p) ends the transform (2p * 2048 = 1.7e8 at 40961).  The twist is a
+//   Shoup product (B0 = 2p) or, for gadget digits in [-Bg/2, Bg/2) with
+//   Bg * p * N < 2^32 for every prime, the single multiply-add
+//   d * psi^k + (Bg/2) * p (B0 = Bg * p; 6.7e8 at small_v2_n2048; small's
+//   Bg = 2^10 takes the Shoup twist).  Inverse (decimation in time):
+//   t = y * w in [0, 2p), outputs x + t and x - t + 2p grow by 2p a stage (the
+//   first log2(N/256) stages, whose first butterfly skips its product,
+//   double instead; below 32p at N = 2048); the untwist's Shoup product and
+//   one conditional subtraction end it in [0, p).  The MAC adds products of
+//   residues without reducing as long as they fit a uint32 beside a carried
+//   value below 2p: 28 at 12289, 12 at 18433, 2 at 40961, so it reduces
+//   before the product that would not fit.  The sums are stored in 16 bits:
+//   below 2p, or below p for a prime above 2^15.
 //   tests/test_torch_kernel_arith.py models exactly this arithmetic in numpy
 //   and checks every bound.
-// * Twiddles.  The stage tables of both primes and both directions (uint2 =
-//   (w, w'), 32 KB at N = 1024) are staged in shared memory once a block;
-//   twist and untwist (one coalesced load a coefficient) come through the
-//   read-only cache.  Table layout per prime, uint2 [4][N]: twist, forward
-//   stage tables (the stage of half-span h at offset N - 2h), untwist
-//   (psi^-j / N), inverse stage tables (half-span h at offset h - 1); values
-//   and order of ntt.NttPlan (kernels.shoup_tables builds it).
+// * CRT.  Garner's digits stay below their primes.  Two primes: the value
+//   fits 30 bits and its sign is 2v >= p0 p1.  Three: the value is below
+//   P = 9.3e12 and its sign is decided exactly in 64 bits against P/2; the
+//   external product stays below P/2 (ntt.primes_for), so this agrees with
+//   the JAX package's fp32 estimate on every reachable value.
+// * Twiddles.  The stage tables of every prime and both directions (uint2 =
+//   (w, w'), 16 KB a prime at N = 1024) are staged in shared memory once a
+//   block; at N = 2048 they hold one prime's at a time (32 KB), loaded again
+//   for every prime of every round.  Twist and untwist (one coalesced load a
+//   coefficient) come through the read-only cache.  Table layout per prime,
+//   uint2 [4][N]: twist, forward stage tables (the stage of half-span h at
+//   offset N - 2h), untwist (psi^-j / N), inverse stage tables (half-span h
+//   at offset h - 1); values and order of ntt.NttPlan (kernels.shoup_tables
+//   builds it).
 // * One key load serves G ciphertexts, and its latency stays out of the
-//   loop: in the MAC a thread owns coefficients 2*tid and 2*tid + 1 of all
-//   G.  The exchange buffers, idle then, hold a ring of four BK rows; each
-//   thread copies the words it will itself read (cp.async, no barrier) three
-//   rows ahead of the row it multiplies, reads each residue back with a
-//   16-bit load (zero-extended for free) and uses it G times.
-// * blind_rotate loops over all n rounds inside the block (the TPU's
+//   loop: in the MAC a thread owns E = N/T consecutive coefficients of all
+//   G.  The exchange buffers, idle then, hold a ring of four BK rows (two at
+//   N = 2048); each thread copies the words it will itself read (cp.async,
+//   no barrier) ahead of the row it multiplies, reads each residue back with
+//   a 16-bit load (zero-extended: 40961 is a 16-bit pattern of the int16
+//   BK) and uses it G times.
+// * Digit rows in chunks.  Where all rows' transforms do not fit shared
+//   memory beside the rest (20 rows at N = 2048, a bundled round's 30 rows
+//   at three primes), the rows are transformed and multiplied `cr` at a
+//   time (a multiple of the polynomials a block transforms); the MAC's sums
+//   stay in registers across chunks.
+// * blind_rotate loops over all rounds inside the block (the TPU's
 //   sequential grid axis has no Hopper counterpart): the accumulators stay in
 //   shared memory; each round writes X^t acc - acc + gadget offset once into
 //   shared memory, and the forward transforms cut their digits out of it.
+//   A bundled round (the JAX package's bundle == 2 body) writes three
+//   differences: u = X^ti acc - acc, v = X^tj acc - acc and w = X^tj u - u,
+//   the last as X^(ti+tj) acc - X^ti acc - X^tj acc + acc, all from acc in
+//   one pass; digit row = which * 2l + bloc * l + level against the round's
+//   interleaved key [bk(s_2i) | bk(s_2i+1) | bk(s_2i * s_2i+1)].
 //
-// Shared memory at N = 1024, rows = 12, G = 2 (dynamic, opted in with
-// cudaFuncSetAttribute): stage tables 32 KB, exchange 68 KB, accumulators
-// and rotated difference 32 KB, digit rows / MAC sums (uint16, aliased)
-// 48 KB, prime-0 results 32 KB: 212 KB, one block of 16 warps per SM (124
-// registers a thread).  G = 4 does not fit this layout.
+// Shared memory (dynamic, opted in with cudaFuncSetAttribute; a block may
+// have 232,448 B), stage tables / exchange / accumulators and differences /
+// digit rows and MAC sums (uint16, aliased) / results of all primes but the
+// last:
+//   small_v2_tpu, N 1024, 12 rows, G 2:  32 + 68 + 32 + 48 + 32 KB = 217,088 B
+//   small_v2, 20 rows, G 1:              32 + 68 + 16 + 40 + 16 KB = 176,128 B
+//   small, three primes, 6 rows, G 1:    48 + 68 + 16 + 16 + 32 KB = 184,320 B
+//   small_v2_n2048, N 2048, chunks of 12: 32 + 68 + 32 + 48 + 32 KB = 217,088 B
+//   bundled small_v2_tpu, 36 rows, G 1:  32 + 68 + 32 + 72 + 16 KB = 225,280 B
+//   bundled small_v2_tpu2, 30 rows in chunks of 16, three primes, G 1:
+//                                         48 + 68 + 32 + 32 + 32 KB = 217,088 B
+// A bundled round at N = 2048 (three differences of 16 KB) does not fit and
+// has no instance.  One block of 16 warps per SM (124-128 registers a thread).
 //
 // Bound on this card: int32 instructions.  The prepared BK is 137.6 MB at
 // small_v2_tpu, 41 us at 3.35 TB/s, while 512 ciphertexts' rounds are
@@ -86,12 +119,13 @@
 // Python wrapper raises if it is not 0.
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kPolys = 8;       // polynomials a block transforms at once
-constexpr int kPer = 16;        // coefficients a thread holds
+constexpr int kPer = 16;          // coefficients a thread holds in a transform
 constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 
 constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
@@ -129,11 +163,13 @@ __device__ __forceinline__ uint32_t shoup(uint32_t x, uint2 tw, uint32_t p) {
   return x * tw.x - __umulhi(x, tw.y) * p;
 }
 
-// Asynchronous 4-byte copy from global to shared memory (LDGSTS): the data
-// goes past the registers, and the thread waits for it only where it needs
-// it.  smem_addr is an address in the shared window (shared_address).
-__device__ __forceinline__ void cp_async4(uint32_t smem_addr, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr), "l"(gmem)
+// Asynchronous 4- or 8-byte copy from global to shared memory (LDGSTS): the
+// data goes past the registers, and the thread waits for it only where it
+// needs it.  smem_addr is an address in the shared window (shared_address).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t smem_addr, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr), "l"(gmem),
+               "n"(BYTES)
                : "memory");
 }
 __device__ __forceinline__ uint32_t shared_address(const void* smem) {
@@ -148,19 +184,28 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(K) : "memory");
 }
 
-// Geometry of one transform: L threads a polynomial, thread t of them holds
-// 16 coefficients.  Pass A: positions t + L*k.  Pass B: L*b + j + S*k with
-// t = b*S + j.  Pass C: four runs of four, 4*(t + L*g) + e.
+// Geometry of one transform and of a block: L threads a polynomial, thread t
+// of them holds 16 coefficients.  Pass A: positions t + L*k.  Pass B:
+// L*b + j + S*k with t = b*S + j.  Pass C: runs of max(4, S) consecutive
+// coefficients.  A block transforms POLYS polynomials at once with T threads;
+// outside the transforms a thread owns E consecutive coefficients of every
+// polynomial.  At N = 2048 a block has 4 polynomials (8 would need 1,024
+// threads and twice the registers an SM has), a ring of 2 BK rows, and the
+// stage tables of one prime at a time.
 template <int N>
 struct Geo {
-  static constexpr int T = N / 2;       // threads a block
   static constexpr int L = N / kPer;    // threads a polynomial (64 at N = 1024)
-  static constexpr int S = L / kPer;    // 4, 2, 1 at N = 1024, 512, 256
+  static constexpr int S = L / kPer;    // 8, 4, 2, 1 at N = 2048, 1024, 512, 256
   static constexpr int LOG_L = ilog2(L);
   static constexpr int LOG_S = ilog2(S);
+  static constexpr int POLYS = N <= 1024 ? 8 : 4;
+  static constexpr int T = POLYS * L;   // threads a block: N/2, or N/4 at 2048
+  static constexpr int E = N / T;       // 2, or 4 at 2048
+  static constexpr int RING = N <= 1024 ? 4 : 2;  // BK rows in flight in the MAC
+  static constexpr bool RESIDENT = N <= 1024;  // every prime's stage tables stay
   static constexpr int XW = N + kPer * S;  // words of one exchange buffer
-  static_assert(T / L == kPolys, "a block transforms 8 polynomials at once");
-  static_assert(S == 1 || S == 2 || S == 4, "N is 256, 512 or 1024");
+  static_assert(S == 1 || S == 2 || S == 4 || S == 8, "N is 256, 512, 1024 or 2048");
+  static_assert(RING * 8 * N * 2 <= POLYS * 2 * XW * 4, "the BK ring fits the exchange buffers");
   // exchange address of coefficient `pos`: S words of padding every L
   __device__ static __forceinline__ int addr(int pos) { return pos + ((pos >> LOG_L) << LOG_S); }
 };
@@ -246,38 +291,75 @@ __device__ __forceinline__ void ntt_fwd(const Load& load, const Store4& store4, 
   }
   __syncthreads();
   if (active) {
+    if constexpr (G::S == 8) {
+      // stages 8..10 on two runs of eight; the first twiddle of every stage
+      // is 1: those differences stay as they are, below 2M like the sums
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int pos = 4 * (t + G::L * g);
-      uint32_t u[4];
-      if (G::S == 4) {
-        const uint4 q = *reinterpret_cast<const uint4*>(x1 + G::addr(pos));
-        u[0] = q.x, u[1] = q.y, u[2] = q.z, u[3] = q.w;
-      } else {
+      for (int g = 0; g < 2; ++g) {
+        const int pos = 8 * (t + G::L * g);
+        const uint4 qa = *reinterpret_cast<const uint4*>(x1 + G::addr(pos));
+        const uint4 qb = *reinterpret_cast<const uint4*>(x1 + G::addr(pos) + 4);
+        uint32_t u[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+        uint32_t M = B0 << 8;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) u[e] = x1[G::addr(pos + e)];
-      }
-      uint32_t M = B0 << 8;
-      // the first twiddle of every stage is 1: those differences stay as
-      // they are, below 2M like the sums
-      if (G::S == 4) {  // stage 8: half-span 2, twiddles 1 and w^(N/4)
-        const uint32_t x0 = u[0], y0 = u[2], x1 = u[1], y1 = u[3];
-        u[0] = x0 + y0;
-        u[2] = x0 - y0 + M;
-        u[1] = x1 + y1;
-        u[3] = shoup(x1 - y1 + M, stage[N - 3], p);
+        for (int e = 0; e < 4; ++e) {  // half-span 4: twiddles stage[N - 8 + e]
+          const uint32_t x = u[e], y = u[e + 4];
+          u[e] = x + y;
+          u[e + 4] = e == 0 ? x - y + M : shoup(x - y + M, stage[N - 8 + e], p);
+        }
         M <<= 1;
-      }
-      if (G::S >= 2) {  // last stage: half-span 1, twiddle 1
 #pragma unroll
-        for (int e = 0; e < 4; e += 2) {
+        for (int e = 0; e < 8; ++e) {  // half-span 2: twiddles 1 and stage[N - 3]
+          if (e & 2) continue;
+          const uint32_t x = u[e], y = u[e + 2];
+          u[e] = x + y;
+          u[e + 2] = (e & 1) ? shoup(x - y + M, stage[N - 3], p) : x - y + M;
+        }
+        M <<= 1;
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {  // half-span 1: twiddle 1
           const uint32_t x = u[e], y = u[e + 1];
           u[e] = x + y;
           u[e + 1] = x - y + M;
         }
+        // every value is < B0 * N <= 2^32
+        store4(pos, reduce(u[0], md), reduce(u[1], md), reduce(u[2], md), reduce(u[3], md));
+        store4(pos + 4, reduce(u[4], md), reduce(u[5], md), reduce(u[6], md), reduce(u[7], md));
       }
-      // every value is < B0 * N <= 2^32
-      store4(pos, reduce(u[0], md), reduce(u[1], md), reduce(u[2], md), reduce(u[3], md));
+    } else {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int pos = 4 * (t + G::L * g);
+        uint32_t u[4];
+        if (G::S == 4) {
+          const uint4 q = *reinterpret_cast<const uint4*>(x1 + G::addr(pos));
+          u[0] = q.x, u[1] = q.y, u[2] = q.z, u[3] = q.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) u[e] = x1[G::addr(pos + e)];
+        }
+        uint32_t M = B0 << 8;
+        // the first twiddle of every stage is 1: those differences stay as
+        // they are, below 2M like the sums
+        if (G::S == 4) {  // stage 8: half-span 2, twiddles 1 and w^(N/4)
+          const uint32_t x0 = u[0], y0 = u[2], x1 = u[1], y1 = u[3];
+          u[0] = x0 + y0;
+          u[2] = x0 - y0 + M;
+          u[1] = x1 + y1;
+          u[3] = shoup(x1 - y1 + M, stage[N - 3], p);
+          M <<= 1;
+        }
+        if (G::S >= 2) {  // last stage: half-span 1, twiddle 1
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const uint32_t x = u[e], y = u[e + 1];
+            u[e] = x + y;
+            u[e + 1] = x - y + M;
+          }
+        }
+        // every value is < B0 * N <= 2^32
+        store4(pos, reduce(u[0], md), reduce(u[1], md), reduce(u[2], md), reduce(u[3], md));
+      }
     }
   }
 }
@@ -294,33 +376,80 @@ __device__ __forceinline__ void ntt_inv(const Load4& load4, const Store& store, 
   const uint32_t p = md.p;
   uint32_t v[kPer];
   if (active) {
+    if constexpr (G::S == 8) {
+      // stages of half-span 1, 2, 4 on two runs of eight; the first twiddle
+      // of every stage is 1: no product there
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const int pos = 4 * (t + G::L * g);
-      const uint4 q = load4(pos);
-      uint32_t u[4] = {q.x, q.y, q.z, q.w};
-      // the first twiddle of every stage is 1: no product there
-      if (G::S >= 2) {  // first stage: half-span 1, twiddle 1; inputs < 2p
+      for (int g = 0; g < 2; ++g) {
+        const int pos = 8 * (t + G::L * g);
+        const uint4 qa = load4(pos), qb = load4(pos + 4);
+        uint32_t u[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-        for (int e = 0; e < 4; e += 2) {
+        for (int e = 0; e < 8; e += 2) {  // half-span 1; inputs < 2p, outputs < 4p
           const uint32_t x = u[e], w = u[e + 1];
-          u[e] = x + w;  // < 4p
+          u[e] = x + w;
           u[e + 1] = x - w + 2 * p;
         }
-      }
-      if (G::S == 4) {  // half-span 2, twiddles 1 and w^-(N/4); outputs < 8p
-        const uint32_t x0 = u[0], w0 = u[2], x1 = u[1], w1 = shoup(u[3], stage[2], p);
-        u[0] = x0 + w0;
-        u[2] = x0 - w0 + 4 * p;
-        u[1] = x1 + w1;
-        u[3] = x1 - w1 + 2 * p;
-      }
-      uint32_t* dst = x0 + G::addr(pos);
-      if (G::S == 4) {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
-      } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x0[G::addr(pos + e)] = u[e];
+        for (int e = 0; e < 8; ++e) {  // half-span 2, twiddles 1 and stage[2]; < 8p
+          if (e & 2) continue;
+          const uint32_t x = u[e];
+          if (e & 1) {
+            const uint32_t w = shoup(u[e + 2], stage[2], p);
+            u[e] = x + w;
+            u[e + 2] = x - w + 2 * p;
+          } else {
+            const uint32_t w = u[e + 2];
+            u[e] = x + w;
+            u[e + 2] = x - w + 4 * p;
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // half-span 4, twiddles stage[3 + e]; < 16p
+          const uint32_t x = u[e];
+          if (e == 0) {
+            const uint32_t w = u[4];
+            u[0] = x + w;
+            u[4] = x - w + 8 * p;
+          } else {
+            const uint32_t w = shoup(u[e + 4], stage[3 + e], p);
+            u[e] = x + w;
+            u[e + 4] = x - w + 2 * p;
+          }
+        }
+        uint32_t* dst = x0 + G::addr(pos);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+        *reinterpret_cast<uint4*>(dst + 4) = make_uint4(u[4], u[5], u[6], u[7]);
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const int pos = 4 * (t + G::L * g);
+        const uint4 q = load4(pos);
+        uint32_t u[4] = {q.x, q.y, q.z, q.w};
+        // the first twiddle of every stage is 1: no product there
+        if (G::S >= 2) {  // first stage: half-span 1, twiddle 1; inputs < 2p
+#pragma unroll
+          for (int e = 0; e < 4; e += 2) {
+            const uint32_t x = u[e], w = u[e + 1];
+            u[e] = x + w;  // < 4p
+            u[e + 1] = x - w + 2 * p;
+          }
+        }
+        if (G::S == 4) {  // half-span 2, twiddles 1 and w^-(N/4); outputs < 8p
+          const uint32_t x0 = u[0], w0 = u[2], x1 = u[1], w1 = shoup(u[3], stage[2], p);
+          u[0] = x0 + w0;
+          u[2] = x0 - w0 + 4 * p;
+          u[1] = x1 + w1;
+          u[3] = x1 - w1 + 2 * p;
+        }
+        uint32_t* dst = x0 + G::addr(pos);
+        if (G::S == 4) {
+          *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) x0[G::addr(pos + e)] = u[e];
+        }
       }
     }
   }
@@ -338,7 +467,7 @@ __device__ __forceinline__ void ntt_inv(const Load4& load4, const Store& store, 
   if (active) {
 #pragma unroll
     for (int k = 0; k < kPer; ++k) v[k] = x1[t + (G::L + G::S) * k];
-    inv_stages<N>(v, stage, t, G::L, p);  // every value < 2p * (log2(N) + 2)
+    inv_stages<N>(v, stage, t, G::L, p);  // every value < 32p
 #pragma unroll
     for (int k = 0; k < kPer; ++k) {
       const int pos = t + G::L * k;
@@ -347,60 +476,91 @@ __device__ __forceinline__ void ntt_inv(const Load4& load4, const Store& store, 
   }
 }
 
+constexpr int kMaxPrimes = 3;
+
 struct Crt {
-  uint32_t p0, p1;
-  uint2 inv01;  // p0^-1 mod p1 and its Shoup companion
-  Mod m0, m1;
+  uint32_t p[kMaxPrimes];
+  Mod m[kMaxPrimes];
   // products of two residues that fit a uint32 beside a carried value below
-  // 2p, per prime: floor((2^32 - 2p) / (p - 1)^2), at least 4 for p < 2^15
-  int lazy0, lazy1;
+  // 2p, per prime: floor((2^32 - 2p) / (p - 1)^2); 28 at 12289, 12 at 18433,
+  // 2 at 40961
+  int lazy[kMaxPrimes];
+  uint2 inv01;   // p0^-1 mod p1 and its Shoup companion
+  uint2 inv012;  // (p0 p1)^-1 mod p2 and its companion (three primes)
+  uint32_t p01;  // p0 * p1 < 2^30
+  unsigned long long all;  // the product of every prime
 };
 
-// Signed CRT value of (c0 mod p0, c1 mod p1) as a torus32 (mod 2^32).  The
-// external product is bounded by rows*N*(Bg/2)*128 < p0*p1/2.8
-// (ntt.primes_for), so the exact sign decision agrees with the fp32 one of
-// the JAX package on every reachable value.  v < p0*p1 < 2^30.
+// The modulus and the lazy count of prime pi, by selects: indexing the
+// kernel parameter's arrays with a loop variable would copy the struct to
+// the stack.
+__device__ __forceinline__ Mod crt_mod(const Crt& c, int pi) {
+  return pi == 0 ? c.m[0] : pi == 1 ? c.m[1] : c.m[2];
+}
+__device__ __forceinline__ int crt_lazy(const Crt& c, int pi) {
+  return pi == 0 ? c.lazy[0] : pi == 1 ? c.lazy[1] : c.lazy[2];
+}
+
+// Signed CRT value of residues mod two or three primes as a torus32 (mod
+// 2^32).  Garner's digits stay below their primes; the value v lies in
+// [0, P), and v >= P/2 stands for v - P, decided exactly (in 64 bits for three
+// primes, P ~ 9.3e12).  The external product is bounded by
+// rows * N * (Bg/2) * 128 < P/2 (ntt.primes_for), so this agrees with the
+// fp32 sign estimate of the JAX package on every reachable value.
 __device__ __forceinline__ uint32_t crt2(uint32_t c0, uint32_t c1, const Crt& c) {
   // Garner digit (c1 - c0) / p0 mod p1; c0 < p0 < p1 needs no reduction mod p1
-  const uint32_t t1 = csub(shoup(c1 + c.p1 - c0, c.inv01, c.p1), c.p1);
-  uint32_t v = c0 + t1 * c.p0;
-  const uint32_t P = c.p0 * c.p1;
-  if (2 * v >= P) v -= P;
+  const uint32_t t1 = csub(shoup(c1 + c.p[1] - c0, c.inv01, c.p[1]), c.p[1]);
+  uint32_t v = c0 + t1 * c.p[0];
+  if (2 * v >= c.p01) v -= c.p01;
   return v;
 }
 
-// Shared memory of the external product for G ciphertexts of `rows` digit
-// rows; all offsets are multiples of 16 bytes.
-template <int N, int G>
+__device__ __forceinline__ uint32_t crt3(uint32_t c0, uint32_t c1, uint32_t c2, const Crt& c) {
+  const uint32_t t1 = csub(shoup(c1 + c.p[1] - c0, c.inv01, c.p[1]), c.p[1]);
+  const uint32_t v01 = c0 + t1 * c.p[0];  // < p0 p1
+  const uint32_t r = reduce(v01, c.m[2]);
+  const uint32_t t2 = csub(shoup(c2 + c.p[2] - r, c.inv012, c.p[2]), c.p[2]);
+  const unsigned long long v = v01 + static_cast<unsigned long long>(t2) * c.p01;  // < P
+  return static_cast<uint32_t>(2 * v >= c.all ? v - c.all : v);
+}
+
+// Shared memory of G ciphertexts of a block, P primes, D differences a
+// round (1, or 3 for a bundled round), digit rows transformed and multiplied
+// `cr` at a time; all offsets are multiples of 16 bytes.
+template <int N, int G, int P, int D>
 struct Smem {
-  uint2* stage;     // [2 primes][2: forward, inverse][N]
-  uint32_t* ex;     // [8 polynomials][2][XW] exchange buffers
+  using Ge = Geo<N>;
+  static constexpr int TP = Ge::RESIDENT ? P : 1;  // primes whose tables stay
+  uint2* stage;     // [TP][2: forward, inverse][N]
+  uint32_t* ex;     // [POLYS][2][XW] exchange buffers, the BK ring in the MAC
   uint32_t* acc;    // [G][2][N] accumulators (unused by external_product)
-  uint32_t* diff;   // [G][2][N] X^t acc - acc + gadget offset (likewise)
-  uint16_t* r1;     // [G * max(rows, 8)][N]: digit rows in the NTT domain, then MAC sums
-  uint16_t* r2;     // [G * 8][N]: prime 0's inverse transforms
-  __host__ __device__ static size_t bytes(int rows) {
-    const int r = rows > 8 ? rows : 8;
-    return sizeof(uint2) * 4 * N + sizeof(uint32_t) * (kPolys * 2 * Geo<N>::XW + 2 * G * 2 * N) +
-           sizeof(uint16_t) * (static_cast<size_t>(G) * r * N + G * 8 * N);
+  uint32_t* diff;   // [G][D][2][N] X^t acc - acc + gadget offset (likewise)
+  uint16_t* r1;     // [G * max(cr, 8)][N]: digit rows in the NTT domain, then MAC sums
+  uint16_t* r2;     // [P - 1][G * 8][N]: the inverse transforms of all primes but the last
+  __host__ __device__ static constexpr size_t bytes(int cr) {
+    return sizeof(uint2) * TP * 2 * N +
+           sizeof(uint32_t) * (Ge::POLYS * 2 * Ge::XW + (1 + D) * G * 2 * N) +
+           sizeof(uint16_t) * (static_cast<size_t>(G) * (cr > 8 ? cr : 8) * N +
+                               static_cast<size_t>(P - 1) * G * 8 * N);
   }
-  __device__ Smem(unsigned char* base, int rows) {
-    const int r = rows > 8 ? rows : 8;
+  __device__ Smem(unsigned char* base, int cr) {
     stage = reinterpret_cast<uint2*>(base);
-    ex = reinterpret_cast<uint32_t*>(stage + 4 * N);
-    acc = ex + kPolys * 2 * Geo<N>::XW;
+    ex = reinterpret_cast<uint32_t*>(stage + TP * 2 * N);
+    acc = ex + Ge::POLYS * 2 * Ge::XW;
     diff = acc + G * 2 * N;
-    r1 = reinterpret_cast<uint16_t*>(diff + G * 2 * N);
-    r2 = r1 + static_cast<size_t>(G) * r * N;
+    r1 = reinterpret_cast<uint16_t*>(diff + D * G * 2 * N);
+    r2 = r1 + static_cast<size_t>(G) * (cr > 8 ? cr : 8) * N;
   }
 };
 
-// Copy the stage tables of both primes into shared memory.  tabs: uint2
-// [2][4][N] in global memory.  Ends with a barrier.
+// Copy the forward and inverse stage tables of primes pi0 .. pi0 + np - 1
+// into shared memory.  tabs: uint2 [P][4][N] in global memory.  Ends with a
+// barrier.
 template <int N>
-__device__ __forceinline__ void stage_tables(uint2* stage, const uint2* __restrict__ tabs) {
-  for (int i = threadIdx.x; i < 4 * N; i += N / 2) {
-    const int pi = i / (2 * N), dir = (i / N) & 1, k = i & (N - 1);
+__device__ __forceinline__ void stage_tables(uint2* stage, const uint2* __restrict__ tabs,
+                                             int pi0, int np) {
+  for (int i = threadIdx.x; i < np * 2 * N; i += Geo<N>::T) {
+    const int pi = pi0 + i / (2 * N), dir = (i / N) & 1, k = i & (N - 1);
     stage[i] = tabs[(pi * 4 + 1 + 2 * dir) * N + k];
   }
   __syncthreads();
@@ -408,151 +568,173 @@ __device__ __forceinline__ void stage_tables(uint2* stage, const uint2* __restri
 
 // TGSW external products of this block's G ciphertexts:
 //   delta[g][u] = sum_rows digit_row (x) BK[row][u]  (mod 2^32, u = 0, 1)
-// digit(g, j, pos) gives row j's signed digit of ciphertext g at coefficient
-// pos, |digit| < p; digit.small_bias(p) is (Bg/2) * p where every digit lies
-// in [-Bg/2, Bg/2) and Bg * p * N < 2^32, else 0.  bk points at the round
-// slice of prime 0, int16 [rows][8][N] residues; prime 1's slice is
-// prime_stride elements further.  On return delta[g][u][e] holds coefficient
-// 2*tid + e.  The caller puts a barrier between its own shared-memory
-// writes and this call; after its last barrier the function only reads r1
-// and r2.
-template <int N, int G, class DigitFn>
+// over `rows` digit rows (3 * 2l for a bundled round), `cr` of them
+// transformed and then multiplied at a time.  digit(g, j, pos) gives row j's
+// signed digit of ciphertext g at coefficient pos, |digit| < p;
+// digit.small_bias(p) is (Bg/2) * p where every digit lies in [-Bg/2, Bg/2)
+// and Bg * p * N < 2^32, else 0.  bk points at the round slice of prime 0,
+// int16 [rows][8][N] residues read as 16-bit patterns; prime i's slice is
+// i * prime_stride elements further.  On return delta[g][u][e] holds
+// coefficient E*tid + e.  The caller puts a barrier between its own
+// shared-memory writes and this call; after its last barrier the function
+// only reads r1 and r2.
+template <int N, int G, int P, int D, class DigitFn>
 __device__ __forceinline__ void external_product_block(
-    const DigitFn& digit, int rows, const int16_t* __restrict__ bk, long long prime_stride,
-    const uint2* __restrict__ tabs, const Crt& crt, const Smem<N, G>& sm,
-    uint32_t (&delta)[G][2][2]) {
+    const DigitFn& digit, int rows, int cr, const int16_t* __restrict__ bk,
+    long long prime_stride, const uint2* __restrict__ tabs, const Crt& crt,
+    const Smem<N, G, P, D>& sm, uint32_t (&delta)[G][2][Geo<N>::E]) {
   using Ge = Geo<N>;
+  constexpr int E = Ge::E, RING = Ge::RING;
   const int tid = threadIdx.x;
   const int grp = tid / Ge::L;
   uint32_t* x0 = sm.ex + grp * 2 * Ge::XW;
   uint32_t* x1 = x0 + Ge::XW;
-  uint32_t* r1w = reinterpret_cast<uint32_t*>(sm.r1);  // packed pairs of residues
 #pragma unroll 1
-  for (int pi = 0; pi < 2; ++pi) {
-    const Mod md = pi ? crt.m1 : crt.m0;
+  for (int pi = 0; pi < P; ++pi) {
+    const Mod md = crt_mod(crt, pi);
     const uint32_t p = md.p;
     const uint2* tab = tabs + pi * 4 * N;
-    const uint2* stage = sm.stage + pi * 2 * N;
-
-    // forward transforms of the G * rows digit polynomials, 8 at a time
-#pragma unroll 1
-    for (int q0 = 0; q0 < G * rows; q0 += kPolys) {
-      const int q = q0 + grp;
-      const int g = q / rows, j = q - g * rows;
-      uint16_t* slot = sm.r1 + static_cast<size_t>(q) * N;
-      const auto store = [&](int pos, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
-        *reinterpret_cast<uint2*>(slot + pos) = make_uint2(a | (b << 16), c | (d << 16));
-      };
-      const uint32_t bias = digit.small_bias(p);
-      if (bias != 0u) {
-        // digits in [-Bg/2, Bg/2): d * psi^pos + (Bg/2) * p is in [0, Bg * p),
-        // one multiply-add and no reduction
-        ntt_fwd<N>(
-            [&](int pos, uint2 tw) {
-              return static_cast<uint32_t>(digit(g, j, pos)) * tw.x + bias;
-            },
-            store, q < G * rows, tab, stage, x0, x1, md, 2 * bias);
-      } else {
-        ntt_fwd<N>(
-            [&](int pos, uint2 tw) {
-              const int d = digit(g, j, pos);
-              return shoup(static_cast<uint32_t>(d < 0 ? d + static_cast<int>(p) : d), tw, p);
-            },
-            store, q < G * rows, tab, stage, x0, x1, md, 2 * p);
-      }
-    }
-    __syncthreads();
-
-    // MAC over the rows: this thread's coefficients 2*tid and 2*tid + 1 of
+    const uint2* stage = sm.stage + (Ge::RESIDENT ? pi * 2 * N : 0);
+    if (!Ge::RESIDENT) stage_tables<N>(sm.stage, tabs, pi, 1);
+    const uint32_t bias = digit.small_bias(p);
+    // MAC accumulators: this thread's coefficients E*tid .. E*tid + E - 1 of
     // all 8 outputs and G ciphertexts, each BK residue fetched once for all
-    // G.  The exchange buffers are idle here and serve as a ring of four rows
-    // of BK: a thread copies the words it will itself read (so no barrier),
-    // asynchronously and three rows ahead of the row it multiplies, which
-    // keeps the L2 latency out of the loop.  `lazy` products of residues fit
-    // a uint32 beside a carried value < 2p, so the sums are reduced (to
-    // [0, 2p)) only when the next four rows would not fit, and at the end.
-    uint32_t a[G][8][2];
+    // G.  `lazy` products of residues fit a uint32 beside a carried value
+    // < 2p, so the sums are reduced (to [0, 2p)) only before the product
+    // that would not fit, and at the end.
+    uint32_t a[G][8][E];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int o = 0; o < 8; ++o) a[g][o][0] = a[g][o][1] = 0u;
-    const uint32_t* bkw = reinterpret_cast<const uint32_t*>(bk + pi * prime_stride) + tid;
-    uint32_t* ring = sm.ex + tid;  // [4][8][N/2] words, a pair of residues each
+      for (int o = 0; o < 8; ++o)
+#pragma unroll
+        for (int e = 0; e < E; ++e) a[g][o][e] = 0u;
+    const int lazy = crt_lazy(crt, pi);
+    int pending = 0;
+    // The exchange buffers are idle in the MAC and serve as a ring of RING
+    // rows of BK: a thread copies the words it will itself read (so no
+    // barrier), asynchronously and RING - 1 rows ahead of the row it
+    // multiplies, which keeps the L2 latency out of the loop.
+    const uint32_t* bkw =
+        reinterpret_cast<const uint32_t*>(bk + pi * prime_stride) + tid * (E / 2);
+    uint32_t* ring = sm.ex + tid * (E / 2);  // [RING][8][N/2] words, a pair of residues each
     const uint16_t* ringh = reinterpret_cast<const uint16_t*>(ring);
     const uint32_t ring_addr = shared_address(ring);
     const auto fetch = [&](int row, int slot) {  // slot is a constant where this is called
       const uint32_t* src = bkw + row * 8 * (N / 2);
 #pragma unroll
       for (int o = 0; o < 8; ++o)
-        cp_async4(ring_addr + 4u * ((slot * 8 + o) * (N / 2)), src + o * (N / 2));
+        cp_async<2 * E>(ring_addr + 4u * ((slot * 8 + o) * (N / 2)), src + o * (N / 2));
       cp_async_commit();
     };
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      if (r < rows) fetch(r, r);
-    const int lazy = pi ? crt.lazy1 : crt.lazy0;
-    int pending = 0;
+
 #pragma unroll 1
-    for (int j0 = 0; j0 < rows; j0 += 4) {
-      if (pending + 4 > lazy) {
-#pragma unroll
-        for (int g = 0; g < G; ++g)
-#pragma unroll
-          for (int o = 0; o < 8; ++o) {
-            a[g][o][0] = reduce_2p(a[g][o][0], md);
-            a[g][o][1] = reduce_2p(a[g][o][1], md);
-          }
-        pending = 0;
-      }
-      pending += 4;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = j0 + jj;
-        if (j < rows) {
-          // rows j .. min(j + 3, rows - 1) are in flight: row j must have landed
-          if (j + 3 < rows)
-            cp_async_wait<3>();
-          else
-            cp_async_wait<0>();
-          uint32_t d[G][2];
-#pragma unroll
-          for (int g = 0; g < G; ++g)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) d[g][e] = sm.r1[(g * rows + j) * N + 2 * tid + e];
-#pragma unroll
-          for (int o = 0; o < 8; ++o)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const uint32_t w = ringh[(jj * 8 + o) * N + e];
-#pragma unroll
-              for (int g = 0; g < G; ++g) a[g][o][e] += d[g][e] * w;
-            }
-          // Refill the slot this thread has just read (nobody else touches
-          // these words).  Read-then-asynchronous-write is safe: the "memory"
-          // clobber of cp_async4 keeps the compiler from moving the copy
-          // above the loads of `w`, the SM issues a thread's shared loads and
-          // its cp.async through one in-order pipe, and a load has picked its
-          // data up long before the copy's global read can come back to write.
-          if (j + 4 < rows) fetch(j + 4, jj);
+    for (int c0 = 0; c0 < rows; c0 += cr) {
+      const int cn = rows - c0 < cr ? rows - c0 : cr;
+      // forward transforms of this chunk's G * cn digit polynomials, POLYS
+      // at a time; polynomial q is row c0 + q % cn of ciphertext q / cn
+#pragma unroll 1
+      for (int q0 = 0; q0 < G * cn; q0 += Ge::POLYS) {
+        const int q = q0 + grp;
+        const int g = q / cn, j = c0 + q - g * cn;
+        uint16_t* slot = sm.r1 + static_cast<size_t>(q) * N;
+        const auto store = [&](int pos, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+          *reinterpret_cast<uint2*>(slot + pos) = make_uint2(a | (b << 16), c | (d << 16));
+        };
+        if (bias != 0u) {
+          // digits in [-Bg/2, Bg/2): d * psi^pos + (Bg/2) * p is in [0, Bg * p),
+          // one multiply-add and no reduction
+          ntt_fwd<N>(
+              [&](int pos, uint2 tw) {
+                return static_cast<uint32_t>(digit(g, j, pos)) * tw.x + bias;
+              },
+              store, q < G * cn, tab, stage, x0, x1, md, 2 * bias);
+        } else {
+          ntt_fwd<N>(
+              [&](int pos, uint2 tw) {
+                const int d = digit(g, j, pos);
+                return shoup(static_cast<uint32_t>(d < 0 ? d + static_cast<int>(p) : d), tw, p);
+              },
+              store, q < G * cn, tab, stage, x0, x1, md, 2 * p);
         }
       }
+      __syncthreads();
+
+      // MAC over the chunk's rows
+#pragma unroll
+      for (int r = 0; r < RING; ++r)
+        if (r < cn) fetch(c0 + r, r);
+#pragma unroll 1
+      for (int j0 = 0; j0 < cn; j0 += RING) {
+#pragma unroll
+        for (int jj = 0; jj < RING; ++jj) {
+          const int j = j0 + jj;
+          if (j < cn) {
+            // rows j .. min(j + RING - 1, cn - 1) are in flight: row j must have landed
+            if (j + RING - 1 < cn)
+              cp_async_wait<RING - 1>();
+            else
+              cp_async_wait<0>();
+            if (pending == lazy) {
+#pragma unroll
+              for (int g = 0; g < G; ++g)
+#pragma unroll
+                for (int o = 0; o < 8; ++o)
+#pragma unroll
+                  for (int e = 0; e < E; ++e) a[g][o][e] = reduce_2p(a[g][o][e], md);
+              pending = 0;
+            }
+            ++pending;
+            uint32_t d[G][E];
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+#pragma unroll
+              for (int e = 0; e < E; ++e) d[g][e] = sm.r1[(g * cn + j) * N + E * tid + e];
+#pragma unroll
+            for (int o = 0; o < 8; ++o)
+#pragma unroll
+              for (int e = 0; e < E; ++e) {
+                const uint32_t w = ringh[(jj * 8 + o) * N + e];
+#pragma unroll
+                for (int g = 0; g < G; ++g) a[g][o][e] += d[g][e] * w;
+              }
+            // Refill the slot this thread has just read (nobody else touches
+            // these words).  Read-then-asynchronous-write is safe: the "memory"
+            // clobber of cp_async keeps the compiler from moving the copy
+            // above the loads of `w`, the SM issues a thread's shared loads and
+            // its cp.async through one in-order pipe, and a load has picked its
+            // data up long before the copy's global read can come back to write.
+            if (j + RING < cn) fetch(c0 + j + RING, jj);
+          }
+        }
+      }
+      __syncthreads();  // the chunk's digit rows and the ring are free again
     }
-    __syncthreads();  // every digit row has been read: r1 becomes the MAC sums
+    // the MAC sums become r1's first G * 8 rows, below 2p < 2^16 each (below
+    // p for a prime above 2^15, so that they fit 16 bits)
+    const bool wide = p >= (1u << 15);
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int o = 0; o < 8; ++o)  // < 2p < 2^16 each
-        r1w[(g * 8 + o) * (N / 2) + tid] =
-            reduce_2p(a[g][o][0], md) | (reduce_2p(a[g][o][1], md) << 16);
+      for (int o = 0; o < 8; ++o) {
+        uint32_t f[E];
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          f[e] = wide ? reduce(a[g][o][e], md) : reduce_2p(a[g][o][e], md);
+        uint32_t* w = reinterpret_cast<uint32_t*>(sm.r1 + (g * 8 + o) * N + E * tid);
+#pragma unroll
+        for (int e = 0; e < E; e += 2) w[e / 2] = f[e] | (f[e + 1] << 16);
+      }
     __syncthreads();
 
-    // inverse transforms of the G * 8 sums; prime 0's go to r2, prime 1's
-    // stay in place
+    // inverse transforms of the G * 8 sums; the last prime's stay in place,
+    // the others go to r2
 #pragma unroll 1
-    for (int q0 = 0; q0 < G * 8; q0 += kPolys) {
+    for (int q0 = 0; q0 < G * 8; q0 += Ge::POLYS) {
       const int q = q0 + grp;
       const uint16_t* src = sm.r1 + static_cast<size_t>(q) * N;
-      uint16_t* dst = (pi ? sm.r1 : sm.r2) + static_cast<size_t>(q) * N;
+      uint16_t* dst = (pi == P - 1 ? sm.r1 : sm.r2 + static_cast<size_t>(pi) * G * 8 * N) +
+                      static_cast<size_t>(q) * N;
       ntt_inv<N>(
           [&](int pos) {
             const uint2 w = *reinterpret_cast<const uint2*>(src + pos);
@@ -567,13 +749,20 @@ __device__ __forceinline__ void external_product_block(
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
-    for (int u = 0; u < 2; ++u) delta[g][u][0] = delta[g][u][1] = 0u;
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < E; ++e) delta[g][u][e] = 0u;
 #pragma unroll
     for (int o = 0; o < 8; ++o) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int k = (g * 8 + o) * N + 2 * tid + e;
-        delta[g][o / 4][e] += crt2(sm.r2[k], sm.r1[k], crt) << (8 * (o % 4));
+      for (int e = 0; e < E; ++e) {
+        const int k = (g * 8 + o) * N + E * tid + e;
+        uint32_t v;
+        if constexpr (P == 2)
+          v = crt2(sm.r2[k], sm.r1[k], crt);
+        else
+          v = crt3(sm.r2[k], sm.r2[G * 8 * N + k], sm.r1[k], crt);
+        delta[g][o / 4][e] += v << (8 * (o % 4));
       }
     }
   }
@@ -582,48 +771,89 @@ __device__ __forceinline__ void external_product_block(
 struct Gadget {
   int l, bg_bit;
   uint32_t offset;  // sum_j (Bg/2) * 2^(32 - (j+1)*bg_bit), as uint32
-  int small;        // Bg * p * N < 2^32 for both primes: the twist needs no reduction
+  int small;        // Bg * p * N < 2^32 for every prime: the twist needs no reduction
 };
 
-Gadget make_gadget(int l, int bg_bit, uint32_t offset, int p0, int p1, int N) {
-  const unsigned long long p = p0 > p1 ? p0 : p1;
+Gadget make_gadget(int l, int bg_bit, uint32_t offset, int max_prime, int N) {
+  const unsigned long long p = static_cast<unsigned long long>(max_prime);
   return Gadget{l, bg_bit, offset, ((p * N) << bg_bit) < 0x100000000ull};
 }
 
+// X^t a [k] = +-a[(k - t) mod N], negated when (k - t) mod 2N >= N; t in [0, 2N).
+template <int N>
+__device__ __forceinline__ uint32_t rotated(const uint32_t* a, int t, int k) {
+  int src = k - t;
+  if (src < 0) src += 2 * N;
+  const bool neg = src >= N;
+  src = neg ? src - N : src;
+  return neg ? 0u - a[src] : a[src];
+}
+
 // u = X^t acc - acc + gadget offset for the block's G ciphertexts, from the
-// accumulators in shared memory into sm.diff: X^t acc [k] = +-acc[(k - t) mod
-// N], negated when (k - t) mod 2N >= N.  t[c] in [0, 2N).  Ends with a barrier.
-template <int N, int G>
-__device__ __forceinline__ void rotate_diff(const Smem<N, G>& sm, const int (&t)[G],
+// accumulators in shared memory into sm.diff.  t[c] in [0, 2N).  Ends with a
+// barrier.
+template <int N, int G, int P>
+__device__ __forceinline__ void rotate_diff(const Smem<N, G, P, 1>& sm, const int (&t)[G],
                                             uint32_t offset) {
 #pragma unroll
   for (int c = 0; c < G; ++c)
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int k = threadIdx.x + e * (N / 2);
-      int src = k - t[c];
-      if (src < 0) src += 2 * N;
-      const bool neg = src >= N;
-      src = neg ? src - N : src;
+    for (int e = 0; e < Geo<N>::E; ++e) {
+      const int k = threadIdx.x + e * Geo<N>::T;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const uint32_t* a = sm.acc + (c * 2 + u) * N;
-        sm.diff[(c * 2 + u) * N + k] = (neg ? 0u - a[src] : a[src]) - a[k] + offset;
+        sm.diff[(c * 2 + u) * N + k] = rotated<N>(a, t[c], k) - a[k] + offset;
       }
     }
   __syncthreads();
 }
 
-// Signed gadget digits of the values rotate_diff left in shared memory.
-// Row j = bloc * l + level.
-template <int N>
+// The three differences of a bundled round, plus the gadget offset:
+// u = X^ti acc - acc, v = X^tj acc - acc and w = X^tj u - u, which is
+// X^(ti+tj) acc - X^ti acc - X^tj acc + acc (mod 2^32), so all three come
+// from the accumulators in one pass.  sm.diff is [G][3][2][N].  Ends with a
+// barrier.
+template <int N, int G, int P>
+__device__ __forceinline__ void rotate_diff3(const Smem<N, G, P, 3>& sm, const int (&ti)[G],
+                                             const int (&tj)[G], uint32_t offset) {
+#pragma unroll
+  for (int c = 0; c < G; ++c) {
+    int tij = ti[c] + tj[c];
+    if (tij >= 2 * N) tij -= 2 * N;
+#pragma unroll
+    for (int e = 0; e < Geo<N>::E; ++e) {
+      const int k = threadIdx.x + e * Geo<N>::T;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const uint32_t* a = sm.acc + (c * 2 + u) * N;
+        const uint32_t ak = a[k], xi = rotated<N>(a, ti[c], k), xj = rotated<N>(a, tj[c], k);
+        const uint32_t xij = rotated<N>(a, tij, k);
+        sm.diff[((c * 3 + 0) * 2 + u) * N + k] = xi - ak + offset;
+        sm.diff[((c * 3 + 1) * 2 + u) * N + k] = xj - ak + offset;
+        sm.diff[((c * 3 + 2) * 2 + u) * N + k] = xij - xi - xj + ak + offset;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// Signed gadget digits of the values rotate_diff (D = 1) or rotate_diff3
+// (D = 3) left in shared memory.  Row j = which * 2l + bloc * l + level.
+template <int N, int D>
 struct GadgetDigits {
-  const uint32_t* u;  // [G][2][N]
+  const uint32_t* u;  // [G][D][2][N]
   Gadget g;
   __device__ __forceinline__ int operator()(int ct, int j, int pos) const {
+    int which = 0;
+    if (D == 3) {
+      which = j / (2 * g.l);
+      j -= which * 2 * g.l;
+    }
     const int bloc = j / g.l, lv = j - bloc * g.l;
     const int shift = 32 - (lv + 1) * g.bg_bit;
-    const uint32_t f = (u[(ct * 2 + bloc) * N + pos] >> shift) & ((1u << g.bg_bit) - 1u);
+    const uint32_t f =
+        (u[((ct * D + which) * 2 + bloc) * N + pos] >> shift) & ((1u << g.bg_bit) - 1u);
     return static_cast<int>(f) - (1 << (g.bg_bit - 1));
   }
   __device__ __forceinline__ uint32_t small_bias(uint32_t p) const {
@@ -640,20 +870,20 @@ struct RowDigits {
 
 // ---------------------------------------------------------------- kernels
 
-// K1: 8 rows a block; rows beyond M are masked.
+// K1: POLYS rows a block; rows beyond M are masked.
 template <int N>
-__global__ void __launch_bounds__(N / 2) ntt_kernel(const int32_t* __restrict__ x,
-                                                    int32_t* __restrict__ y,
-                                                    const uint2* __restrict__ tab, uint32_t p,
-                                                    int inverse, int M) {
+__global__ void __launch_bounds__(Geo<N>::T) ntt_kernel(const int32_t* __restrict__ x,
+                                                        int32_t* __restrict__ y,
+                                                        const uint2* __restrict__ tab,
+                                                        uint32_t p, int inverse, int M) {
   using Ge = Geo<N>;
   extern __shared__ uint4 smem_raw[];
   uint2* stage = reinterpret_cast<uint2*>(smem_raw);
   uint32_t* ex = reinterpret_cast<uint32_t*>(stage + N);
   const int tid = threadIdx.x, grp = tid / Ge::L;
-  const long long row = static_cast<long long>(blockIdx.x) * kPolys + grp;
+  const long long row = static_cast<long long>(blockIdx.x) * Ge::POLYS + grp;
   const bool active = row < M;
-  for (int i = tid; i < N; i += N / 2) stage[i] = tab[(inverse ? 3 : 1) * N + i];
+  for (int i = tid; i < N; i += Ge::T) stage[i] = tab[(inverse ? 3 : 1) * N + i];
   __syncthreads();
   uint32_t* x0 = ex + grp * 2 * Ge::XW;
   uint32_t* x1 = x0 + Ge::XW;
@@ -678,16 +908,16 @@ __global__ void __launch_bounds__(N / 2) ntt_kernel(const int32_t* __restrict__ 
 }
 
 template <int N>
-__global__ void __launch_bounds__(N / 2) external_product_kernel(
+__global__ void __launch_bounds__(Geo<N>::T) external_product_kernel(
     const int32_t* __restrict__ digits, const int16_t* __restrict__ bk, long long prime_stride,
     const uint2* __restrict__ tabs, int32_t* __restrict__ delta_out, int rows, Crt crt) {
   extern __shared__ uint4 smem_raw[];
-  const Smem<N, 1> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
-  stage_tables<N>(sm.stage, tabs);
+  const Smem<N, 1, 2, 1> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
+  stage_tables<N>(sm.stage, tabs, 0, 2);
   const long long m = blockIdx.x;
   const RowDigits<N> dig{digits + m * rows * N};
-  uint32_t delta[1][2][2];
-  external_product_block<N, 1>(dig, rows, bk, prime_stride, tabs, crt, sm, delta);
+  uint32_t delta[1][2][Geo<N>::E];
+  external_product_block<N, 1, 2, 1>(dig, rows, rows, bk, prime_stride, tabs, crt, sm, delta);
 #pragma unroll
   for (int u = 0; u < 2; ++u)
     *reinterpret_cast<int2*>(delta_out + (m * 2 + u) * N + 2 * threadIdx.x) =
@@ -695,22 +925,23 @@ __global__ void __launch_bounds__(N / 2) external_product_kernel(
 }
 
 template <int N>
-__global__ void __launch_bounds__(N / 2) cmux_round_kernel(
+__global__ void __launch_bounds__(Geo<N>::T) cmux_round_kernel(
     const int32_t* __restrict__ acc_in, const int32_t* __restrict__ t,
     const int16_t* __restrict__ bk, long long prime_stride, const uint2* __restrict__ tabs,
     int32_t* __restrict__ acc_out, Gadget g, Crt crt) {
   extern __shared__ uint4 smem_raw[];
   const int rows = 2 * g.l;
-  const Smem<N, 1> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
+  const Smem<N, 1, 2, 1> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
   const long long m = blockIdx.x;
   const int tid = threadIdx.x;
-  for (int k = tid; k < 2 * N; k += N / 2) sm.acc[k] = static_cast<uint32_t>(acc_in[m * 2 * N + k]);
-  stage_tables<N>(sm.stage, tabs);  // ends with a barrier
+  for (int k = tid; k < 2 * N; k += Geo<N>::T)
+    sm.acc[k] = static_cast<uint32_t>(acc_in[m * 2 * N + k]);
+  stage_tables<N>(sm.stage, tabs, 0, 2);  // ends with a barrier
   const int tt[1] = {t[m]};
-  rotate_diff<N, 1>(sm, tt, g.offset);
-  const GadgetDigits<N> dig{sm.diff, g};
-  uint32_t delta[1][2][2];
-  external_product_block<N, 1>(dig, rows, bk, prime_stride, tabs, crt, sm, delta);
+  rotate_diff<N, 1, 2>(sm, tt, g.offset);
+  const GadgetDigits<N, 1> dig{sm.diff, g};
+  uint32_t delta[1][2][Geo<N>::E];
+  external_product_block<N, 1, 2, 1>(dig, rows, rows, bk, prime_stride, tabs, crt, sm, delta);
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int k = u * N + 2 * tid;
@@ -720,50 +951,74 @@ __global__ void __launch_bounds__(N / 2) cmux_round_kernel(
 }
 
 // K4: block b owns ciphertexts b*G .. b*G + G - 1; those beyond B run on a
-// zero accumulator and are not stored.
-template <int N, int G>
-__global__ void __launch_bounds__(N / 2, 1) blind_rotate_kernel(
+// zero accumulator and are not stored.  D = 1: n rounds of one exponent each
+// (BK int16 [P][n][2l][8][N]); D = 3: n/2 bundled rounds on the exponent
+// pairs (2i, 2i + 1) (BK [P][n/2][3 * 2l][8][N]).
+template <int N, int G, int P, int D>
+__global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
     const int32_t* __restrict__ acc0, const int32_t* __restrict__ abar,
     const int16_t* __restrict__ bk, const uint2* __restrict__ tabs,
-    int32_t* __restrict__ acc_out, int B, int n, Gadget g, Crt crt) {
+    int32_t* __restrict__ acc_out, int B, int n, int cr, Gadget g, Crt crt) {
+  using Ge = Geo<N>;
+  constexpr int E = Ge::E;
   extern __shared__ uint4 smem_raw[];
-  const int rows = 2 * g.l;
-  const Smem<N, G> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
+  const int rows = D * 2 * g.l;
+  const Smem<N, G, P, D> sm(reinterpret_cast<unsigned char*>(smem_raw), cr);
   const int tid = threadIdx.x;
   const long long first = static_cast<long long>(blockIdx.x) * G;
+  const int rounds = D == 3 ? n / 2 : n;
   const long long round_stride = static_cast<long long>(rows) * 8 * N;
-  const long long prime_stride = round_stride * n;
+  const long long prime_stride = round_stride * rounds;
 #pragma unroll
   for (int c = 0; c < G; ++c)
-    for (int k = tid; k < 2 * N; k += N / 2)
+    for (int k = tid; k < 2 * N; k += Ge::T)
       sm.acc[c * 2 * N + k] =
           first + c < B ? static_cast<uint32_t>(acc0[(first + c) * 2 * N + k]) : 0u;
-  stage_tables<N>(sm.stage, tabs);  // ends with a barrier
-  const GadgetDigits<N> dig{sm.diff, g};
+  if (Ge::RESIDENT)
+    stage_tables<N>(sm.stage, tabs, 0, P);  // ends with a barrier
+  else
+    __syncthreads();
+  const GadgetDigits<N, D> dig{sm.diff, g};
 #pragma unroll 1
-  for (int j = 0; j < n; ++j) {
-    int tt[G];
+  for (int j = 0; j < rounds; ++j) {
+    if constexpr (D == 1) {
+      int tt[G];
 #pragma unroll
-    for (int c = 0; c < G; ++c) tt[c] = first + c < B ? abar[(first + c) * n + j] : 0;
-    rotate_diff<N, G>(sm, tt, g.offset);
-    uint32_t delta[G][2][2];
+      for (int c = 0; c < G; ++c) tt[c] = first + c < B ? abar[(first + c) * n + j] : 0;
+      rotate_diff<N, G, P>(sm, tt, g.offset);
+    } else {
+      int ti[G], tj[G];
+#pragma unroll
+      for (int c = 0; c < G; ++c) {
+        ti[c] = first + c < B ? abar[(first + c) * n + 2 * j] : 0;
+        tj[c] = first + c < B ? abar[(first + c) * n + 2 * j + 1] : 0;
+      }
+      rotate_diff3<N, G, P>(sm, ti, tj, g.offset);
+    }
+    uint32_t delta[G][2][E];
     // reads sm.diff, never sm.acc, and only r1 and r2 after its last barrier
-    external_product_block<N, G>(dig, rows, bk + j * round_stride, prime_stride, tabs, crt, sm,
-                                 delta);
+    external_product_block<N, G, P, D>(dig, rows, cr, bk + j * round_stride, prime_stride, tabs,
+                                       crt, sm, delta);
 #pragma unroll
     for (int c = 0; c < G; ++c)
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        uint2* a = reinterpret_cast<uint2*>(sm.acc + (c * 2 + u) * N + 2 * tid);
-        const uint2 v = *a;
-        *a = make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
+        uint32_t* a = sm.acc + (c * 2 + u) * N + E * tid;
+        if constexpr (E == 2) {
+          const uint2 v = *reinterpret_cast<uint2*>(a);
+          *reinterpret_cast<uint2*>(a) = make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
+        } else {
+          const uint4 v = *reinterpret_cast<uint4*>(a);
+          *reinterpret_cast<uint4*>(a) = make_uint4(v.x + delta[c][u][0], v.y + delta[c][u][1],
+                                                    v.z + delta[c][u][2], v.w + delta[c][u][3]);
+        }
       }
     __syncthreads();
   }
 #pragma unroll
   for (int c = 0; c < G; ++c)
     if (first + c < B)
-      for (int k = tid; k < 2 * N; k += N / 2)
+      for (int k = tid; k < 2 * N; k += Ge::T)
         acc_out[(first + c) * 2 * N + k] = static_cast<int32_t>(sm.acc[c * 2 * N + k]);
 }
 
@@ -777,21 +1032,38 @@ uint32_t powmod(uint32_t a, uint32_t e, uint32_t p) {
   return static_cast<uint32_t>(r);
 }
 
-Crt make_crt(int p0, int p1) {
-  Crt c;
-  c.p0 = static_cast<uint32_t>(p0);
-  c.p1 = static_cast<uint32_t>(p1);
-  c.inv01.x = powmod(c.p0 % c.p1, c.p1 - 2, c.p1);
-  c.inv01.y = static_cast<uint32_t>((static_cast<unsigned long long>(c.inv01.x) << 32) / c.p1);
-  c.m0 = make_mod(c.p0);
-  c.m1 = make_mod(c.p1);
-  c.lazy0 = static_cast<int>((0x100000000ull - 2 * c.p0) / ((c.p0 - 1ull) * (c.p0 - 1ull)));
-  c.lazy1 = static_cast<int>((0x100000000ull - 2 * c.p1) / ((c.p1 - 1ull) * (c.p1 - 1ull)));
-  return c;
+uint2 shoup_pair(uint32_t w, uint32_t p) {
+  uint2 r;
+  r.x = w;
+  r.y = static_cast<uint32_t>((static_cast<unsigned long long>(w) << 32) / p);
+  return r;
 }
 
-bool primes_ok(int p0, int p1) {
-  return p0 > 2 && p0 < p1 && p1 < (1 << 15);  // ascending, as ntt.primes_for gives them
+// Primes ascending (as ntt.primes_for gives them), each below 2^16 (a
+// residue is a 16-bit pattern of the int16 BK).
+bool primes_ok(int P, const int* p) {
+  if (P < 2 || P > kMaxPrimes || p[0] <= 2) return false;
+  for (int i = 1; i < P; ++i)
+    if (p[i] <= p[i - 1]) return false;
+  return p[P - 1] < (1 << 16);
+}
+
+Crt make_crt(int P, const int* pr) {
+  Crt c{};
+  for (int i = 0; i < P; ++i) {
+    c.p[i] = static_cast<uint32_t>(pr[i]);
+    c.m[i] = make_mod(c.p[i]);
+    c.lazy[i] = static_cast<int>((0x100000000ull - 2 * c.p[i]) /
+                                 ((c.p[i] - 1ull) * (c.p[i] - 1ull)));
+  }
+  c.inv01 = shoup_pair(powmod(c.p[0] % c.p[1], c.p[1] - 2, c.p[1]), c.p[1]);
+  c.p01 = c.p[0] * c.p[1];
+  c.all = static_cast<unsigned long long>(c.p01);
+  if (P == 3) {
+    c.inv012 = shoup_pair(powmod(c.p01 % c.p[2], c.p[2] - 2, c.p[2]), c.p[2]);
+    c.all *= c.p[2];
+  }
+  return c;
 }
 
 // SMs of the current device (the launch's stream belongs to it).
@@ -812,22 +1084,62 @@ bool allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes)) == cudaSuccess;
 }
 
-// Ciphertexts a block of blind_rotate owns: 2 when one ciphertext a block
-// would need more than one wave of blocks and two fit shared memory.
-template <int N>
-int blind_rotate_group(int B, int rows) {
-  return B > sm_count() && Smem<N, 2>::bytes(rows) <= kMaxSmem ? 2 : 1;
+// Whether blind_rotate_kernel<N, G, P, D> is built: its shared memory fits
+// at the smallest chunk of digit rows.
+template <int N, int G, int P, int D>
+constexpr bool k4_built() {
+  return Smem<N, G, P, D>::bytes(Geo<N>::POLYS) <= kMaxSmem;
 }
 
-template <int N, int G>
-int launch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t* bk,
-                        const uint2* tabs, int32_t* out, int B, int n, Gadget g, Crt crt,
-                        cudaStream_t stream) {
-  const size_t bytes = Smem<N, G>::bytes(2 * g.l);
-  if (!allow_smem(blind_rotate_kernel<N, G>, bytes)) return static_cast<int>(cudaErrorInvalidValue);
-  blind_rotate_kernel<N, G><<<(B + G - 1) / G, N / 2, bytes, stream>>>(acc0, abar, bk, tabs, out,
-                                                                      B, n, g, crt);
-  return static_cast<int>(cudaGetLastError());
+// How a launch of K4 runs.  Two ciphertexts a block when one a block would
+// need more than one wave of blocks and all digit rows of two fit shared
+// memory; else one, with the digit rows in chunks of a multiple of POLYS
+// where all of them do not fit.
+struct K4Config {
+  int G, cr;
+  size_t bytes;
+};
+
+template <int N, int P, int D>
+bool k4_config(int B, int rows, K4Config* out) {
+  if constexpr (k4_built<N, 2, P, D>()) {
+    if (B > sm_count() && Smem<N, 2, P, D>::bytes(rows) <= kMaxSmem) {
+      *out = K4Config{2, rows, Smem<N, 2, P, D>::bytes(rows)};
+      return true;
+    }
+  }
+  if constexpr (k4_built<N, 1, P, D>()) {
+    int cr = rows;
+    while (Smem<N, 1, P, D>::bytes(cr) > kMaxSmem) cr = (cr - 1) / Geo<N>::POLYS * Geo<N>::POLYS;
+    *out = K4Config{1, cr, Smem<N, 1, P, D>::bytes(cr)};
+    return true;
+  }
+  return false;
+}
+
+template <int N, int G, int P, int D>
+int launch_blind_rotate(const K4Config& cf, const int32_t* acc0, const int32_t* abar,
+                        const int16_t* bk, const uint2* tabs, int32_t* out, int B, int n,
+                        Gadget g, Crt crt, cudaStream_t stream) {
+  if constexpr (k4_built<N, G, P, D>()) {
+    if (!allow_smem(blind_rotate_kernel<N, G, P, D>, cf.bytes))
+      return static_cast<int>(cudaErrorInvalidValue);
+    blind_rotate_kernel<N, G, P, D><<<(B + G - 1) / G, Geo<N>::T, cf.bytes, stream>>>(
+        acc0, abar, bk, tabs, out, B, n, cf.cr, g, crt);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int N, int P, int D>
+int dispatch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t* bk,
+                          const uint2* tabs, int32_t* out, int B, int n, Gadget g, Crt crt,
+                          cudaStream_t stream) {
+  K4Config cf;
+  if (!k4_config<N, P, D>(B, D * 2 * g.l, &cf)) return static_cast<int>(cudaErrorInvalidValue);
+  return cf.G == 2
+             ? launch_blind_rotate<N, 2, P, D>(cf, acc0, abar, bk, tabs, out, B, n, g, crt, stream)
+             : launch_blind_rotate<N, 1, P, D>(cf, acc0, abar, bk, tabs, out, B, n, g, crt, stream);
 }
 
 }  // namespace
@@ -840,6 +1152,28 @@ int launch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t*
     default: return static_cast<int>(cudaErrorInvalidValue);    \
   }
 
+// K4's instances: N, primes P, differences a round D.
+#define REDSEC_DISPATCH_K4(N_, P_, D_, ...)                                   \
+  do {                                                                          \
+    const int key_ = (N_) * 100 + (P_) * 10 + (D_);                             \
+    switch (key_) {                                                             \
+      case 25621: { constexpr int NN = 256, PP = 2, DD = 1; __VA_ARGS__; }           \
+      case 25631: { constexpr int NN = 256, PP = 3, DD = 1; __VA_ARGS__; }           \
+      case 25623: { constexpr int NN = 256, PP = 2, DD = 3; __VA_ARGS__; }           \
+      case 25633: { constexpr int NN = 256, PP = 3, DD = 3; __VA_ARGS__; }           \
+      case 51221: { constexpr int NN = 512, PP = 2, DD = 1; __VA_ARGS__; }           \
+      case 51231: { constexpr int NN = 512, PP = 3, DD = 1; __VA_ARGS__; }           \
+      case 51223: { constexpr int NN = 512, PP = 2, DD = 3; __VA_ARGS__; }           \
+      case 51233: { constexpr int NN = 512, PP = 3, DD = 3; __VA_ARGS__; }           \
+      case 102421: { constexpr int NN = 1024, PP = 2, DD = 1; __VA_ARGS__; }         \
+      case 102431: { constexpr int NN = 1024, PP = 3, DD = 1; __VA_ARGS__; }         \
+      case 102423: { constexpr int NN = 1024, PP = 2, DD = 3; __VA_ARGS__; }         \
+      case 102433: { constexpr int NN = 1024, PP = 3, DD = 3; __VA_ARGS__; }         \
+      case 204821: { constexpr int NN = 2048, PP = 2, DD = 1; __VA_ARGS__; }         \
+      default: break;                                                           \
+    }                                                                           \
+  } while (0)
+
 extern "C" {
 
 const char* redsec_error_string(int code) {
@@ -849,14 +1183,23 @@ const char* redsec_error_string(int code) {
 // K1: y[M, N] = NTT (or inverse) of x[M, N] mod p; tab = this prime's uint2 [4][N].
 int redsec_ntt(const int32_t* x, int32_t* y, const uint2* tab, int M, int N, int p, int inverse,
                cudaStream_t stream) {
-  if (M <= 0 || p <= 2 || p >= (1 << 15)) return static_cast<int>(cudaErrorInvalidValue);
-  REDSEC_DISPATCH_N(N, {
-    const size_t bytes = sizeof(uint2) * NN + sizeof(uint32_t) * kPolys * 2 * Geo<NN>::XW;
+  if (M <= 0 || p <= 2 || p >= (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto run = [&](auto nn) {
+    constexpr int NN = decltype(nn)::value;
+    using Ge = Geo<NN>;
+    const size_t bytes = sizeof(uint2) * NN + sizeof(uint32_t) * Ge::POLYS * 2 * Ge::XW;
     if (!allow_smem(ntt_kernel<NN>, bytes)) return static_cast<int>(cudaErrorInvalidValue);
-    ntt_kernel<NN><<<(M + kPolys - 1) / kPolys, NN / 2, bytes, stream>>>(
+    ntt_kernel<NN><<<(M + Ge::POLYS - 1) / Ge::POLYS, Ge::T, bytes, stream>>>(
         x, y, tab, static_cast<uint32_t>(p), inverse, M);
-  });
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  };
+  switch (N) {
+    case 256: return run(std::integral_constant<int, 256>());
+    case 512: return run(std::integral_constant<int, 512>());
+    case 1024: return run(std::integral_constant<int, 1024>());
+    case 2048: return run(std::integral_constant<int, 2048>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K2: delta[M, 2, N] = digits[M, rows, N] (x) bk[P=2][rows][8][N] (prime
@@ -864,14 +1207,15 @@ int redsec_ntt(const int32_t* x, int32_t* y, const uint2* tab, int M, int N, int
 int redsec_external_product(const int32_t* digits, const int16_t* bk, long long prime_stride,
                             const uint2* tabs, int32_t* delta, int M, int N, int rows, int p0,
                             int p1, cudaStream_t stream) {
-  if (M <= 0 || rows <= 0 || !primes_ok(p0, p1)) return static_cast<int>(cudaErrorInvalidValue);
-  const Crt crt = make_crt(p0, p1);
+  const int pr[2] = {p0, p1};
+  if (M <= 0 || rows <= 0 || !primes_ok(2, pr)) return static_cast<int>(cudaErrorInvalidValue);
+  const Crt crt = make_crt(2, pr);
   REDSEC_DISPATCH_N(N, {
-    const size_t bytes = Smem<NN, 1>::bytes(rows);
+    const size_t bytes = Smem<NN, 1, 2, 1>::bytes(rows);
     if (!allow_smem(external_product_kernel<NN>, bytes))
       return static_cast<int>(cudaErrorInvalidValue);
-    external_product_kernel<NN><<<M, NN / 2, bytes, stream>>>(digits, bk, prime_stride, tabs,
-                                                              delta, rows, crt);
+    external_product_kernel<NN><<<M, Geo<NN>::T, bytes, stream>>>(digits, bk, prime_stride, tabs,
+                                                                  delta, rows, crt);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -880,51 +1224,61 @@ int redsec_external_product(const int32_t* digits, const int16_t* bk, long long 
 int redsec_cmux_round(const int32_t* acc, const int32_t* t, const int16_t* bk,
                       long long prime_stride, const uint2* tabs, int32_t* out, int M, int N,
                       int l, int bg_bit, uint32_t offset, int p0, int p1, cudaStream_t stream) {
-  if (M <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(p0, p1))
+  const int pr[2] = {p0, p1};
+  if (M <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(2, pr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Crt crt = make_crt(p0, p1);
-  const Gadget g = make_gadget(l, bg_bit, offset, p0, p1, N);
+  const Crt crt = make_crt(2, pr);
+  const Gadget g = make_gadget(l, bg_bit, offset, p1, N);
   REDSEC_DISPATCH_N(N, {
-    const size_t bytes = Smem<NN, 1>::bytes(2 * l);
+    const size_t bytes = Smem<NN, 1, 2, 1>::bytes(2 * l);
     if (!allow_smem(cmux_round_kernel<NN>, bytes)) return static_cast<int>(cudaErrorInvalidValue);
-    cmux_round_kernel<NN><<<M, NN / 2, bytes, stream>>>(acc, t, bk, prime_stride, tabs, out, g,
-                                                        crt);
+    cmux_round_kernel<NN><<<M, Geo<NN>::T, bytes, stream>>>(acc, t, bk, prime_stride, tabs, out,
+                                                            g, crt);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-// Ciphertexts a block of K4 owns at batch B (what redsec_blind_rotate
-// chooses), or 0 for an N the kernels are not built for.
-int redsec_blind_rotate_group(int B, int N, int l) {
-  switch (N) {
-    case 256: return blind_rotate_group<256>(B, 2 * l);
-    case 512: return blind_rotate_group<512>(B, 2 * l);
-    case 1024: return blind_rotate_group<1024>(B, 2 * l);
-    default: return 0;
-  }
-}
-
-// Dynamic shared memory, in bytes, of a K4 block that owns G ciphertexts.
-int redsec_blind_rotate_shared_bytes(int N, int l, int G) {
-  REDSEC_DISPATCH_N(N, return static_cast<int>(G == 2 ? Smem<NN, 2>::bytes(2 * l)
-                                                      : Smem<NN, 1>::bytes(2 * l)));
+// How K4 runs at batch B: out[0] ciphertexts a block, out[1] digit rows a
+// chunk, out[2] dynamic shared bytes, out[3] the shared bytes two ciphertexts
+// a block would take with all their digit rows (above what a block may have
+// where they do not fit).  Returns non-zero for a combination without an
+// instance.
+int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int* out) {
+  const int D = bundle == 2 ? 3 : 1;
+  K4Config cf{0, 0, 0};
+  size_t bytes2 = 0;
+  bool ok = false;
+  REDSEC_DISPATCH_K4(N, P, D, {
+    ok = k4_config<NN, PP, DD>(B, DD * 2 * l, &cf);
+    bytes2 = Smem<NN, 2, PP, DD>::bytes(DD * 2 * l);
+    break;
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = cf.G;
+  out[1] = cf.cr;
+  out[2] = static_cast<int>(cf.bytes);
+  out[3] = static_cast<int>(bytes2);
   return 0;
 }
 
-// K4: all n CMUX rounds; bk int16 [2][n][rows][8][N], abar int32 [B][n].
+// K4: all CMUX rounds; bk int16 [P][n][rows][8][N] (bundle 1) or
+// [P][n/2][3 * rows][8][N] (bundle 2), abar int32 [B][n]; primes p0 < p1 (< p2).
 int redsec_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t* bk,
                         const uint2* tabs, int32_t* out, int B, int n, int N, int l, int bg_bit,
-                        uint32_t offset, int p0, int p1, cudaStream_t stream) {
-  if (B <= 0 || n <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(p0, p1))
+                        uint32_t offset, int P, int p0, int p1, int p2, int bundle,
+                        cudaStream_t stream) {
+  const int pr[3] = {p0, p1, p2};
+  if (B <= 0 || n <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(P, pr) ||
+      (bundle != 1 && bundle != 2) || (bundle == 2 && n % 2))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Crt crt = make_crt(p0, p1);
-  const Gadget g = make_gadget(l, bg_bit, offset, p0, p1, N);
-  REDSEC_DISPATCH_N(N, return blind_rotate_group<NN>(B, 2 * l) == 2
-                                  ? launch_blind_rotate<NN, 2>(acc0, abar, bk, tabs, out, B, n, g,
-                                                               crt, stream)
-                                  : launch_blind_rotate<NN, 1>(acc0, abar, bk, tabs, out, B, n, g,
-                                                               crt, stream));
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Crt crt = make_crt(P, pr);
+  const Gadget g = make_gadget(l, bg_bit, offset, pr[P - 1], N);
+  const int D = bundle == 2 ? 3 : 1;
+  int code = static_cast<int>(cudaErrorInvalidValue);
+  REDSEC_DISPATCH_K4(N, P, D, code = dispatch_blind_rotate<NN, PP, DD>(acc0, abar, bk, tabs, out, B,
+                                                                       n, g, crt, stream);
+                     break);
+  return code;
 }
 
 }  // extern "C"

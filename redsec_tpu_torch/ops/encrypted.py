@@ -19,6 +19,8 @@ activation, batch leading).
             staircase clamp((slope*x + bias) >> slope_bits, 0, 2^shift-1)
             via the half-torus trick (valid while |conv output| < msize/4),
             or as the 3-bootstrap full-range variant (FDFB, valid to msize/2).
+- majority: a sign-type boundary read k times from re-randomized copies and
+            decided by a leveled vote (``majority_pbs``).
 
 The test-vector builders are numpy; ciphertext arithmetic relies on torch's
 int32 wraparound in add and subtract.
@@ -337,3 +339,64 @@ def maxpool_enc(plan: PoolPlan, x: torch.Tensor, pbs, params: TfheParams,
     from the count."""
     s, tv = maxpool_pre(plan, x, params, g_out)
     return pbs(s.reshape(-1, s.shape[-1]), tv).reshape(s.shape)
+
+
+# --------------------------------------------------------------------------
+# Majority-voted PBS via re-randomized vote copies (no reference analogue:
+# the reference's TFHE backend bootstraps each decision once,
+# lib/BinOps_enc.cpp:182-186)
+#
+# A sign-type decision whose margin is comparable to the mod-switch noise
+# flips with probability p per bootstrap.  k copies of the ciphertext with
+# independent mask rounding vote it down to P(Binom(k, p) > k/2).  Copies made
+# by leveled ops share the mask bit for bit, so their rounding errors are
+# perfectly correlated; adding an encryption of zero (the CloudKey.rerand
+# pool) gives each copy a fresh mask with the same message.  Per voted
+# boundary and activation: k stage-1 sign bootstraps at +-MAJORITY_G1, a
+# leveled vote sum (margin G1, far above the mod-switch sigma), and one
+# stage-2 bootstrap to the boundary's output value: k + 1 bootstraps instead
+# of 1.  The noise the copies share (it lives in the value, not the mask) is
+# not voted down; only the mod-switch share is.
+# --------------------------------------------------------------------------
+
+# stage-1 vote value: the vote-sum margin is G1 ~ 8 sigma_ms at small_v2
+# geometry while k*G1 stays far inside the +-msize/2 budget for any k <= 7
+MAJORITY_G1 = 64
+
+
+def majority_stage1_pre(ct_flat: torch.Tensor, params: TfheParams, k: int,
+                        rerand: torch.Tensor, salt: int = 0):
+    """Stage-1 inputs: (copies [k*m, R], tv1 [N]).  Copy 0 is ``ct_flat``;
+    copy c adds the pool entry ``(salt * (k - 1) + c - 1) mod E``, so
+    ``salt`` (the layer index) rotates pool usage across boundaries."""
+    E = rerand.shape[0]
+    tv1 = torch.as_tensor(const_test_vector(params, MAJORITY_G1, params.msg_space),
+                          device=ct_flat.device)
+    copies = [ct_flat] + [ct_flat + rerand[(salt * (k - 1) + c) % E][None].to(torch.int32)
+                          for c in range(k - 1)]
+    return torch.cat(copies, dim=0), tv1
+
+
+def majority_vote_sum(votes: torch.Tensor, k: int) -> torch.Tensor:
+    """Leveled vote merge: [k*m, R] stage-1 outputs -> [m, R] vote sum
+    (int32 wraparound, as the JAX package's sum)."""
+    m = votes.shape[0] // k
+    out = votes[:m]
+    for c in range(1, k):
+        out = out + votes[c * m:(c + 1) * m]
+    return out
+
+
+def majority_pbs(pbs, ct_flat: torch.Tensor, tv, params: TfheParams, k: int,
+                 rerand: torch.Tensor, salt: int = 0) -> torch.Tensor:
+    """k-vote majority sign-type PBS boundary.
+
+    ``ct_flat`` [m, R] biased phases; ``tv`` [N] the boundary's test vector
+    (an odd function of the sign: +-v).  ``rerand`` [E, n+1] zero-encryption
+    pool; ``salt`` rotates pool usage across boundaries.  Returns [m, R]
+    encrypting +-v by majority of k independent reads; odd k has no ties
+    (votes are +-G1)."""
+    if k < 2:
+        return pbs(ct_flat, tv)
+    copies, tv1 = majority_stage1_pre(ct_flat, params, k, rerand, salt)
+    return pbs(majority_vote_sum(pbs(copies, tv1), k), tv)

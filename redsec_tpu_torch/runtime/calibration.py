@@ -31,7 +31,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Set, Tuple
 
 import numpy as np
 
@@ -52,9 +52,8 @@ _DEFAULT_ONLY = {
     "REDSEC_CENTER": lambda v: v != "0",
     "REDSEC_TIEBREAK": lambda v: v != "0",
 }
-# Recorded knobs of features the port does not implement at all.
-_UNPORTED = ("REDSEC_MAJORITY", "REDSEC_MAJORITY_FROM", "REDSEC_MAJORITY_PLAN",
-             "REDSEC_ESCALATE", "REDSEC_ESCALATE_PARAMS")
+# The JAX package's escalation default second set.
+ESCALATE_PARAMS = "small_v2_n2048"
 
 
 def weights_fingerprint(plan: ModelPlan) -> str:
@@ -74,16 +73,24 @@ def weights_fingerprint(plan: ModelPlan) -> str:
 
 def save_calibration(path: str, plan: ModelPlan, params_name: str, calib_rows: str = "",
                      extra: Optional[Dict] = None, input_gain: bool = False,
-                     relu_mode: Optional[str] = None) -> Dict:
+                     relu_mode: Optional[str] = None, majority: int = 1,
+                     majority_from: int = 0, majority_plan: Optional[str] = None,
+                     escalate: Optional[str] = None,
+                     escalate_params: Optional[str] = None) -> Dict:
     """Write the calibration artifact for a plan that has been through
     ``calibrate_ranges``.  Returns the meta dict.
 
     ``params_name``: the parameter set the calibration targets (its
     mod-switch sigma drove the flip-optimal gains).  ``calib_rows``: free
     text describing the calibration rows (provenance for the eval-set
-    disjointness claim).  ``input_gain`` / ``relu_mode``: the options the
-    forward will be built with; recorded under ``meta["env"]`` as
-    ``REDSEC_INPUT_GAIN`` / ``REDSEC_RELU_MODE``."""
+    disjointness claim).  ``input_gain``, ``relu_mode``, ``majority``,
+    ``majority_from``, ``majority_plan`` and ``escalate`` (layer list, e.g.
+    "6,7") with ``escalate_params``: the options the forward will be built
+    with, recorded under ``meta["env"]`` as the JAX package's
+    ``REDSEC_INPUT_GAIN``, ``REDSEC_RELU_MODE``, ``REDSEC_MAJORITY``,
+    ``REDSEC_MAJORITY_FROM``, ``REDSEC_MAJORITY_PLAN``, ``REDSEC_ESCALATE``
+    and ``REDSEC_ESCALATE_PARAMS`` (only those that differ from its
+    defaults)."""
     params = get_params(params_name)
     # resolve now (strict off: the artifact may deliberately record a
     # configuration whose guard verdict the runner re-judges) to persist the
@@ -97,6 +104,16 @@ def save_calibration(path: str, plan: ModelPlan, params_name: str, calib_rows: s
         env["REDSEC_INPUT_GAIN"] = "1"
     if relu_mode is not None:
         env["REDSEC_RELU_MODE"] = relu_mode
+    if majority != 1:
+        env["REDSEC_MAJORITY"] = str(majority)
+    if majority_from != 0:
+        env["REDSEC_MAJORITY_FROM"] = str(majority_from)
+    if majority_plan:
+        env["REDSEC_MAJORITY_PLAN"] = majority_plan
+    if escalate:
+        env["REDSEC_ESCALATE"] = escalate
+    if escalate_params:
+        env["REDSEC_ESCALATE_PARAMS"] = escalate_params
     meta = {
         "format": FORMAT,
         "model": plan.spec.name,
@@ -174,23 +191,31 @@ def load_calibration(path: str, plan: ModelPlan, check_weights: bool = True) -> 
 def options_from_meta(meta: Dict) -> Dict:
     """The explicit options that reproduce the artifact's recorded
     ``REDSEC_*`` knobs: ``{"input_gain": bool, "relu_mode": None | "quarter" |
-    "full"}``, to be passed to ``build_encrypted_forward`` /
-    ``resolve_pbs_ranges``.
+    "full", "majority": int, "majority_from": int, "majority_plan": str |
+    None}``, to be passed to ``build_encrypted_forward``.  The recorded
+    escalation is ``escalation_from_meta``'s (it needs a second key).
 
-    Raises ValueError on a recorded knob the port does not implement
-    (majority voting, escalation) or implements only at its default (gain
-    mode, cascade weight, flip guard, centering, tie-break): resolving such a
-    file under other settings than it was saved with would silently give a
-    different assignment."""
+    Raises ValueError on a recorded knob the port implements only at its
+    default (gain mode, cascade weight, flip guard, centering, tie-break):
+    resolving such a file under other settings than it was saved with would
+    silently give a different assignment."""
     env = meta.get("env", {})
-    for k in _UNPORTED:
-        if k in env:
-            raise ValueError(f"calibration records {k}={env[k]!r}: majority voting and "
-                             f"escalation are not ported yet")
     for k, is_default in _DEFAULT_ONLY.items():
         if k in env and not is_default(env[k]):
             raise ValueError(f"calibration records {k}={env[k]!r}: the port implements "
                              f"only the JAX package's default for it")
     mode = env.get("REDSEC_RELU_MODE", "")
     return {"input_gain": env.get("REDSEC_INPUT_GAIN", "0") == "1",
-            "relu_mode": mode if mode in ("quarter", "full") else None}
+            "relu_mode": mode if mode in ("quarter", "full") else None,
+            "majority": int(env.get("REDSEC_MAJORITY", "1")),
+            "majority_from": int(env.get("REDSEC_MAJORITY_FROM", "0")),
+            "majority_plan": env.get("REDSEC_MAJORITY_PLAN") or None}
+
+
+def escalation_from_meta(meta: Dict) -> Tuple[Set[int], str]:
+    """(layers, parameter set name) the artifact escalates, from its recorded
+    ``REDSEC_ESCALATE`` / ``REDSEC_ESCALATE_PARAMS`` (default second set
+    ``small_v2_n2048``); an empty set when it escalates nothing."""
+    env = meta.get("env", {})
+    layers = {int(v) for v in env.get("REDSEC_ESCALATE", "").split(",") if v.strip()}
+    return layers, env.get("REDSEC_ESCALATE_PARAMS", ESCALATE_PARAMS)

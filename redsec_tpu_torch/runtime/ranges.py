@@ -19,15 +19,15 @@ per layer and fails loudly when no implementation is valid.
 A copy of the JAX package's module: numpy only, except that
 ``calibrate_ranges`` runs the torch plaintext oracle.  Where the JAX package
 reads ``REDSEC_*`` environment variables, the port takes an argument
-(``relu_mode``) or keeps the default as a constant.  Majority voting and
-parameter escalation are not ported, so the flip-rate guard judges every
-boundary as a single unescalated PBS.
+(``relu_mode``, ``majority_ks``, ``escalate``) or keeps the default as a
+constant.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import math
+from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -83,6 +83,9 @@ class PbsRange:
     # not of the message-space fit).
     expected_flip_rate: Optional[float] = None
     local_flip_rate: Optional[float] = None
+    # The local rate an escalated boundary is judged at: recomputed from its
+    # margin histogram at the second key's mod-switch sigma.
+    escalated_local_rate: Optional[float] = None
 
     def effective(self) -> Optional[int]:
         return self.measured if self.measured is not None else self.certified
@@ -317,7 +320,8 @@ def resolve_pbs_ranges(
     model: ModelPlan, msg_space: int, strict: bool = True,
     gains: bool = True, gain_headroom: float = 2.0,
     input_gain: bool = False, sigma_units: Optional[float] = None,
-    relu_mode: Optional[str] = None,
+    relu_mode: Optional[str] = None, majority_ks: Optional[Dict[int, int]] = None,
+    escalate: Optional[Tuple[Set[int], object]] = None,
 ) -> Dict[int, PbsRange]:
     """Pick the relu implementation, per-edge encoding gains, and guard
     every PBS boundary.
@@ -341,7 +345,13 @@ def resolve_pbs_ranges(
     ``relu_mode``: "quarter" or "full" forces that relu implementation on
     every relu layer (None: chosen per layer from the scaled bound).  "full"
     is 3x the relu PBS cost, but disagreements from mod-switch noise near the
-    quarter-range seam disappear."""
+    quarter-range seam disappear.
+
+    The flip-rate guard judges a boundary as it will run: ``majority_ks``
+    ({layer: k}, the JAX package's ``REDSEC_MAJORITY*``) suppresses a voted
+    boundary's rate to its binomial tail, and ``escalate`` = (layers,
+    TfheParams of the second key; ``REDSEC_ESCALATE``) judges those layers at
+    the second key's mod-switch sigma."""
     if relu_mode not in (None, "quarter", "full"):
         raise ValueError(f"relu_mode must be None, 'quarter' or 'full', got {relu_mode!r}")
     certified = certified_pbs_bounds(model)
@@ -525,6 +535,25 @@ def resolve_pbs_ranges(
             # cascade share is a property of the net, not of the fit)
             local = (r.local_flip_rate if r.local_flip_rate is not None
                      else r.expected_flip_rate)
+            if escalate is not None and i in escalate[0] and local is not None:
+                # recompute the rate from the boundary's own margin histogram
+                # at the run's gain and the second key's sigma: margin-limited
+                # boundaries are sigma-insensitive, so halving the rate with
+                # the sigma would understate it.  Without a histogram (relu
+                # staircase, maxpool) the unescalated rate stays: a sound
+                # bound, since a smaller sigma cannot raise it.
+                h = _sign_hist(i)
+                if h is not None:
+                    ep = escalate[1]
+                    _, local = _flip_optimal_gain(h, ep.mod_switch_sigma_units(),
+                                                  ep.msg_space // 2, lam=0.0,
+                                                  g_fixed=max(ranges[i].in_gain, 1))
+                    r.escalated_local_rate = local
+            k = (majority_ks or {}).get(i, 1)
+            if k > 1 and local is not None:
+                m = (k + 1) // 2
+                local = float(sum(math.comb(k, j) * local**j * (1.0 - local)**(k - j)
+                                  for j in range(m, k + 1)))
             if strict and local is not None and local > MAX_FLIP:
                 raise ValueError(
                     f"layer {i} ({model.spec.name}): predicted per-activation "

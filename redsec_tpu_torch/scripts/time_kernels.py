@@ -2,6 +2,7 @@
 
     python -m redsec_tpu_torch.scripts.time_kernels
     python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent
+    python -m redsec_tpu_torch.scripts.time_kernels --sets small_v2_n2048,small,small_v2_tpu/2
 
 ``--root`` names the checkout whose ``redsec_tpu_torch`` is imported (default:
 the one this file lies in), so two checkouts can be timed one after the other
@@ -9,8 +10,10 @@ inside one call on one card, which is the only way their times compare.  Only
 the wrappers' public signatures are used (the timer is this checkout's
 ``device.cuda_ms`` whichever checkout is timed).  Every kernel is first held
 against its plain twin (exact equality), then timed with CUDA events: K1 at
-[6144, 1024], K2 and K3 on 64 ciphertexts, K4 at a full chunk of 512 and at 32.
-One JSON line per run ends the output.
+[6144, 1024], K2 and K3 on 64 ciphertexts, K4 at a full chunk of 512 and at 32
+at ``small_v2_tpu``, and at 512 at every other parameter set of ``--sets``
+(``name`` or ``name/2`` for a bundled key; default ``small_v2``, the CLI's
+set).  One JSON line per run ends the output.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)),
                     help="checkout to import redsec_tpu_torch from")
     ap.add_argument("--tag", default="change", help="name of this checkout in the output")
+    ap.add_argument("--sets", default="small_v2",
+                    help="comma-separated parameter sets (name, or name/2 for a bundled "
+                         "key) whose K4 is timed at batch 512 besides small_v2_tpu")
     args = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location(
         "time_kernels_device", os.path.join(os.path.dirname(HERE), "device.py"))
@@ -48,6 +54,7 @@ def main(argv=None) -> dict:
     from redsec_tpu_torch.crypto import kernels as K
     from redsec_tpu_torch.crypto import keygen as kg
     from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
+    from redsec_tpu_torch.crypto.params import get_params
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels needs a CUDA card")
@@ -87,12 +94,31 @@ def main(argv=None) -> dict:
     t = ri(0, 2 * N, (64,))
     same("cmux_round", K.cmux_round(acc, t, bk0, P, plan), K.cmux_round_plain(acc, t, bk0, P, plan))
     out["cmux_round_ms"] = ms(lambda: K.cmux_round(acc, t, bk0, P, plan), 50)
-    for B in K4_BATCHES:
-        acc0, abar = ri(-2**31, 2**31, (B, 2, N)), ri(0, 2 * N, (B, n))
-        same(f"blind_rotate batch {B}", K.blind_rotate(acc0, abar, dkey.bk, P, plan),
-             K.blind_rotate_plain(acc0, abar, dkey.bk, P, plan))
-        out[f"blind_rotate_ms_{B}"] = ms(lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan),
-                                         K4_REPS)
+    runs = [("small_v2_tpu", 1, B) for B in K4_BATCHES]
+    for item in filter(None, args.sets.split(",")):
+        name, _, bundle = item.partition("/")
+        runs.append((name, int(bundle or 1), 512))
+    for name, bundle, B in runs:
+        Pk = get_params(name)
+        if (name, bundle) != ("small_v2_tpu", 1):
+            _, cloud = kg.keygen(Pk, seed=0, bundle=bundle)
+            dk = bs.prepare_cloud_key(cloud, device="cuda")
+        else:
+            dk = dkey
+        acc0, abar = ri(-2**31, 2**31, (B, 2, Pk.N)), ri(0, 2 * Pk.N, (B, Pk.n))
+        # the twin on a prefix of the batch (it takes seconds a ciphertext at
+        # the larger sets); every ciphertext of a block runs the same code
+        m = B if (Pk.N, bundle, len(dk.plan.primes)) == (1024, 1, 2) else 64
+        got = K.blind_rotate(acc0, abar, dk.bk, Pk, dk.plan)
+        same(f"blind_rotate {name}/{bundle} batch {B}", got[:m],
+             K.blind_rotate_plain(acc0[:m], abar[:m], dk.bk, Pk, dk.plan))
+        tag = ("" if name == "small_v2_tpu" else f"_{name}") + ("_bundle2" if bundle == 2 else "")
+        out[f"blind_rotate_ms{tag}_{B}"] = ms(
+            lambda: K.blind_rotate(acc0, abar, dk.bk, Pk, dk.plan), K4_REPS)
+        print(f"{args.tag} K4 {name} bundle {bundle} batch {B}: "
+              f"{out[f'blind_rotate_ms{tag}_{B}']:.4f} ms", flush=True)
+        del dk
+        torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
     return out
 

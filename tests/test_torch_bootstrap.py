@@ -120,16 +120,25 @@ def test_blind_rotate_twin_runs_every_round():
 
 
 def test_device_path_rejects_what_the_kernels_do_not_take():
+    """Bundled keys, three primes and N = 2048 are taken (tests/
+    test_torch_pbs_branches.py holds them against JAX); what still raises:
+    the schoolbook sets (no NTT plan), combinations outside the kernels'
+    instances (bundled N = 2048, a prime at or above 2^16), and a key in
+    another NTT order."""
     P = get_params("test_noiseless")
-    _, cloud = kg.keygen(P, seed=0, bundle=2)
-    with pytest.raises(ValueError, match="bundle"):
-        bs.prepare_cloud_key(cloud, device="cpu")
+    _, cloud = kg.keygen(dataclasses.replace(P, n=4), seed=0, bundle=2)
+    assert bs.prepare_cloud_key(cloud, device="cpu").bundle == 2
     with pytest.raises(ValueError, match="schoolbook"):
         bs.prepare_cloud_key(kg.CloudKey(get_params("medium"), np.zeros((1, 6, 2, 8), np.int32),
                                          np.zeros((1, 1, 1), np.int32)), device="cpu")
     small = bs.bootstrap_plan(get_params("small"))  # three primes
-    assert not kernels.supported(get_params("small"), small)
+    assert kernels.supported(get_params("small"), small)
     assert kernels.supported(get_params("small_v2_tpu"), bs.bootstrap_plan(get_params("small_v2_tpu")))
+    n2048 = get_params("small_v2_n2048")
+    assert kernels.supported(n2048, bs.bootstrap_plan(n2048))
+    assert not kernels.supported(n2048, bs.bootstrap_plan(n2048, True), bundle=2)
+    assert not kernels.supported(get_params("small"),
+                                 dataclasses.replace(small, primes=(12289, 18433, 65537)))
     _, _, _, dkey = _setup("test_noiseless", 0)
     with pytest.raises(ValueError, match="flavour"):
         bs.make_batched_bootstrap(dataclasses.replace(dkey, ntt_flavor="matmul"))

@@ -152,8 +152,8 @@ def test_committed_calibration_loads_and_resolves_as_in_jax(net, gains, monkeypa
     assert cal.weights_fingerprint(plan) == jcal.weights_fingerprint(jplan) == meta["weights_sha"]
     assert_same_calibration(plan, jplan)
     opts = cal.options_from_meta(meta)
-    assert opts == {"input_gain": True, "relu_mode": None}
-    got, want = _resolve_both(plan, jplan, monkeypatch, **opts)
+    assert opts == {**_DEFAULTS, "input_gain": True}
+    got, want = _resolve_both(plan, jplan, monkeypatch, opts["input_gain"], opts["relu_mode"])
     assert_same_ranges(got, want)
     # the artifact's own summary of the saving run
     assert {str(i): [r.in_gain, r.out_gain] for i, r in got.items()} == meta["gains"]
@@ -183,7 +183,8 @@ def test_saved_by_the_port_loads_in_jax_and_the_reverse(tmp_path, monkeypatch, r
     jcal.apply_env_knobs(jmeta, env)
     assert env == {"REDSEC_INPUT_GAIN": "1", **({"REDSEC_RELU_MODE": relu_mode}
                                                 if relu_mode else {})}
-    assert cal.options_from_meta(meta) == {"input_gain": True, "relu_mode": relu_mode}
+    assert cal.options_from_meta(meta) == {**_DEFAULTS, "input_gain": True,
+                                           "relu_mode": relu_mode}
 
     # JAX -> port, saved under the same knobs
     monkeypatch.setenv("REDSEC_INPUT_GAIN", "1")
@@ -222,22 +223,30 @@ def test_load_rejects_other_weights_model_and_format(tmp_path):
         cal.load_calibration(bad, plan)
 
 
+_DEFAULTS = {"input_gain": False, "relu_mode": None, "majority": 1, "majority_from": 0,
+             "majority_plan": None}
+
+
+# majority voting and escalation are ported: their knobs become options
+# (escalation's through escalation_from_meta, since it needs a second key)
 @pytest.mark.parametrize("env,ok", [
-    ({"REDSEC_MAJORITY": "3"}, False),
-    ({"REDSEC_MAJORITY_PLAN": "5:5"}, False),
-    ({"REDSEC_ESCALATE": "6,7"}, False),
+    ({"REDSEC_MAJORITY": "3"}, {"majority": 3}),
+    ({"REDSEC_MAJORITY_PLAN": "5:5", "REDSEC_MAJORITY_FROM": "2"},
+     {"majority_plan": "5:5", "majority_from": 2}),
+    ({"REDSEC_ESCALATE": "6,7"}, {}),
     ({"REDSEC_GAIN_MODE": "max"}, False),
     ({"REDSEC_CASCADE_W": "0.5"}, False),
     ({"REDSEC_MAX_FLIP": "0.2"}, False),
     ({"REDSEC_CENTER": "0"}, False),
     ({"REDSEC_TIEBREAK": "0"}, False),
     ({"REDSEC_GAIN_MODE": "flip", "REDSEC_CASCADE_W": "0.25", "REDSEC_CENTER": "1",
-      "REDSEC_RELU_MODE": "full"}, True),
+      "REDSEC_RELU_MODE": "full"}, {"relu_mode": "full"}),
 ])
 def test_options_from_meta_raises_on_knobs_the_port_lacks(env, ok):
-    if ok:
-        assert cal.options_from_meta({"env": env}) == {"input_gain": False,
-                                                       "relu_mode": "full"}
+    if ok is not False:
+        assert cal.options_from_meta({"env": env}) == {**_DEFAULTS, **ok}
+        want = ({6, 7}, "small_v2_n2048") if "REDSEC_ESCALATE" in env else (set(), "small_v2_n2048")
+        assert cal.escalation_from_meta({"env": env}) == want
     else:
         with pytest.raises(ValueError, match="REDSEC_"):
             cal.options_from_meta({"env": env})

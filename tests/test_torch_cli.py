@@ -137,10 +137,21 @@ def test_calibrate_writes_an_artifact_jax_loads(work, capsys):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_eval2_raises_and_the_module_offers_the_ten_subcommands():
-    with pytest.raises(SystemExit, match="escalation"):
-        cli.main(["run-encrypted", "--model", "mnist/sign1024x1", "--weights", "w",
-                  "--eval", "e", "--eval2", "e2", "--image", "i", "--device", "cpu"])
+def test_eval2_raises_and_the_module_offers_the_ten_subcommands(work, capsys):
+    """A calibration that escalates needs --eval2: without it run-encrypted
+    stops with the JAX package's message (tests/test_torch_escalation.py runs
+    it with the second key)."""
+    d = work[0]
+    common = ["--model", d / "mini_spec.json", "--weights", d / "weights.dat"]
+    _run(cli.main, capsys, "calibrate", *common, "--csv", d / "data.csv", "--rows", "0:6",
+         "--params", "test_noiseless", "--escalate", "1", "--no-guard",
+         "--out", d / "esc_cal.npz", "--device", "cpu")
+    _run(jcli.main, capsys, "encrypt-image", "--secret", d / "j" / "secret.key.npz",
+         "--image-ptxt", d / "img.ptxt", "--out", d / "esc_img.npz")
+    with pytest.raises(SystemExit, match="pass --eval2 <eval key at small_v2_n2048"):
+        cli.main([str(a) for a in ["run-encrypted", *common, "--eval", d / "j" / "eval.key.npz",
+                                   "--image", d / "esc_img.npz", "--calib", d / "esc_cal.npz",
+                                   "--device", "cpu"]])
     res = subprocess.run([sys.executable, "-m", "redsec_tpu_torch", "--help"],
                          capture_output=True, text=True, cwd=REPO, timeout=120,
                          env=dict(os.environ, PYTHONPATH=REPO))

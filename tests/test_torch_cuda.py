@@ -95,8 +95,10 @@ def _blind_rotate_equals_twin(params, dkey, batch):
     assert K.launches.get("blind_rotate") == before + 1
     assert torch.equal(got, K.blind_rotate_plain(acc0, abar, dkey.bk, params, dkey.plan))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    want_group = 2 if batch > sms and K.blind_rotate_shared_bytes(params, 2) <= 232448 else 1
-    assert K.blind_rotate_group(batch, params) == want_group
+    bundle = K.key_bundle(dkey.bk, params)
+    cfg = K.blind_rotate_config(batch, params, dkey.plan, bundle)
+    want_group = 2 if batch > sms and cfg["shared_bytes_g2"] <= 232448 else 1
+    assert cfg["group"] == want_group
 
 
 # one ciphertext a block up to the card's SM count, two beyond it; an odd
@@ -128,9 +130,75 @@ def key_small_v2():
 def test_blind_rotate_kernel_equals_twin_at_small_v2(key_small_v2, batch):
     params, dkey = key_small_v2
     assert params.decomp_rows == 20
-    assert K.blind_rotate_shared_bytes(params, 2) > 232448
+    assert K.blind_rotate_config(batch, params)["shared_bytes_g2"] > 232448
     _blind_rotate_equals_twin(params, dkey, batch)
-    assert K.blind_rotate_group(batch, params) == 1
+    assert K.blind_rotate_config(batch, params)["group"] == 1
+
+
+NEW_SETS = [("small_v2_n2048", 1), ("small", 1), ("test_noiseless", 2), ("small_v2_tpu", 2),
+            ("small_v2_tpu2", 2)]
+
+
+@pytest.fixture(scope="module", params=NEW_SETS, ids=[f"{n}-bundle{b}" for n, b in NEW_SETS])
+def new_key(request):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from redsec_tpu_torch.crypto.params import get_params
+
+    name, bundle = request.param
+    params = get_params(name)
+    _, cloud = kg.keygen(params, seed=0, bundle=bundle)
+    return params, bundle, bs.prepare_cloud_key(cloud, device="cuda")
+
+
+# the K4 instances of N = 2048, three primes and bundled rounds, one
+# ciphertext a block; 133 is above the SM count
+@pytest.mark.parametrize("batch", [1, 3, 133])
+def test_blind_rotate_kernel_equals_twin_at_the_new_instances(new_key, batch):
+    params, bundle, dkey = new_key
+    assert dkey.bundle == bundle and K.key_bundle(dkey.bk, params) == bundle
+    rng = np.random.default_rng(batch)
+    acc0 = _ri(rng, -2**31, 2**31, (batch, 2, params.N))
+    abar = _ri(rng, 0, 2 * params.N, (batch, params.n))
+    before = K.launches.get("blind_rotate")
+    got = K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan)
+    assert K.launches.get("blind_rotate") == before + 1
+    m = min(batch, 3)  # the twin on a prefix: every ciphertext runs the same code
+    assert torch.equal(got[:m], K.blind_rotate_plain(acc0[:m], abar[:m], dkey.bk, params,
+                                                     dkey.plan))
+    cfg = K.blind_rotate_config(batch, params, dkey.plan, bundle)
+    assert cfg["shared_bytes"] <= 232448 and 1 <= cfg["chunk_rows"]
+
+
+@pytest.mark.parametrize("name", ["small_v2_n2048", "small"])
+def test_ntt_kernel_equals_twin_at_the_new_plans(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from redsec_tpu_torch.crypto.params import get_params
+
+    params = get_params(name)
+    plan = bs.bootstrap_plan(params)
+    rng = np.random.default_rng(3)
+    for rows in (1, 37):
+        for pi, p in enumerate(plan.primes):
+            x = _ri(rng, 0, p, (rows, params.N))
+            x[0, :7] = p - 1
+            for inv in (False, True):
+                assert torch.equal(K.ntt(x, plan, pi, inv), K.ntt_plain(x, plan, pi, inv))
+
+
+def test_three_primes_and_bundles_at_n256_and_n512():
+    """Instances no shipped set reaches: three primes at N = 256 (Bg = 2^10,
+    bundled) and N = 512, two ciphertexts a block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import dataclasses
+
+    for kw, bundle in (({"bg_bit": 10, "l": 3}, 2), ({"N": 512}, 1), ({"N": 512}, 2)):
+        params = dataclasses.replace(P, n=16, **kw)
+        _, cloud = kg.keygen(params, seed=1, bundle=bundle)
+        dkey = bs.prepare_cloud_key(cloud, device="cuda")
+        _blind_rotate_equals_twin(params, dkey, 135)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(key):

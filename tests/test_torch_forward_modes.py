@@ -128,7 +128,17 @@ def test_mode_names_what_jax_auto_picks(keys, monkeypatch, net, want):
 
 
 def test_escalation_raises(keys):
+    """Escalation is ported (tests/test_torch_escalation.py holds it against
+    the JAX package); what raises is a second key that cannot take the first
+    key's ciphertexts: another message space or another LWE dimension."""
+    import dataclasses
+
     dkey = keys[1]
     spec, blob = mini_sign_model(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="escalation"):
-        build_encrypted_forward(prep_model(spec, blob), dkey, escalate=({1}, dkey))
+    plan = prep_model(spec, blob)
+    for change, match in (({"msg_space": 2 * P.msg_space}, "message space"),
+                          ({"n": P.n + 2}, "LWE dimension")):
+        other = dataclasses.replace(dkey, params=dataclasses.replace(P, **change))
+        with pytest.raises(ValueError, match=match):
+            build_encrypted_forward(plan, dkey, escalate=({1}, other))
+    assert build_encrypted_forward(plan, dkey, escalate=({1}, dkey)).mode == "staged"

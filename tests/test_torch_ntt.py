@@ -1,6 +1,6 @@
 """The port's NTT, inverse NTT and CRT against the JAX package's device
-functions and its numpy oracle, for every prime of the N = 256 and N = 1024
-plans.  Tolerance: exact equality of the int32 residues and torus values."""
+functions and its numpy oracle, for every prime of the N = 256, 1024 and
+2048 plans.  Tolerance: exact equality of the int32 residues and torus values."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +17,8 @@ from redsec_tpu_torch.crypto.params import get_params
 torch.set_num_threads(2)
 
 # test_noiseless (N=256) and small_v2_tpu (N=1024): 12289, 18433; small
-# (N=1024, Bg=2^10): 12289, 18433, 40961
-NAMES = ("test_noiseless", "small_v2_tpu", "small")
+# (N=1024, Bg=2^10): 12289, 18433, 40961; small_v2_n2048 (N=2048): 12289, 40961
+NAMES = ("test_noiseless", "small_v2_tpu", "small", "small_v2_n2048")
 PLANS = {name: bootstrap_plan(get_params(name)) for name in NAMES}
 JPLANS = {name: jbs._bootstrap_plan(jparams.get_params(name)) for name in NAMES}
 CASES = [(name, pi) for name, plan in PLANS.items() for pi in range(len(plan.primes))]

@@ -16,6 +16,7 @@ from redsec_tpu.models.spec import prep_model as jprep
 from redsec_tpu.models.zoo import get_model as jget_model
 from redsec_tpu.runtime import calibration as jcal
 from redsec_tpu.runtime import encrypted as jenc
+from redsec_tpu_torch.crypto import kernels
 from redsec_tpu_torch.formats.image_io import pixel_transform_for
 from redsec_tpu_torch.models.spec import prep_model
 from redsec_tpu_torch.models.zoo import get_model
@@ -75,6 +76,31 @@ def test_mini_maxpool_model_bit_identical_to_jax(keys, monkeypatch):
     _, got, want = _forward_pair(keys, plan, jplan, x, monkeypatch)
     assert got.shape == (1, 3, P.n + 1)
     np.testing.assert_array_equal(got, want)
+
+
+# the PBS count is what the kernel gets: three an FDFB relu activation, one a
+# sign activation and a maxpool output (16 * 3 = 48 an image on the relu net;
+# 16 + 64 + 16 + 6 = 102 on the maxpool net), counted at the kernel's door
+@pytest.mark.parametrize("net,relu_mode,want", [("relu", "full", 48), ("maxpool", None, 102)])
+def test_pbs_per_image_counts_the_batches_the_kernel_gets(keys, monkeypatch, net, relu_mode,
+                                                         want):
+    make, shape = {"relu": (mini_relu_model, (2, 1, 1, 16)),
+                   "maxpool": (mini_maxpool_model, (2, 8, 8, 1))}[net]
+    spec, blob = make(np.random.default_rng(7))
+    plan, jplan = prep_model(spec, blob), jprep(jax_spec(spec), blob)
+    x = np.random.default_rng(8).integers(-1, 2, size=shape).astype(np.int32)
+    door = kernels.blind_rotate
+    batches = []
+
+    def counted(acc0, *args, **kw):
+        batches.append(acc0.shape[0])
+        return door(acc0, *args, **kw)
+
+    monkeypatch.setattr(kernels, "blind_rotate", counted)
+    fwd, got, want_ct = _forward_pair(keys, plan, jplan, x, monkeypatch, relu_mode)
+    np.testing.assert_array_equal(got, want_ct)
+    assert fwd.pbs_per_image == want
+    assert sum(batches) == want * x.shape[0]
 
 
 def test_an_unknown_relu_mode_raises(keys):
