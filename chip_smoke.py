@@ -8,9 +8,9 @@
 Phases (any failure exits non-zero):
 
 1. Print the card's name and power limit (``nvidia-smi``).
-2. Build the CUDA kernels of ``redsec_tpu_torch/csrc/pbs.cu`` and
-   ``csrc/probes.cu`` with ``nvcc`` for ``sm_90a``, one compiler per source,
-   both started together (a thread each); the compiler's
+2. Build the CUDA kernels of ``redsec_tpu_torch/csrc/pbs.cu``,
+   ``csrc/probes.cu`` and ``csrc/schoolbook.cu`` with ``nvcc`` for ``sm_90a``,
+   one compiler per source, all started together (a thread each); the compiler's
    register/shared-memory report goes to ``chiprun_out/ptxas.txt``.
 3. Kernel phase: each kernel against its plain PyTorch twin on the card, on
    the same inputs.  At ``small_v2_tpu`` shapes the NTT runs at every row
@@ -105,6 +105,35 @@ Phases (any failure exits non-zero):
    ``bench_schoolbook`` run through their ``main`` with the counters zeroed
    before; every candidate is checked equal inside them, and the run fails
    unless each probe kernel was launched as often as the scripts call it.
+11. The schoolbook sets (no NTT primes, N >= 4096), through the schoolbook
+   product kernel (S1, ``csrc/schoolbook.cu``, one launch a round):
+   - S1 against its twin (a float64 FFT product) on random digits and key
+     rows at batch 64: N 4096 with 6 and 8 digit rows (``medium``,
+     ``medium_v2``), N 8192 with 6 and 8 (``large``, ``large_v2``), N 1024
+     with 12 (``small_v2_tpu`` forced); and at the full-width path's batches
+     (196 and 512 at N 4096, 8 rows).  Timed at 512 at each N and rows, and
+     at 196.  Its ``bound_ms`` is the smaller of two formulations' times:
+     the int8 tensor-core MACs of the JAX package's limb formulation, and
+     the int32 multiply-adds on the CUDA cores that S1 itself issues
+     (printed beside it as ``bound_int32_cuda_core_ms``).
+   - The forced-schoolbook PBS (``prepare_cloud_key(..., schoolbook=True)``)
+     bit-identical to K4's PBS on the ``small_v2_tpu`` key of phase 4 (real
+     noise, n = 350), on 64 ciphertexts.
+   - ``medium``, ``large``, ``large_v2`` at full N and n cut to 16 (keys from
+     ``keygen`` with real noise): the PBS of 8 ciphertexts through S1
+     bit-identical to the same PBS through the twin on the card.
+   - The full-width path: the README's client/server flow through the CLI
+     at ``medium_v2`` (n 3072, N 4096, Bg 2^8, l 4, key switch 2 x 16) on
+     one ``sign1024x1`` image: keygen, encrypt-image, run-encrypted,
+     decrypt-image.  Exactly 1,220 PBS in 3 chunks of 3,072 S1 launches,
+     counted at the kernel's door and by the counters; 8 of layer 0's
+     ciphertexts through the twin path on the card (3,072 rounds of the FFT
+     product) bit-identical to the kernel path's outputs for them; the
+     printed class their argmax, and beside it the plaintext oracle's
+     (informational).
+   - ``GateSet`` on the card: the truth tables of the ten two-input gates
+     and MUX at ``small_v2_tpu`` (K4), and AND at full ``medium_v2`` on the
+     path's key (S1).
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -116,6 +145,7 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import contextlib
+import dataclasses
 import inspect
 import io
 import json
@@ -137,6 +167,9 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # each per clock, so a quarter of that: 132 x 64 x 1.98 GHz.
 PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 67e12 / 4
+# int8 tensor-core multiply-accumulates a second (1,979 dense int8 TOPS, two
+# operations a MAC): the bound of the JAX package's int8 schoolbook product
+PEAK_INT8_MACS = 1979e12 / 2
 BATCH = 8  # images in the slice phase
 
 
@@ -189,6 +222,20 @@ def cmux_ops(rows: int, N: int, primes: int = 2, bundle: int = 1) -> int:
     if bundle == 2:
         return 8 * N + 9 * rows * N + ext_product_ops(3 * rows, N, primes) + 2 * N
     return 2 * N + 3 * rows * N + ext_product_ops(rows, N, primes) + 2 * N
+
+
+def schoolbook_ops(B: int, rows: int, N: int) -> int:
+    """The schoolbook product on the CUDA cores: every digit tap against
+    every key coefficient of both polynomials, one int32 multiply-add (one
+    instruction, counted as one operation) each."""
+    return B * 2 * rows * N * N
+
+
+def schoolbook_int8_macs(B: int, rows: int, N: int, half_bg: int) -> int:
+    """The same product as the JAX package's int8 convolution: 8 output
+    channels (2 polynomials x 4 key limbs) x rows x N taps x N outputs, once
+    per 8-bit digit limb (two where Bg/2 > 128)."""
+    return B * 8 * rows * (1 if half_bg <= 128 else 2) * N * N
 
 
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
@@ -329,7 +376,7 @@ def main() -> int:
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    sources = [K.SOURCE, PK.SOURCE]
+    sources = [K.SOURCE, PK.SOURCE, K.SCHOOLBOOK_SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         ptxas = "".join(pool.map(lambda src: K.build_library(src, force=True), sources))
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
@@ -393,8 +440,11 @@ def main() -> int:
     rec = {}
 
     def report(name, shape, err, ms, plain_ms, bytes_, ops, replaces, source="pbs.cu",
-               library_ms=None, **extra):
-        b_ms, b_by = bound(bytes_, ops)
+               library_ms=None, ops_ms=None, **extra):
+        # ops_ms: the least time of the operations where the function has a
+        # cheaper formulation than the kernel's own instruction count
+        b_ms, b_by = bound(bytes_, ops) if ops_ms is None else max(
+            (bytes_ / PEAK_BYTES * 1e3, "bytes"), (ops_ms, "operations"))
         rec[name] = dict(name=name, route="cuda", source=f"redsec_tpu_torch/csrc/{source}",
                          replaces=replaces, launches=0, max_abs_err=err,
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1273,6 +1323,209 @@ def main() -> int:
         # one launch per check, then a warm-up chain and a timed chain
         if pcounts != expect:
             fail(f"{tag} launched {pcounts}, expected {expect}")
+
+    # ---- phase 11: the schoolbook sets through the schoolbook product (S1)
+    from redsec_tpu_torch.crypto import gates
+    from redsec_tpu_torch.crypto import lwe
+    from redsec_tpu_torch.runtime import encrypted as renc
+
+    PV = get_params("medium_v2")
+    t_phase = time.perf_counter()
+
+    # S1 against its twin: batch 64 at each set's N and rows, and the
+    # full-width path's batches (its layers' PBS chunks at medium_v2)
+    sb_path = {min(pbs_chunk, b - i) for b in sign_boots if b for i in range(0, b, pbs_chunk)}
+    sb_shapes = [(4096, 6, 512), (4096, 8, 512), (8192, 6, 512), (8192, 8, 512),
+                 (1024, 12, 512)]
+    sb_half = {6: 512, 8: 128, 12: 16}  # Bg/2 of medium/large, the v2 sets, small_v2_tpu
+    sb_ms = {}
+    for Ns, rs, Bt in sb_shapes:
+        bk_s = ri(-2**31, 2**31, (rs, 2, Ns))
+        bk_s[0, 0, :4] = -2**31
+        for Bs in sorted({64, Bt} | (set(sb_path) if (Ns, rs) == (PV.N, PV.decomp_rows)
+                                     else set())):
+            dg = ri(-sb_half[rs], sb_half[rs], (Bs, rs, Ns))
+            err = same(f"schoolbook_product [{Bs}, {rs}, {Ns}]", K.schoolbook_product(dg, bk_s),
+                       K.schoolbook_product_plain(dg, bk_s))
+            if Bs == Bt or (Ns, rs) == (PV.N, PV.decomp_rows) and Bs in sb_path:
+                sb_ms[(Ns, rs, Bs)] = cuda_ms(lambda: K.schoolbook_product(dg, bk_s), 3)
+            if (Ns, rs, Bs) == (PV.N, PV.decomp_rows, Bt):
+                sb_rec = dict(err=err, pms=cuda_ms(
+                    lambda: K.schoolbook_product_plain(dg, bk_s), 3),
+                    bytes_=dg.numel() * 4 + bk_s.numel() * 4 + Bs * 2 * Ns * 4)
+            b_i32 = schoolbook_ops(Bs, rs, Ns) / PEAK_INT32_OPS * 1e3
+            b_i8 = schoolbook_int8_macs(Bs, rs, Ns, sb_half[rs]) / PEAK_INT8_MACS * 1e3
+            t_ms = sb_ms.get((Ns, rs, Bs))
+            print(f"kernel schoolbook_product [{Bs}, {rs}, {Ns}]: bit-identical to twin" + (
+                      "" if t_ms is None else
+                      f", {t_ms:.4f} ms; int32 bound {b_i32:.4f} ms ({b_i32 / t_ms:.3f} of "
+                      f"it), int8 tensor-core bound {b_i8:.4f} ms ({b_i8 / t_ms:.4f})")
+                  + f" on {card}", flush=True)
+        del bk_s, dg
+    sb_regs = {}
+    for bt in (1, 2, 4, 8):
+        sb_regs[f"registers_bt{bt}"], sb_regs[f"spill_bytes_bt{bt}"] = ptxas_usage(
+            ptxas, f"schoolbook_kernelILi{bt}E")
+    # bound_ms: the cheaper of the product's two formulations (at these shapes
+    # JAX's int8 tensor-core one); S1's own, int32 on the CUDA cores, beside it
+    Bm = 512
+    i8 = schoolbook_int8_macs(Bm, PV.decomp_rows, PV.N, PV.half_bg) / PEAK_INT8_MACS * 1e3
+    i32 = schoolbook_ops(Bm, PV.decomp_rows, PV.N) / PEAK_INT32_OPS * 1e3
+    report("schoolbook_product", [Bm, PV.decomp_rows, PV.N], sb_rec["err"],
+           sb_ms[(PV.N, PV.decomp_rows, Bm)], sb_rec["pms"], sb_rec["bytes_"],
+           schoolbook_ops(Bm, PV.decomp_rows, PV.N), "redsec_tpu/crypto/bootstrap.py:538",
+           "schoolbook.cu", ops_ms=min(i8, i32), params=("medium_v2", "medium", "large",
+                                                         "large_v2", "small_v2_tpu/schoolbook"),
+           bound_int32_cuda_core_ms=i32, bound_int8_tensor_core_ms=i8,
+           ms_by_shape={f"N{k[0]}_rows{k[1]}_batch{k[2]}": v for k, v in sb_ms.items()},
+           **sb_regs)
+    print(f"kernel schoolbook_product build: {sb_regs}", flush=True)
+
+    # the forced-schoolbook PBS against K4's on the small_v2_tpu key (real noise)
+    sbkey = bs.prepare_cloud_key(cloud, device="cuda", schoolbook=True)
+    ct64 = lwe.encrypt_integers(sk.lwe_key, np.random.default_rng(4).integers(-1500, 1500, 64),
+                                P, np.random.default_rng(5))
+    tv1 = bs.const_test_vector(P, 1, P.msg_space)
+    launches.reset()
+    got_sb = bs.make_batched_bootstrap(sbkey)(ct64, tv1)
+    torch.cuda.synchronize()
+    by_path["schoolbook/small_v2_tpu"] = (f"{P.name}/schoolbook", dict(launches.counts))
+    want_k4 = bs.make_batched_bootstrap(dkey)(ct64, tv1)
+    if launches.get("schoolbook_product") != n or not torch.equal(got_sb, want_k4):
+        fail(f"the forced-schoolbook PBS at {P.name} differs from K4's "
+             f"({launches.counts}, {ct64.shape[0]} ciphertexts)")
+    print(f"schoolbook PBS at {P.name} (forced, {n} S1 launches at [{ct64.shape[0]}, {rows}, "
+          f"{N}]): bit-identical to K4's PBS on the same key and ciphertexts", flush=True)
+    del sbkey, got_sb, want_k4
+
+    # the other sets at full N, n cut to 16: S1's path against the twin's
+    for name in ("medium", "large", "large_v2"):
+        Pr = dataclasses.replace(get_params(name), name=f"{name}_n16", n=16)
+        t0 = time.perf_counter()
+        rsk, rcloud = kg.keygen(Pr, seed=0)
+        rkey = bs.prepare_cloud_key(rcloud, device="cuda")
+        vals = np.random.default_rng(6).integers(-1500, 1500, size=8)
+        rct = lwe.encrypt_integers(rsk.lwe_key, vals, Pr, np.random.default_rng(7))
+        rtv = bs.const_test_vector(Pr, 1, Pr.msg_space)
+        launches.reset()
+        rout = bs.make_batched_bootstrap(rkey)(rct, rtv)
+        torch.cuda.synchronize()
+        by_path[f"reduced/{name}"] = (name, dict(launches.counts))
+        with mock.patch.object(K, "schoolbook_product", K.schoolbook_product_plain):
+            rplain = bs.make_batched_bootstrap(rkey)(rct, rtv)
+        if launches.get("schoolbook_product") != Pr.n or not torch.equal(rout, rplain):
+            fail(f"{Pr.name}: the PBS through S1 differs from the twin's ({launches.counts})")
+        dec = lwe.decrypt_integers(rsk.lwe_key, rout.cpu().numpy(), Pr)
+        print(f"schoolbook PBS {Pr.name} (N {Pr.N}, {Pr.decomp_rows} digit rows, real noise): "
+              f"8 ciphertexts through S1 bit-identical to the twin path; signs "
+              f"{float((dec == np.where(vals >= 0, 1, -1)).mean()):.3f} right (informational) "
+              f"({time.perf_counter() - t0:.1f} s with keygen)", flush=True)
+        del rkey, rout, rplain
+
+    # the full-width path: the CLI at medium_v2 on one image; layer 0's first
+    # 8 ciphertexts, its test vector, outputs and key are kept at the door
+    work2 = os.path.join(HERE, "build", "smoke_schoolbook")  # a 1.6 GB eval key
+    shutil.rmtree(work2, ignore_errors=True)
+    vdir = os.path.join(work2, PV.name)
+    kept, sb_door = {}, []
+
+    def keeping(dkey_, chunk=512, _real=renc.make_chunked_bootstrap):
+        run = _real(dkey_, chunk=chunk)
+
+        def kept_run(ct_, tv_):
+            out_ = run(ct_, tv_)
+            if not kept:
+                kept.update(dkey=dkey_, ct=torch.as_tensor(ct_)[:8].clone(), out=out_[:8].clone(),
+                            tv=tv_ if np.ndim(tv_) == 1 else tv_[:8])
+            return out_
+        return kept_run
+
+    def door_s1(digits, bk_round, _real=K.schoolbook_product):
+        sb_door.append(digits.shape[0])
+        return _real(digits, bk_round)
+
+    launches.reset()
+    t0 = time.perf_counter()
+    run_cli("keygen", "--params", PV.name, "--seed", 0, "--out-dir", vdir)
+    t_keygen = time.perf_counter() - t0
+    write_image_ptxt(os.path.join(vdir, "image.ptxt"), 0, raw[0])
+    run_cli("encrypt-image", "--secret", os.path.join(vdir, "secret.key.npz"),
+            "--image-ptxt", os.path.join(vdir, "image.ptxt"),
+            "--out", os.path.join(vdir, "image.ctxt.npz"))
+    with mock.patch.object(renc, "make_chunked_bootstrap", keeping), \
+            mock.patch.object(K, "schoolbook_product", door_s1):
+        _, vrec = run_cli("run-encrypted", "--model", model.name, "--weights", weights,
+                          "--eval", os.path.join(vdir, "eval.key.npz"),
+                          "--image", os.path.join(vdir, "image.ctxt.npz"),
+                          "--out", os.path.join(vdir, "out.ctxt.npz"))
+    torch.cuda.synchronize()
+    vcounts = dict(launches.counts)
+    by_path[f"cli/{PV.name}"] = (PV.name, vcounts)
+    sb_chunks = sum(len(range(0, b, pbs_chunk)) for b in sign_boots if b)
+    want_s1 = sb_chunks * PV.n
+    if (vrec["pbs"], vrec["s1_launches"], vrec["k4_launches"], vcounts.get("schoolbook_product"),
+            len(sb_door), sum(sb_door)) != (pbs_per_image, want_s1, 0, want_s1, want_s1,
+                                            PV.n * pbs_per_image):
+        fail(f"cli/{PV.name}: run-encrypted reports {vrec}, counters {vcounts}, "
+             f"{len(sb_door)} S1 launches at the door carrying {sum(sb_door)} ciphertext-rounds; "
+             f"expected {pbs_per_image} PBS in {sb_chunks} chunks of {PV.n} S1 launches")
+    text, _ = run_cli("decrypt-image", "--secret", os.path.join(vdir, "secret.key.npz"),
+                      "--output", os.path.join(vdir, "out.ctxt.npz"))
+    vcls = decrypted_class(text)
+    vsk = kio.load_secret_key(os.path.join(vdir, "secret.key.npz"))
+    vct = kio.load_ciphertexts(os.path.join(vdir, "out.ctxt.npz"))
+    vscores = decrypt_scores(vsk, vct[0].reshape(-1, 10, PV.n + 1), PV, vct[3], vct[4])
+    if int(vscores[0].argmax()) != vcls:
+        fail(f"cli/{PV.name}: decrypt-image printed {vcls}, the scores' argmax is "
+             f"{int(vscores[0].argmax())}")
+    # layer 0's first 8 ciphertexts through the twin path, 3,072 rounds
+    t0 = time.perf_counter()
+    with mock.patch.object(K, "schoolbook_product", K.schoolbook_product_plain):
+        vtwin = bs.make_batched_bootstrap(kept["dkey"])(kept["ct"], kept["tv"])
+    torch.cuda.synchronize()
+    t_twin = time.perf_counter() - t0
+    if not torch.equal(vtwin, kept["out"]):
+        fail(f"cli/{PV.name}: layer 0's first 8 PBS through the twin differ from the kernel's")
+    print(f"cli/{PV.name}: layer 0's first 8 PBS through the twin path on the card "
+          f"({PV.n} rounds, {t_twin:.1f} s) bit-identical to the kernel path's", flush=True)
+    print(f"cli/{PV.name} keygen: {t_keygen:.1f} s (host numpy, key files written)", flush=True)
+    print(f"cli/{PV.name} run: {vrec['seconds']:.3f} s for {vrec['pbs']} PBS", flush=True)
+    print(f"cli/{PV.name} PBS/s: {vrec['pbs_per_s']:.4f} on {card}", flush=True)
+    print(f"cli/{PV.name} class: decrypted {vcls}, plaintext oracle {int(preds[0])} "
+          f"(informational)", flush=True)
+    slices[f"cli/{PV.name}"] = {"params": PV.name, **vrec, "keygen_s": t_keygen,
+                                "twin_check_s": t_twin, "class": vcls,
+                                "oracle_class": int(preds[0]), "s1_launches_at_door": len(sb_door)}
+
+    # GateSet: truth tables at small_v2_tpu (K4), AND at medium_v2 (S1)
+    a2, b2, s2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1]), np.array([1, 0, 1, 0])
+    tables = {"AND": a2 & b2, "OR": a2 | b2, "NAND": 1 - (a2 & b2), "NOR": 1 - (a2 | b2),
+              "XOR": a2 ^ b2, "XNOR": 1 - (a2 ^ b2), "ANDNY": (1 - a2) & b2,
+              "ANDYN": a2 & (1 - b2), "ORNY": (1 - a2) | b2, "ORYN": a2 | (1 - b2)}
+    for gname, gkey, gsk, names in ((P.name, dkey, sk, list(tables) + ["MUX"]),
+                                    (PV.name, kept["dkey"], vsk, ["AND"])):
+        gp = gkey.params
+        gs = gates.GateSet(gkey)
+        enc = [torch.as_tensor(gates.gate_encrypt_host(gsk.lwe_key, v, gp,
+                                                       np.random.default_rng(i)), device=dev)
+               for i, v in enumerate((a2, b2, s2))]
+        launches.reset()
+        t0 = time.perf_counter()
+        for g in names:
+            res = gs.MUX(enc[2], enc[0], enc[1]) if g == "MUX" else getattr(gs, g)(enc[0], enc[1])
+            got_bits = gates.gate_decrypt_host(gsk.lwe_key, res.cpu().numpy(), gp)
+            want_bits = np.where(s2, a2, b2) if g == "MUX" else tables[g]
+            if not np.array_equal(got_bits, want_bits):
+                fail(f"gates/{gname}: {g} gives {got_bits.tolist()}, want {want_bits.tolist()}")
+        torch.cuda.synchronize()
+        by_path[f"gates/{gname}"] = (gname, dict(launches.counts))
+        print(f"gates/{gname}: {', '.join(names)} truth tables right on the card "
+              f"({time.perf_counter() - t0:.1f} s, launches {dict(launches.counts)})", flush=True)
+    del kept, vtwin
+    shutil.rmtree(work2)
+    torch.cuda.empty_cache()
+    slices["schoolbook_phase_s"] = time.perf_counter() - t_phase
+    print(f"schoolbook phase: {slices['schoolbook_phase_s']:.1f} s", flush=True)
 
     # each kernel's launches on the paths of its parameter sets (the records
     # of one kernel's shapes share its counter; a bundled key's path is

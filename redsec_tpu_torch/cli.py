@@ -167,8 +167,10 @@ def cmd_encrypt_image(args):
 def cmd_run_encrypted(args):
     """Cloud side.  Besides the JAX package's lines it prints one JSON line:
     the forward's mode, images, bootstraps (``pbs``), blind-rotation kernel
-    launches (``k4_launches``, 0 on the CPU), ``seconds`` and ``pbs_per_s``;
-    the same dict is returned to an in-process caller."""
+    launches (``k4_launches``) and schoolbook-product kernel launches
+    (``s1_launches``, one a round at the sets without NTT primes; both 0 on
+    the CPU), ``seconds`` and ``pbs_per_s``; the same dict is returned to an
+    in-process caller."""
     import torch
 
     from .crypto import bootstrap as bs
@@ -208,13 +210,14 @@ def cmd_run_encrypted(args):
     ct = ct.reshape(-1, d.h, d.w, d.in_dep, ct.shape[-1])
     fwd = build_encrypted_forward(plan, dkey, **opts)
     x = torch.as_tensor(ct, device=dev)
-    k4_before = launches.get("blind_rotate")
+    k4_before, s1_before = launches.get("blind_rotate"), launches.get("schoolbook_product")
     t0 = time.time()
     scores = fwd(x).cpu().numpy()
     dt = time.time() - t0
     record = {"mode": fwd.mode, "images": int(ct.shape[0]),
               "pbs": fwd.pbs_per_image * int(ct.shape[0]),
-              "k4_launches": launches.get("blind_rotate") - k4_before, "seconds": dt}
+              "k4_launches": launches.get("blind_rotate") - k4_before,
+              "s1_launches": launches.get("schoolbook_product") - s1_before, "seconds": dt}
     record["pbs_per_s"] = record["pbs"] / dt
     kio.save_ciphertexts(args.out, scores, params, label=label, out_gain=fwd.out_gain,
                          out_center=fwd.out_center)

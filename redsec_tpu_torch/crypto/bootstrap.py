@@ -12,6 +12,15 @@ wrapper runs its plain PyTorch twin.  Mod-switch, sample extract and the key
 switch stay plain torch (XLA ops outside any Pallas kernel in the JAX
 package).
 
+The parameter sets without NTT primes (N >= 4096: ``medium``, ``large``,
+``medium_v2``, ``large_v2``), and any set prepared with ``schoolbook=True``,
+run the JAX package's schoolbook branch instead: a loop of n rounds in
+torch (rotate, difference, decompose) around one launch a round of the
+``schoolbook_product`` kernel (csrc/schoolbook.cu) on the raw BK.  Its
+output is the exact product, as the JAX package's ``bootstrap_host`` has
+it; the JAX package's int8 convolution wraps the negated digit -(-128) at
+Bg/2 = 128 (``medium_v2``, ``large_v2``), where the two differ.
+
 All arithmetic is exact, so the output is bit-identical to the JAX package's
 ``make_batched_bootstrap`` for the same key and ciphertexts, whatever the
 NTT-domain order.  The port prepares its BK in the radix-2 bit-reversed order
@@ -45,6 +54,7 @@ BK_LIMBS = 32 // BK_LIMB_BITS
 class DeviceCloudKey:
     """Device-resident evaluation key.
 
+    With an NTT ``plan`` (flavour ``"radix2"``):
     ``bk``: int16 [P, n, rows, 2*limbs, N], the BK's sign-balanced 8-bit limbs
     forward-NTT'd per CRT prime, in the streaming layout the blind-rotation
     kernel reads one round slice at a time.  Residues are below 2^16 and kept
@@ -52,17 +62,22 @@ class DeviceCloudKey:
     zero-extends them (``kernels.residues``).  With ``bundle`` 2 the key
     carries interleaved pair entries for the 2-bit bundled blind rotation:
     [P, n/2, 3*rows, 2*limbs, N], per pair the rows of TGSW(s_2i),
-    TGSW(s_2i+1) and TGSW(s_2i * s_2i+1).  ``ksk``: int32 [N*t, n+1]
-    multiply-form key-switching key."""
+    TGSW(s_2i+1) and TGSW(s_2i * s_2i+1).  Without one (``plan`` None,
+    flavour ``"schoolbook"``): ``bk`` int32 [n, rows, 2, N], the raw
+    coefficient-domain BK that the schoolbook kernel reads a round at a time
+    (exact as it is; the JAX package keeps reversed-tap int8 limbs of it for
+    its int8 convolution).  ``ksk``: int32 [N*t, n+1] multiply-form
+    key-switching key."""
 
     params: TfheParams
-    plan: ntt_mod.NttPlan
+    plan: Optional[ntt_mod.NttPlan]
     bk: torch.Tensor
     ksk: torch.Tensor
     rerand: Optional[torch.Tensor] = None
     bundle: int = 1
-    # NTT-domain order the BK was transformed with; the kernels and their
-    # twins check it (a key in another order is garbage to them)
+    # NTT-domain order the BK was transformed with ("schoolbook": not
+    # transformed); the kernels and their twins check it (a key in another
+    # order is garbage to them)
     ntt_flavor: str = "radix2"
 
     @property
@@ -70,13 +85,17 @@ class DeviceCloudKey:
         return self.bk.device
 
 
-def bootstrap_plan(p: TfheParams, bundled: bool = False) -> ntt_mod.NttPlan | None:
+def bootstrap_plan(p: TfheParams, bundled: bool = False,
+                   schoolbook: bool = False) -> ntt_mod.NttPlan | None:
     """NTT plan for the parameter set, or None when no int32-range NTT primes
-    exist for N (>= 4096: those sets use the JAX package's conv-schoolbook
-    external product, not ported yet).  The CRT range must cover the digit x
-    limb products accumulated in the NTT domain with sign-balanced limbs:
-    ``rows`` of them for a plain round, ``3*rows`` for a bundled one (which is
-    why bundled ``small_v2_tpu2`` takes a third prime)."""
+    exist for N (>= 4096) or ``schoolbook`` asks for none (the JAX package's
+    ``REDSEC_FORCE_SCHOOLBOOK``): those run the schoolbook external product.
+    The CRT range must cover the digit x limb products accumulated in the NTT
+    domain with sign-balanced limbs: ``rows`` of them for a plain round,
+    ``3*rows`` for a bundled one (which is why bundled ``small_v2_tpu2`` takes
+    a third prime)."""
+    if schoolbook:
+        return None
     try:
         return ntt_mod.make_plan(
             p.N, max_operand=p.half_bg, limb_bits=BK_LIMB_BITS,
@@ -99,25 +118,42 @@ def int8_limbs(x: torch.Tensor) -> list[torch.Tensor]:
     return limbs
 
 
-def prepare_cloud_key(cloud: CloudKey, device: str = "cuda",
-                      chunk: int = 64) -> DeviceCloudKey:
+def _upload(a: np.ndarray, dev: torch.device, chunk: int) -> torch.Tensor:
+    """int32 copy of the host array ``a`` on ``dev``, ``chunk`` leading rows
+    at a time (a key of gigabytes never has a second whole copy on the host)."""
+    out = torch.empty(a.shape, dtype=torch.int32, device=dev)
+    for i0 in range(0, a.shape[0], chunk):
+        out[i0:i0 + chunk] = torch.from_numpy(np.ascontiguousarray(a[i0:i0 + chunk], np.int32))
+    return out
+
+
+def _rerand(cloud: CloudKey, dev: torch.device) -> Optional[torch.Tensor]:
+    return None if cloud.rerand is None else torch.as_tensor(
+        cloud.rerand.astype(np.int32), device=dev)
+
+
+def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
+                      schoolbook: bool = False) -> DeviceCloudKey:
     """Upload the raw CloudKey and transform the BK into the CRT-NTT domain
     on the device (through the ``ntt`` kernel on CUDA), ``chunk`` key bits at
     a time to bound the working set.
 
-    Every NTT-plan branch of the JAX package is ported: two or three primes,
-    N up to 2048, plain and bundled (``bk_pair``) keys.  A parameter set
-    without NTT primes (the schoolbook sets, N >= 4096) raises, as does on
-    CUDA a combination the kernels are not built for (``kernels.supported``):
-    nothing falls back."""
+    Every branch of the JAX package is ported: two or three primes, N up to
+    2048, plain and bundled (``bk_pair``) keys; and, for the sets without
+    NTT primes (N >= 4096) or with ``schoolbook`` (the JAX package's
+    ``REDSEC_FORCE_SCHOOLBOOK``), the schoolbook key: the raw BK uploaded
+    ``chunk`` key bits at a time, flavour ``"schoolbook"``.  As in the JAX
+    package, a schoolbook key ignores ``bk_pair`` (it runs unbundled).  On
+    CUDA an NTT combination the kernels are not built for
+    (``kernels.supported``) raises: nothing falls back."""
     dev = resolve_device(device)
     p = cloud.params
     bundled = cloud.bk_pair is not None
-    plan = bootstrap_plan(p, bundled)
+    plan = bootstrap_plan(p, bundled, schoolbook)
+    ksk = _upload(cloud.ksk.reshape(-1, p.n + 1), dev, 4096)
     if plan is None:
-        raise ValueError(
-            f"{p.name}: no NTT prime plan for N={p.N}; the schoolbook external "
-            "product is not ported yet")
+        return DeviceCloudKey(params=p, plan=None, bk=_upload(cloud.bk, dev, chunk), ksk=ksk,
+                              rerand=_rerand(cloud, dev), ntt_flavor="schoolbook")
     bundle = 2 if bundled else 1
     if dev.type == "cuda" and not kernels.supported(p, plan, bundle):
         raise ValueError(
@@ -144,10 +180,7 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda",
             # residues up to 2^16 - 1 keep their 16-bit pattern
             parts[pi].append(res.to(torch.int16).reshape(bk.shape[0], R, 2 * BK_LIMBS, N))
     bk_ntt = torch.stack([torch.cat(ps, dim=0) for ps in parts]).contiguous()
-    ksk = torch.as_tensor(cloud.ksk.reshape(-1, p.n + 1).astype(np.int32), device=dev)
-    rerand = (None if cloud.rerand is None
-              else torch.as_tensor(cloud.rerand.astype(np.int32), device=dev))
-    return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk=ksk, rerand=rerand,
+    return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk=ksk, rerand=_rerand(cloud, dev),
                           bundle=bundle)
 
 
@@ -247,8 +280,8 @@ class RoundOps:
     def key_switch(self, a_n: torch.Tensor, b_n: torch.Tensor,
                    ksk: torch.Tensor) -> torch.Tensor:
         """Subtract digit-scaled rows of the multiply-form KSK [N*t, n+1]:
-        one exact digit x KSK product (limbs of the KSK in fp32, bound
-        N*t*(base-1)*128 < 2^24)."""
+        one exact digit x KSK product (limbs of the KSK in fp32, in chunks of
+        the N*t rows that keep each partial sum below 2^24)."""
         dig = self.ks_digits(a_n)
         ssum = int32_matmul(ksk.T, dig.T, self.p.ks_base - 1).T  # [B, n+1]
         out = -ssum
@@ -263,12 +296,22 @@ def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
     return tv.reshape(-1, N).expand(B, N)
 
 
-def make_bootstrap_impl(p: TfheParams, plan: ntt_mod.NttPlan):
-    """``impl(dkey, ct [B, n+1], testvect [N]|[B, N]) -> [B, n+1]``; the blind
-    rotation is ``kernels.blind_rotate`` (the CUDA kernel on a CUDA tensor,
-    its plain twin on a CPU tensor), plain or bundled as the key is."""
+def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan]):
+    """``impl(dkey, ct [B, n+1], testvect [N]|[B, N]) -> [B, n+1]``.  With an
+    NTT plan the blind rotation is ``kernels.blind_rotate`` (the CUDA kernel
+    on a CUDA tensor, its plain twin on a CPU tensor), plain or bundled as the
+    key is.  Without one (``plan`` None) it is the JAX package's schoolbook
+    body: n rounds of rotate, difference and decompose around
+    ``kernels.schoolbook_product`` on the raw BK's round slice."""
     N, n = p.N, p.n
     ops = RoundOps(p)
+
+    def blind_rotate_schoolbook(acc: torch.Tensor, abar: torch.Tensor,
+                                bk: torch.Tensor) -> torch.Tensor:
+        for i in range(n):
+            digits = ops.decompose(ops.rotate(acc, abar[:, i]) - acc)
+            acc = acc + kernels.schoolbook_product(digits, bk[i])
+        return acc
 
     def impl(dkey: DeviceCloudKey, ct: torch.Tensor, testvect) -> torch.Tensor:
         abar = ops.mod_switch(ct[:, :n]).contiguous()
@@ -276,7 +319,10 @@ def make_bootstrap_impl(p: TfheParams, plan: ntt_mod.NttPlan):
         tv = _test_vectors(testvect, ct.shape[0], N, ct.device)
         acc_b = ops.rotate(tv, (2 * N - bbar) % (2 * N))
         acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1).contiguous()
-        acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
+        if plan is None:
+            acc = blind_rotate_schoolbook(acc, abar, dkey.bk)
+        else:
+            acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
         a_n, b_n = ops.sample_extract(acc)
         return ops.key_switch(a_n, b_n, dkey.ksk)
 
@@ -284,10 +330,18 @@ def make_bootstrap_impl(p: TfheParams, plan: ntt_mod.NttPlan):
 
 
 def _check_key(dkey: DeviceCloudKey) -> None:
-    if dkey.ntt_flavor != "radix2":
+    """The key's flavour must be the one its plan asks for ("radix2" with an
+    NTT plan, "schoolbook" without), and a schoolbook key runs unbundled, as
+    the JAX package requires (``make_bootstrap_impl``, bundle=2 without a
+    plan raises there)."""
+    want = "radix2" if dkey.plan is not None else "schoolbook"
+    if dkey.ntt_flavor != want:
         raise ValueError(
-            f"device key has NTT flavour {dkey.ntt_flavor!r}; the port's kernels "
-            "and twins take only 'radix2'")
+            f"device key has NTT flavour {dkey.ntt_flavor!r}, but its plan needs {want!r}; "
+            "the port's kernels and twins take 'radix2' NTT keys and 'schoolbook' raw keys")
+    if dkey.plan is None and dkey.bundle != 1:
+        raise ValueError("bundle=2 requires an NTT plan (the schoolbook path for the "
+                         "medium/large parameter sets runs unbundled)")
 
 
 def make_batched_bootstrap(dkey: DeviceCloudKey):

@@ -31,6 +31,12 @@ three primes below 2^16, N = 256 .. 2048) and bundled keys up to N = 1024
 (``supported``); ``external_product`` and ``cmux_round``, which the model
 paths run only inside ``blind_rotate``, take two primes up to N = 1024, as
 the Pallas kernels they replace do.
+
+A fifth kernel, ``schoolbook_product`` (S1, ``csrc/schoolbook.cu``), is the
+external product of the parameter sets without NTT primes (N >= 4096), and
+of any set prepared with ``schoolbook=True``: the JAX package computes it as
+an XLA int8 convolution (``redsec_tpu/crypto/bootstrap.py:538``), not in
+Pallas.  Its twin is an exact float64 FFT product.
 """
 
 from __future__ import annotations
@@ -50,11 +56,13 @@ from .params import TfheParams
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "pbs.cu")
+SCHOOLBOOK_SOURCE = os.path.join(_PKG, "csrc", "schoolbook.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNEL_N = (256, 512, 1024, 2048)  # N the kernels are instantiated for
 ROUND_KERNEL_N = (256, 512, 1024)  # N of the one-round kernels K2 and K3
+SCHOOLBOOK_N = (256, 512, 1024, 2048, 4096, 8192)  # N the schoolbook kernel takes
 
 
 def _primes_ok(plan: ntt_mod.NttPlan, count: tuple) -> bool:
@@ -445,3 +453,100 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
                          f"{len(plan.primes)} primes, bundle {bundle}")
     return {"group": out[0], "chunk_rows": out[1], "shared_bytes": out[2],
             "shared_bytes_g2": out[3]}
+
+
+# --------------------------------------------------------------------------- #
+# S1: the schoolbook external product (the sets without NTT primes)           #
+# --------------------------------------------------------------------------- #
+
+_SB_ENTRIES = {
+    "redsec_schoolbook_product": [_P, _P, _P, _I, _I, _I, _P],
+}
+_sb_loaded: list[Library] = []
+
+
+def _sb_lib() -> Library:
+    if not _sb_loaded:
+        _sb_loaded.append(Library(SCHOOLBOOK_SOURCE, _SB_ENTRIES))
+    return _sb_loaded[0]
+
+
+def _fft_error_bound(digits: torch.Tensor, halves: torch.Tensor) -> float:
+    """A bound on the largest error of the values ``schoolbook_product_plain``
+    rounds to integers: each is a negacyclic fold c[j] - c[j + N] of two
+    linear-convolution coefficients, so its error is at most twice the bound
+    on one coefficient below, and that twice is what this returns.
+
+    A product of two length-L real sequences through a float64 FFT of length
+    L = 2^k (forward, forward, pointwise, inverse) is off by less than
+    ||x||_2 ||y||_2 ((1 + e)^3k (1 + sqrt(5) e)^(3k+1) (1 + b)^3k - 1), with
+    e = 2^-53 and b the error of the twiddles (Percival, "Rapid multiplication
+    modulo the sum and difference of highly composite numbers", Math. Comp.
+    72 (2003), Theorem 5.1).  Twiddles from a library are taken as no better
+    than 4e, and the ``rows`` products are summed in the frequency domain, so
+    the bound on one coefficient is the sum over rows of the largest
+    ||digits_r||_2 x ||half_r||_2, times that factor."""
+    L = 2 * digits.shape[-1]
+    k = L.bit_length() - 1
+    e = 2.0 ** -53
+    factor = (1 + e) ** (3 * k) * (1 + 5 ** 0.5 * e) ** (3 * k + 1) * (1 + 4 * e) ** (3 * k) - 1
+    dn = digits.to(torch.float64).norm(dim=-1).amax(dim=0)  # [rows]
+    hn = halves.norm(dim=-1).flatten(1).amax(dim=1)  # [rows]
+    return 2 * float((dn * hn).sum()) * factor
+
+
+def schoolbook_product_plain(digits: torch.Tensor, bk_round: torch.Tensor) -> torch.Tensor:
+    """digits int32 [B, rows, N] x one round of the raw BK int32 [rows, 2, N]
+    -> delta int32 [B, 2, N], delta[b, u] = sum_r digits[b, r] * bk[r, u] in
+    Z[X]/(X^N + 1) mod 2^32: the function of the JAX package's
+    ``external_delta_schoolbook`` after its ``decompose``.
+
+    Exact through float64 FFTs: the key is split into sign-balanced 16-bit
+    halves (bk = hi * 2^16 + lo, |lo|, |hi| <= 2^15), each half's product with
+    the digits is a zero-padded length-2N real FFT product summed over the
+    rows, folded negacyclically and rounded; the halves recombine mod 2^32 in
+    int64.  Rounding is exact while the error stays below 1/2, which
+    ``_fft_error_bound`` bounds from these inputs and this function asserts
+    (at N = 8192, rows 8 and digits in [-512, 512) it is at most 0.062)."""
+    B, rows, N = digits.shape
+    bk = bk_round.to(torch.int64)
+    lo = ((bk + (1 << 15)) & 0xFFFF) - (1 << 15)
+    halves = torch.stack([lo, (bk - lo) >> 16], dim=2).to(torch.float64)  # [rows, 2, 2, N]
+    bound = _fft_error_bound(digits, halves)
+    if not bound < 0.5:
+        raise ValueError(f"the float64 FFT product could round wrongly (error bound "
+                         f"{bound:.3g} >= 1/2): digits too wide for an exact product")
+    fd = torch.fft.rfft(digits.to(torch.float64), n=2 * N)  # [B, rows, N + 1]
+    fk = torch.fft.rfft(halves, n=2 * N)  # [rows, 2, 2, N + 1]
+    spec = None
+    for r in range(rows):
+        term = fd[:, r, None, None, :] * fk[r][None]
+        spec = term if spec is None else spec + term
+    conv = torch.fft.irfft(spec, n=2 * N)  # [B, 2, 2, 2N]
+    v = torch.round(conv[..., :N] - conv[..., N:]).to(torch.int64)
+    out = v[:, :, 0] + (v[:, :, 1] << 16)
+    return (((out + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor) -> torch.Tensor:
+    """S1: see ``schoolbook_product_plain``.  One launch a round; any int32
+    digits (the product is exact mod 2^32 for every input), N in
+    ``SCHOOLBOOK_N``."""
+    if digits.device.type == "cpu":
+        return schoolbook_product_plain(digits, bk_round)
+    if digits.ndim != 3:
+        raise ValueError(f"digits has shape {tuple(digits.shape)}, expected [B, rows, N]")
+    B, rows, N = digits.shape
+    if N not in SCHOOLBOOK_N or not 1 <= rows <= 64 or B < 1:
+        raise ValueError(f"schoolbook_kernel takes N in {SCHOOLBOOK_N} and 1..64 digit rows; "
+                         f"got digits of shape {tuple(digits.shape)}")
+    dev = digits.device
+    _require(digits, "digits", torch.int32, (B, rows, N), dev)
+    _require(bk_round, "bk_round", torch.int32, (rows, 2, N), dev)
+    out = torch.empty((B, 2, N), dtype=torch.int32, device=dev)
+    for name, t in (("digits", digits), ("bk_round", bk_round)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    _sb_lib().launch("redsec_schoolbook_product", "schoolbook_product", dev, digits.data_ptr(),
+                     bk_round.data_ptr(), out.data_ptr(), B, rows, N)
+    return out

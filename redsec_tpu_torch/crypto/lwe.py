@@ -51,11 +51,27 @@ def lwe_phase(key: np.ndarray, ct: np.ndarray) -> np.ndarray:
     return (b - dot).astype(np.int32)
 
 
+def lwe_decrypt(key: np.ndarray, ct: np.ndarray, msize: int) -> np.ndarray:
+    """Decrypt to the nearest message in [0, msize) (lweSymDecrypt semantics)."""
+    from .torus import mod_switch_from_torus32
+
+    return mod_switch_from_torus32(lwe_phase(key, ct), msize)
+
+
 def lwe_decrypt_signed(key: np.ndarray, ct: np.ndarray, msize: int) -> np.ndarray:
     """Decrypt and recenter to [-msize/2, msize/2) (client/decrypt_image.cpp:52-58)."""
     from .torus import decode_signed
 
     return decode_signed(lwe_phase(key, ct), msize)
+
+
+def lwe_noiseless_trivial(mu: np.ndarray, n: int) -> np.ndarray:
+    """(0, mu) ciphertexts — plaintext constants in LWE form
+    (lweNoiselessTrivial, used for biases at lib/BinOps_enc.cpp:292-295)."""
+    mu = np.asarray(mu, dtype=np.int32)
+    out = np.zeros(mu.shape + (n + 1,), dtype=np.int32)
+    out[..., -1] = mu
+    return out
 
 
 def encrypt_integers(

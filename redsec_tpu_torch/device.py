@@ -62,20 +62,33 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 
 def int32_matmul(x: torch.Tensor, w: torch.Tensor, w_max: int) -> torch.Tensor:
     """Exact ``x @ w`` mod 2^32 for int32 ``x`` [..., K] and a small-integer
-    ``w`` [K, O] with |w| <= ``w_max``.
+    ``w`` [K, O] with |w| <= ``w_max``, for any K.
 
     torch.matmul has no int32 path on CUDA, so ``x`` is split into four
-    sign-balanced 8-bit limbs and each limb product runs in fp32: every
-    partial sum is an integer of magnitude <= K * 128 * w_max < 2^24, which
-    fp32 holds exactly in any summation order.  TF32 would drop those bits,
-    so it is switched off for CUDA matmuls here
-    (``torch.backends.cuda.matmul.allow_tf32 = False``).  The limb products
-    recombine with int32 wraparound, the same arithmetic on CPU and CUDA."""
+    sign-balanced 8-bit limbs and each limb product runs in fp32.  The
+    contraction runs in chunks of K short enough that every partial sum is an
+    integer of magnitude <= chunk * 128 * w_max < 2^24, which fp32 holds
+    exactly in any summation order; the chunks' int32 results add with
+    wraparound, as the limb products recombine, so the same arithmetic holds
+    on CPU and CUDA and the fp32 copies never exceed one chunk.  TF32 would
+    drop those bits, so it is switched off for CUDA matmuls here
+    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
     K = x.shape[-1]
-    if K * 128 * max(w_max, 1) >= 1 << 24:
-        raise ValueError(f"contraction {K} x |w|<={w_max} exceeds the exact fp32 range")
+    chunk = ((1 << 24) - 1) // (128 * max(w_max, 1))
+    if chunk == 0:
+        raise ValueError(f"|w| <= {w_max}: one limb product can exceed fp32's exact range")
     if x.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
+    out = None
+    for k0 in range(0, K, chunk):
+        part = _limb_matmul(x[..., k0:k0 + chunk], w[k0:k0 + chunk])
+        out = part if out is None else out + part
+    return out
+
+
+def _limb_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` mod 2^32 through four 8-bit limbs of ``x`` in fp32, exact
+    while the contraction keeps every partial sum below 2^24."""
     wf = w.to(torch.float32)
     out, cur = None, x.to(torch.int32)
     for i in range(4):

@@ -1,4 +1,5 @@
-"""Time the blind-rotation kernels K1-K4 of one checkout on the card.
+"""Time the blind-rotation kernels K1-K4 and the schoolbook product S1 of
+one checkout on the card.
 
     python -m redsec_tpu_torch.scripts.time_kernels
     python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent
@@ -13,7 +14,9 @@ against its plain twin (exact equality), then timed with CUDA events: K1 at
 [6144, 1024], K2 and K3 on 64 ciphertexts, K4 at a full chunk of 512 and at 32
 at ``small_v2_tpu``, and at 512 at every other parameter set of ``--sets``
 (``name`` or ``name/2`` for a bundled key; default ``small_v2``, the CLI's
-set).  One JSON line per run ends the output.
+set); S1, where the checkout has it, at batch 512 at N 4096 and 8192 with 6
+and 8 digit rows (the schoolbook sets) and at 196 (``medium_v2``'s first
+sign1024x1 chunk).  One JSON line per run ends the output.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 K4_BATCHES = (512, 32)  # a full PBS chunk and the smallest chunk of the model paths
 K4_REPS = 3
+# S1 shapes (N, digit rows, batch, Bg/2): medium_v2 at both chunk sizes of the
+# sign1024x1 path, medium, large, large_v2
+S1_SHAPES = ((4096, 8, 512, 128), (4096, 8, 196, 128), (4096, 6, 512, 512),
+             (8192, 6, 512, 512), (8192, 8, 512, 128))
 
 
 def main(argv=None) -> dict:
@@ -119,6 +126,17 @@ def main(argv=None) -> dict:
               f"{out[f'blind_rotate_ms{tag}_{B}']:.4f} ms", flush=True)
         del dk
         torch.cuda.empty_cache()
+    if hasattr(K, "schoolbook_product"):
+        for line in K.build_library(K.SCHOOLBOOK_SOURCE).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"{args.tag} ptxas: {line.strip()}", flush=True)
+        for Ns, rs, B, half in S1_SHAPES:
+            digits, bk = ri(-half, half, (B, rs, Ns)), ri(-2**31, 2**31, (rs, 2, Ns))
+            same(f"schoolbook_product [{B}, {rs}, {Ns}]", K.schoolbook_product(digits, bk),
+                 K.schoolbook_product_plain(digits, bk))
+            key = f"schoolbook_ms_N{Ns}_rows{rs}_{B}"
+            out[key] = ms(lambda: K.schoolbook_product(digits, bk), 5)
+            print(f"{args.tag} S1 [{B}, {rs}, {Ns}]: {out[key]:.4f} ms", flush=True)
     print(json.dumps(out), flush=True)
     return out
 

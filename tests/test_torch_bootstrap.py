@@ -121,16 +121,18 @@ def test_blind_rotate_twin_runs_every_round():
 
 def test_device_path_rejects_what_the_kernels_do_not_take():
     """Bundled keys, three primes and N = 2048 are taken (tests/
-    test_torch_pbs_branches.py holds them against JAX); what still raises:
-    the schoolbook sets (no NTT plan), combinations outside the kernels'
-    instances (bundled N = 2048, a prime at or above 2^16), and a key in
-    another NTT order."""
+    test_torch_pbs_branches.py holds them against JAX), and the schoolbook
+    sets (tests/test_torch_schoolbook.py); what still raises: a schoolbook
+    key marked bundled (the schoolbook path runs unbundled, as in JAX),
+    combinations outside the kernels' instances (bundled N = 2048, a prime at
+    or above 2^16), and a key in another NTT order."""
     P = get_params("test_noiseless")
     _, cloud = kg.keygen(dataclasses.replace(P, n=4), seed=0, bundle=2)
     assert bs.prepare_cloud_key(cloud, device="cpu").bundle == 2
+    sb = bs.prepare_cloud_key(cloud, device="cpu", schoolbook=True)
+    assert (sb.plan, sb.bundle, sb.ntt_flavor) == (None, 1, "schoolbook")
     with pytest.raises(ValueError, match="schoolbook"):
-        bs.prepare_cloud_key(kg.CloudKey(get_params("medium"), np.zeros((1, 6, 2, 8), np.int32),
-                                         np.zeros((1, 1, 1), np.int32)), device="cpu")
+        bs.make_batched_bootstrap(dataclasses.replace(sb, bundle=2))
     small = bs.bootstrap_plan(get_params("small"))  # three primes
     assert kernels.supported(get_params("small"), small)
     assert kernels.supported(get_params("small_v2_tpu"), bs.bootstrap_plan(get_params("small_v2_tpu")))

@@ -272,3 +272,48 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(card):
         PK.toeplitz_tile(torch.zeros((1, 128), dtype=torch.int32, device="cuda"))
     with pytest.raises(ValueError, match="contiguous"):
         PK.toeplitz_tile(torch.zeros((1, 512), dtype=torch.int32, device="cuda")[:, ::2])
+
+
+# the schoolbook kernel's shapes: the sets without NTT primes (medium, large
+# and their v2 repairs: 6 or 8 digit rows) and the forced-schoolbook checks
+SCHOOLBOOK_SHAPES = [(4096, 6), (4096, 8), (8192, 6), (8192, 8), (1024, 12), (1024, 20),
+                     (256, 20)]
+
+
+@pytest.mark.parametrize("N,rows", SCHOOLBOOK_SHAPES)
+@pytest.mark.parametrize("batch", [1, 17, 33, 70])  # 1, 2, 4 and 8 ciphertexts a thread
+def test_schoolbook_kernel_equals_twin(card, N, rows, batch):
+    rng = np.random.default_rng(N + rows + batch)
+    half = 512 if rows == 6 else 128  # Bg/2 of the sets with these rows
+    digits = _ri(rng, -half, half, (batch, rows, N))
+    bk = _ri(rng, -2**31, 2**31, (rows, 2, N))
+    bk[0, 0, :4] = -2**31
+    before = K.launches.get("schoolbook_product")
+    got = K.schoolbook_product(digits, bk)
+    assert K.launches.get("schoolbook_product") == before + 1
+    assert torch.equal(got, K.schoolbook_product_plain(digits, bk))
+
+
+def test_schoolbook_pbs_equals_the_ntt_pbs(key):
+    sk, cloud, dkey = key
+    rng = np.random.default_rng(3)
+    ct = lwe.encrypt_integers(sk.lwe_key, rng.integers(-300, 300, size=9), P, rng)
+    tv = bs.const_test_vector(P, 1, P.msg_space)
+    sb = bs.prepare_cloud_key(cloud, device="cuda", schoolbook=True)
+    before = K.launches.get("schoolbook_product")
+    got = bs.make_batched_bootstrap(sb)(ct, tv)
+    assert K.launches.get("schoolbook_product") == before + P.n
+    assert torch.equal(got, bs.make_batched_bootstrap(dkey)(ct, tv))
+
+
+def test_schoolbook_wrapper_rejects_what_the_kernel_does_not_take(card):
+    digits = torch.zeros((2, 6, 4096), dtype=torch.int32, device="cuda")
+    bk = torch.zeros((6, 2, 4096), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="N in"):
+        K.schoolbook_product(digits[..., :2000].contiguous(), bk[..., :2000].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        K.schoolbook_product(digits.to(torch.int64), bk)
+    with pytest.raises(ValueError, match="shape"):
+        K.schoolbook_product(digits, bk[:5].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.schoolbook_product(digits, bk.transpose(0, 1).contiguous().transpose(0, 1))

@@ -59,8 +59,11 @@ def test_int32_matmul_is_exact_mod_2_32():
     got = int32_matmul(torch.as_tensor(x), torch.as_tensor(w), 1).numpy()
     want = (x.astype(np.int64) @ w.astype(np.int64)).astype(np.uint64).astype(np.uint32)
     np.testing.assert_array_equal(got, want.astype(np.int32))
-    with pytest.raises(ValueError):
-        int32_matmul(torch.as_tensor(x), torch.as_tensor(w), 1 << 10)
+    # a bound on |w| past one fp32-exact contraction runs in chunks of K
+    got = int32_matmul(torch.as_tensor(x), torch.as_tensor(w), 1 << 10).numpy()
+    np.testing.assert_array_equal(got, want.astype(np.int32))
+    with pytest.raises(ValueError):  # one limb product alone past 2^24
+        int32_matmul(torch.as_tensor(x), torch.as_tensor(w), 1 << 17)
 
 
 def test_ternary_matmul_ct_equals_jax():
