@@ -107,15 +107,21 @@ Phases (any failure exits non-zero):
    unless each probe kernel was launched as often as the scripts call it.
 11. The schoolbook sets (no NTT primes, N >= 4096), through the schoolbook
    product kernel (S1, ``csrc/schoolbook.cu``, one launch a round):
-   - S1 against its twin (a float64 FFT product) on random digits and key
-     rows at batch 64: N 4096 with 6 and 8 digit rows (``medium``,
-     ``medium_v2``), N 8192 with 6 and 8 (``large``, ``large_v2``), N 1024
-     with 12 (``small_v2_tpu`` forced); and at the full-width path's batches
-     (196 and 512 at N 4096, 8 rows).  Timed at 512 at each N and rows, and
-     at 196.  Its ``bound_ms`` is the smaller of two formulations' times:
-     the int8 tensor-core MACs of the JAX package's limb formulation, and
-     the int32 multiply-adds on the CUDA cores that S1 itself issues
-     (printed beside it as ``bound_int32_cuda_core_ms``).
+   - S1 (int8 tensor cores, ``wgmma`` u8 x s8) against its twin (a
+     float64 FFT product) on random digits and key rows, each shape with its
+     set's Bg/2: N 4096 with 6 and 8 digit rows (``medium``, ``medium_v2``),
+     N 8192 with 6 and 8 (``large``, ``large_v2``), N 1024 with 12 and 20
+     and N 256 with 20 (forced ``small_v2_tpu``, ``small_v2``,
+     ``test_noiseless``), at batches 1, 4, 8, 9, 17, 33, 70, 196 and 512
+     (the tile edges) and the full-width path's; then at extreme inputs
+     (digits -Bg/2 and Bg/2 - 1, keys -2^31, -1, 0, 2^31 - 1 at N 8192).
+     Timed at 512 at each N >= 1024 and rows, and at the path's batches;
+     the twin timed beside it at ``medium_v2``'s [512, 8, 4096].  Its
+     ``bound_ms`` is the smaller of two formulations' times: the int8
+     tensor-core MACs of the limb formulation S1 runs, and the int32
+     multiply-adds of one CUDA-core MAC a tap (``bound_int32_cuda_core_ms``
+     beside it).  Registers and spills of every instance from the
+     compiler's report.
    - The forced-schoolbook PBS (``prepare_cloud_key(..., schoolbook=True)``)
      bit-identical to K4's PBS on the ``small_v2_tpu`` key of phase 4 (real
      noise, n = 350), on 64 ciphertexts.
@@ -130,7 +136,9 @@ Phases (any failure exits non-zero):
      ciphertexts through the twin path on the card (3,072 rounds of the FFT
      product) bit-identical to the kernel path's outputs for them; the
      printed class their argmax, and beside it the plaintext oracle's
-     (informational).
+     (informational).  With ``--profile``, the path's first 512-chunk
+     through the CLI's bootstrap traced once: device busy time, idle share,
+     S1's share and that of the torch glue around it.
    - ``GateSet`` on the card: the truth tables of the ten two-input gates
      and MUX at ``small_v2_tpu`` (K4), and AND at full ``medium_v2`` on the
      path's key (S1).
@@ -170,6 +178,10 @@ PEAK_INT32_OPS = 67e12 / 4
 # int8 tensor-core multiply-accumulates a second (1,979 dense int8 TOPS, two
 # operations a MAC): the bound of the JAX package's int8 schoolbook product
 PEAK_INT8_MACS = 1979e12 / 2
+# float64 flops a second outside the tensor cores (data sheet: 34 TFLOP/s;
+# 132 SMs x 64 fp64 lanes x 2 x 1.98 GHz): the bound of the schoolbook
+# product through exact float64 FFTs, the formulation of its plain twin
+PEAK_FP64_FLOPS = 132 * 64 * 2 * 1.98e9
 BATCH = 8  # images in the slice phase
 
 
@@ -238,6 +250,20 @@ def schoolbook_int8_macs(B: int, rows: int, N: int, half_bg: int) -> int:
     return B * 8 * rows * (1 if half_bg <= 128 else 2) * N * N
 
 
+def schoolbook_fft_flops(B: int, rows: int, N: int) -> int:
+    """The same product through float64 FFTs of length L = 2N, as its plain
+    twin (``kernels.schoolbook_product_plain``) computes it exactly: a real
+    forward transform of every digit row and of the key's 4 sign-balanced
+    16-bit halves a row, B x rows x 4 x (N + 1) complex multiply-adds (8
+    flops), and B x 4 real inverse transforms; a real transform taken as
+    2.5 L log2 L flops (half the radix-2 count of a complex one).  The fold,
+    rounding and recombination (a few operations an output) are not
+    counted."""
+    L = 2 * N
+    rfft = 5 * L * (L.bit_length() - 1) // 2
+    return (B * rows + 4 * rows + 4 * B) * rfft + 8 * B * rows * 4 * (N + 1)
+
+
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
     tb, to = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_INT32_OPS * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -257,41 +283,51 @@ def ptxas_usage(ptxas: str, entry: str) -> tuple[int, int]:
     fail(f"the compiler's report has no entry for {entry}")
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20) -> float:
+def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> tuple[float, int]:
     """Mean device time, per call of ``fn``, of the CUDA kernels whose name
     contains ``kernel`` over ``reps`` calls (torch.profiler): what the card
     spends, where CUDA events around a small kernel time the host's enqueue.
     The tracer may miss the first launch after it starts, so it starts one
     step early: a warm-up step of one call, whose events the profiler drops,
     then the ``reps`` calls it records.  A named kernel runs once a call and
-    must be seen exactly ``reps`` times.  ``""`` sums every kernel of a
-    PyTorch call."""
+    must be seen exactly ``reps`` times.  The tracer has also been seen to
+    drop one launch in the middle of a trace: a trace short by exactly one
+    launch, and only that, is taken again, ``tries`` traces in all.  Returns
+    (ms, the traces taken again), the second for the kernel's record.  ``""``
+    sums every kernel of a PyTorch call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+    for retries in range(tries):
         fn()
         torch.cuda.synchronize()
-        prof.step()
-        for _ in range(reps):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
             fn()
-        torch.cuda.synchronize()  # leaving the context ends the recorded step and keeps it
-    # the step's own annotation also has a span on the device's timeline
-    evs = [e for e in prof.key_averages()
-           if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.key.startswith("ProfilerStep")]
-    seen = sum(e.count for e in evs)
-    if seen == 0 or (kernel and seen != reps):
-        fail(f"the profiler saw {seen} launches of {kernel or 'any kernel'} in {reps} calls")
-    return sum(e.self_device_time_total for e in evs) / reps / 1e3
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()  # leaving the context ends the recorded step and keeps it
+        # the step's own annotation also has a span on the device's timeline
+        evs = [e for e in prof.key_averages()
+               if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("ProfilerStep")]
+        seen = sum(e.count for e in evs)
+        if seen and (not kernel or seen == reps):
+            return sum(e.self_device_time_total for e in evs) / reps / 1e3, retries
+        if not kernel or seen != reps - 1:
+            break
+        print(f"the profiler saw {seen} launches of {kernel} in {reps} calls; tracing again",
+              flush=True)
+    fail(f"the profiler saw {seen} launches of {kernel or 'any kernel'} in {reps} calls "
+         f"(trace {retries + 1} of at most {tries})")
 
 
-def profile_forward(fwd, ct, card: str, tag: str) -> None:
+def profile_forward(fwd, ct, card: str, tag: str) -> tuple:
     """Device time by kernel over one traced forward, and the share of the
-    forward's wall time in which the device ran no kernel."""
+    forward's wall time in which the device ran no kernel.  Returns (wall ms,
+    device busy ms, [(kernel, device ms, launches)])."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -312,6 +348,7 @@ def profile_forward(fwd, ct, card: str, tag: str) -> None:
           f"idle share {max(0.0, 1 - busy_ms / wall_ms):.4f} on {card}", flush=True)
     for key, ms, count in rows[:8]:
         print(f"  {ms:10.3f} ms {100 * ms / busy_ms:6.2f}% x{count:<6d} {key[:90]}")
+    return wall_ms, busy_ms, rows
 
 
 # --------------------------------------------------------------------------- #
@@ -453,7 +490,8 @@ def main() -> int:
             f", one PyTorch call {library_ms:.4f} ms, on the device alone "
             f"{extra['library_device_ms']:.4f} ms")
         if "device_ms" in extra:
-            lib += f"; the kernel on the device alone {extra['device_ms']:.4f} ms"
+            lib += (f"; the kernel on the device alone {extra['device_ms']:.4f} ms (profiler "
+                    f"traces taken again: {extra['profiler_retries']})")
         print(f"kernel {name} {shape}: max abs err {err} against twin; {ms:.4f} ms (twin "
               f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}{lib}) on {card}", flush=True)
 
@@ -699,22 +737,24 @@ def main() -> int:
         rot_bytes, rot_ops = 2 * x5.numel() * 4 + t5.numel() * 4, 2 * x5.numel()
         pms = cuda_ms(lambda: PK.rotate_plain(x5, t5), 50, warmup=3)
         lms = cuda_ms(lambda: bench_schoolbook.rot_gather(x5, t5), 50, warmup=3)
-        ldev = kernel_device_ms(lambda: bench_schoolbook.rot_gather(x5, t5), "")
+        ldev, ldev_re = kernel_device_ms(lambda: bench_schoolbook.rot_gather(x5, t5), "")
         ms = cuda_ms(lambda: PK.rotate_rows(x5, t5), 200, warmup=3)
         # these launches are short: CUDA events time the host's enqueue, so
         # the device's own time per launch is read from the profiler as well
+        # profiler_retries: the traces taken again for this record's device times
+        dev5, re5 = kernel_device_ms(lambda: PK.rotate_rows(x5, t5), "rotate_rows_kernel")
         report("rotate_rows", [B5, 2, N], err5, ms, pms, rot_bytes, rot_ops,
                "scripts/bench_rotate.py:87", "probes.cu", lms, library_device_ms=ldev,
-               device_ms=kernel_device_ms(lambda: PK.rotate_rows(x5, t5), "rotate_rows_kernel"))
+               device_ms=dev5, profiler_retries=ldev_re + re5)
         ms64 = cuda_ms(lambda: PK.rotate_tile(x5, t5, 64), 200, warmup=3)
         ms256 = cuda_ms(lambda: PK.rotate_tile(x5, t5, 256), 200, warmup=3)
+        dev64, re64 = kernel_device_ms(lambda: PK.rotate_tile(x5, t5, 64), "rotate_tile_kernel")
+        dev256, re256 = kernel_device_ms(lambda: PK.rotate_tile(x5, t5, 256),
+                                         "rotate_tile_kernel")
         report("rotate_tile", [B5, 2, N], err6, ms64, pms, rot_bytes, rot_ops,
                "scripts/bench_rotate.py:109", "probes.cu", lms, library_device_ms=ldev,
-               tile=64, ms_tile256=ms256,
-               device_ms=kernel_device_ms(lambda: PK.rotate_tile(x5, t5, 64),
-                                          "rotate_tile_kernel"),
-               device_ms_tile256=kernel_device_ms(lambda: PK.rotate_tile(x5, t5, 256),
-                                                  "rotate_tile_kernel"))
+               tile=64, ms_tile256=ms256, device_ms=dev64, device_ms_tile256=dev256,
+               profiler_retries=ldev_re + re64 + re256)
         print(f"kernel rotate_tile tile 256: {ms256:.4f} ms, on the device alone "
               f"{rec['rotate_tile']['device_ms_tile256']:.4f} ms ({B5 // 256} tiles, their "
               f"rows dealt out over two blocks an SM)", flush=True)
@@ -731,11 +771,12 @@ def main() -> int:
     if not torch.equal(torch.take(w7, idx7), PK.toeplitz_tile_plain(w7)):
         fail("torch.take over the fixed index table differs from the toeplitz_tile twin")
     lms = cuda_ms(lambda: torch.take(w7, idx7), 200, warmup=3)
+    ldev7, lre7 = kernel_device_ms(lambda: torch.take(w7, idx7), "")
+    dev7, re7 = kernel_device_ms(lambda: PK.toeplitz_tile(w7), "toeplitz_tile_kernel")
     report("toeplitz_tile", [1, 2 * PK.TOEPLITZ_TILE], err, ms, pms,
            w7.numel() * 4 + PK.TOEPLITZ_TILE ** 2 * 4, PK.TOEPLITZ_TILE ** 2,
-           "scripts/bench_schoolbook.py:254", "probes.cu", lms,
-           library_device_ms=kernel_device_ms(lambda: torch.take(w7, idx7), ""),
-           device_ms=kernel_device_ms(lambda: PK.toeplitz_tile(w7), "toeplitz_tile_kernel"))
+           "scripts/bench_schoolbook.py:254", "probes.cu", lms, library_device_ms=ldev7,
+           device_ms=dev7, profiler_retries=lre7 + re7)
 
     # the PBS's test-vector rotation at a full chunk: one vector broadcast
     # (sign) against one vector per ciphertext (relu)
@@ -1332,53 +1373,111 @@ def main() -> int:
     PV = get_params("medium_v2")
     t_phase = time.perf_counter()
 
-    # S1 against its twin: batch 64 at each set's N and rows, and the
-    # full-width path's batches (its layers' PBS chunks at medium_v2)
+    # S1 against its twin at every shape the paths give it (the sets' N and
+    # rows, each with its Bg/2) and at the tile edges of its batch (8, 16
+    # and 32 ciphertexts a block, ragged grids, the full-width path's chunks);
+    # then at extreme inputs.  Timed at 512 (and the path's batches at
+    # medium_v2), the twin beside it at medium_v2's [512, 8, 4096]
     sb_path = {min(pbs_chunk, b - i) for b in sign_boots if b for i in range(0, b, pbs_chunk)}
-    sb_shapes = [(4096, 6, 512), (4096, 8, 512), (8192, 6, 512), (8192, 8, 512),
-                 (1024, 12, 512)]
-    sb_half = {6: 512, 8: 128, 12: 16}  # Bg/2 of medium/large, the v2 sets, small_v2_tpu
-    sb_ms = {}
-    for Ns, rs, Bt in sb_shapes:
+    sb_shapes = [(4096, 6), (4096, 8), (8192, 6), (8192, 8), (1024, 12), (1024, 20), (256, 20)]
+    # Bg/2 of medium/large, the v2 sets, small_v2_tpu, small_v2 and test_noiseless
+    sb_half = {6: 512, 8: 128, 12: 16, 20: 4}
+    sb_batches = {1, 4, 8, 9, 17, 33, 70, 196, 512}
+    sb_ms, sb_tiles = {}, {}
+    for Ns, rs in sb_shapes:
+        hb = sb_half[rs]
         bk_s = ri(-2**31, 2**31, (rs, 2, Ns))
         bk_s[0, 0, :4] = -2**31
-        for Bs in sorted({64, Bt} | (set(sb_path) if (Ns, rs) == (PV.N, PV.decomp_rows)
-                                     else set())):
-            dg = ri(-sb_half[rs], sb_half[rs], (Bs, rs, Ns))
-            err = same(f"schoolbook_product [{Bs}, {rs}, {Ns}]", K.schoolbook_product(dg, bk_s),
-                       K.schoolbook_product_plain(dg, bk_s))
-            if Bs == Bt or (Ns, rs) == (PV.N, PV.decomp_rows) and Bs in sb_path:
-                sb_ms[(Ns, rs, Bs)] = cuda_ms(lambda: K.schoolbook_product(dg, bk_s), 3)
-            if (Ns, rs, Bs) == (PV.N, PV.decomp_rows, Bt):
+        is_v2 = (Ns, rs) == (PV.N, PV.decomp_rows)
+        for Bs in sorted(sb_batches | (set(sb_path) if is_v2 else set())):
+            dg = ri(-hb, hb, (Bs, rs, Ns))
+            err = same(f"schoolbook_product [{Bs}, {rs}, {Ns}]",
+                       K.schoolbook_product(dg, bk_s, hb), K.schoolbook_product_plain(dg, bk_s, hb))
+            tile = K.schoolbook_tile(Bs, Ns, hb)
+            sb_tiles[tile["instance"]] = sb_tiles.get(tile["instance"], 0) + 1
+            if (Bs == 512 and Ns >= 1024) or (is_v2 and Bs in sb_path):
+                sb_ms[(Ns, rs, Bs)] = cuda_ms(lambda: K.schoolbook_product(dg, bk_s, hb), 5)
+            if is_v2 and Bs == 512:
                 sb_rec = dict(err=err, pms=cuda_ms(
-                    lambda: K.schoolbook_product_plain(dg, bk_s), 3),
+                    lambda: K.schoolbook_product_plain(dg, bk_s, hb), 5),
                     bytes_=dg.numel() * 4 + bk_s.numel() * 4 + Bs * 2 * Ns * 4)
-            b_i32 = schoolbook_ops(Bs, rs, Ns) / PEAK_INT32_OPS * 1e3
-            b_i8 = schoolbook_int8_macs(Bs, rs, Ns, sb_half[rs]) / PEAK_INT8_MACS * 1e3
             t_ms = sb_ms.get((Ns, rs, Bs))
-            print(f"kernel schoolbook_product [{Bs}, {rs}, {Ns}]: bit-identical to twin" + (
-                      "" if t_ms is None else
-                      f", {t_ms:.4f} ms; int32 bound {b_i32:.4f} ms ({b_i32 / t_ms:.3f} of "
-                      f"it), int8 tensor-core bound {b_i8:.4f} ms ({b_i8 / t_ms:.4f})")
-                  + f" on {card}", flush=True)
+            if t_ms is None:
+                continue
+            b_i32 = schoolbook_ops(Bs, rs, Ns) / PEAK_INT32_OPS * 1e3
+            b_i8 = schoolbook_int8_macs(Bs, rs, Ns, hb) / PEAK_INT8_MACS * 1e3
+            b_fft = schoolbook_fft_flops(Bs, rs, Ns) / PEAK_FP64_FLOPS * 1e3
+            b_ms = max((Bs * rs * Ns + rs * 2 * Ns + Bs * 2 * Ns) * 4 / PEAK_BYTES * 1e3,
+                       min(b_fft, b_i8, b_i32))
+            print(f"kernel schoolbook_product [{Bs}, {rs}, {Ns}] (Bg/2 {hb}, tile "
+                  f"{tile['instance']}): bit-identical to twin, {t_ms:.4f} ms; bound "
+                  f"{b_ms:.4f} ms ({b_ms / t_ms:.4f} of it; float64-FFT {b_fft:.4f}, int8 "
+                  f"tensor-core {b_i8:.4f} ({b_i8 / t_ms:.4f} of it), int32 CUDA-core "
+                  f"{b_i32:.4f}) on {card}", flush=True)
+        print(f"kernel schoolbook_product [*, {rs}, {Ns}] (Bg/2 {hb}): bit-identical to twin "
+              f"at batches {sorted(sb_batches | (set(sb_path) if is_v2 else set()))}",
+              flush=True)
         del bk_s, dg
+    # extreme inputs: digits all -Bg/2 or Bg/2 - 1 against keys all -2^31, -1
+    # (every key byte 255), 0, 2^31 - 1, at the sets' widest N (accumulators
+    # at their bound: large_v2 sums 128 x 255 x 8 x 8192 in one flush).  At
+    # 16 rows a launch sums more rows than one run between flushes
+    # (kernels.schoolbook_flush_rows: 7 at Bg/2 512, 8 at 128), so it flushes
+    # mid-launch; there random digits and keys are held too
+    for rs, hb in ((6, 512), (8, 128), (16, 512), (16, 128)):
+        flushes = -(-rs // K.schoolbook_flush_rows(8192, hb))
+        cases = [(dv, kv) for dv in (-hb, hb - 1) for kv in (-2**31, -1, 0, 2**31 - 1)]
+        for dv, kv in cases + ([(None, None)] if flushes > 1 else []):
+            if dv is None:
+                dg, bk_s = ri(-hb, hb, (9, rs, 8192)), ri(-2**31, 2**31, (rs, 2, 8192))
+            else:
+                dg = torch.full((9, rs, 8192), dv, dtype=torch.int32, device=dev)
+                bk_s = torch.full((rs, 2, 8192), kv, dtype=torch.int32, device=dev)
+            same(f"schoolbook_product [9, {rs}, 8192] Bg/2 {hb} digits, key "
+                 f"{'random' if dv is None else (dv, kv)}",
+                 K.schoolbook_product(dg, bk_s, hb), K.schoolbook_product_plain(dg, bk_s, hb))
+        print(f"kernel schoolbook_product [9, {rs}, 8192] (Bg/2 {hb}, {flushes} flushes a "
+              f"launch): bit-identical to twin at extreme inputs (digits -Bg/2 and Bg/2 - 1, "
+              f"keys -2^31, -1, 0, 2^31 - 1){' and random ones' if flushes > 1 else ''}",
+              flush=True)
+    del bk_s, dg
+    # registers and spills of every instance the compiler built (template
+    # <NT, MT, digit limbs>), and the instances these shapes launched
+    sb_built = sorted(set(re.findall(r"schoolbook_mma_kernelILi\d+ELi\d+ELi\d+E", ptxas)))
+    if len(sb_built) != 15 or not set(sb_tiles) <= set(sb_built):
+        fail(f"the compiler's report has S1 instances {sb_built}; the shapes launched "
+             f"{sorted(sb_tiles)}")
     sb_regs = {}
-    for bt in (1, 2, 4, 8):
-        sb_regs[f"registers_bt{bt}"], sb_regs[f"spill_bytes_bt{bt}"] = ptxas_usage(
-            ptxas, f"schoolbook_kernelILi{bt}E")
-    # bound_ms: the cheaper of the product's two formulations (at these shapes
-    # JAX's int8 tensor-core one); S1's own, int32 on the CUDA cores, beside it
+    for inst in sb_built:
+        tag = inst.replace("schoolbook_mma_kernel", "").replace("ILi", "").replace("ELi", "_") \
+            .rstrip("E")
+        sb_regs[f"registers_{tag}"], sb_regs[f"spill_bytes_{tag}"] = ptxas_usage(ptxas, inst)
     Bm = 512
+    v2_tile = K.schoolbook_tile(Bm, PV.N, PV.half_bg)["instance"]
+    v2_ms, v2_twin = sb_ms[(PV.N, PV.decomp_rows, Bm)], sb_rec["pms"]
+    print(f"kernel schoolbook_product [{Bm}, {PV.decomp_rows}, {PV.N}]: {v2_ms:.4f} ms, its "
+          f"float64-FFT twin {v2_twin:.4f} ms in this process: "
+          f"{'faster' if v2_ms < v2_twin else 'SLOWER'} than the twin ({v2_twin / v2_ms:.2f}x); "
+          f"instance {v2_tile}, {ptxas_usage(ptxas, v2_tile)[0]} registers, "
+          f"{ptxas_usage(ptxas, v2_tile)[1]} spill bytes, on {card}", flush=True)
+    # bound_ms: the cheapest of the product's three formulations, at these
+    # shapes the exact float64 FFTs of its twin; the int8 tensor-core one that
+    # S1 runs and the int32 CUDA-core one beside it
     i8 = schoolbook_int8_macs(Bm, PV.decomp_rows, PV.N, PV.half_bg) / PEAK_INT8_MACS * 1e3
     i32 = schoolbook_ops(Bm, PV.decomp_rows, PV.N) / PEAK_INT32_OPS * 1e3
+    f64 = schoolbook_fft_flops(Bm, PV.decomp_rows, PV.N) / PEAK_FP64_FLOPS * 1e3
+    print(f"kernel schoolbook_product [{Bm}, {PV.decomp_rows}, {PV.N}]: {v2_ms:.4f} ms is "
+          f"{f64 / v2_ms:.4f} of the float64-FFT bound {f64:.4f} ms and {i8 / v2_ms:.4f} of "
+          f"the int8 tensor-core bound {i8:.4f} ms on {card}", flush=True)
     report("schoolbook_product", [Bm, PV.decomp_rows, PV.N], sb_rec["err"],
-           sb_ms[(PV.N, PV.decomp_rows, Bm)], sb_rec["pms"], sb_rec["bytes_"],
+           v2_ms, v2_twin, sb_rec["bytes_"],
            schoolbook_ops(Bm, PV.decomp_rows, PV.N), "redsec_tpu/crypto/bootstrap.py:538",
-           "schoolbook.cu", ops_ms=min(i8, i32), params=("medium_v2", "medium", "large",
-                                                         "large_v2", "small_v2_tpu/schoolbook"),
-           bound_int32_cuda_core_ms=i32, bound_int8_tensor_core_ms=i8,
+           "schoolbook.cu", ops_ms=min(f64, i8, i32), params=("medium_v2", "medium", "large",
+                                                              "large_v2",
+                                                              "small_v2_tpu/schoolbook"),
+           bound_fp64_fft_ms=f64, bound_int32_cuda_core_ms=i32, bound_int8_tensor_core_ms=i8,
            ms_by_shape={f"N{k[0]}_rows{k[1]}_batch{k[2]}": v for k, v in sb_ms.items()},
-           **sb_regs)
+           instance_medium_v2_512=v2_tile, instances_checked=sb_tiles, **sb_regs)
     print(f"kernel schoolbook_product build: {sb_regs}", flush=True)
 
     # the forced-schoolbook PBS against K4's on the small_v2_tpu key (real noise)
@@ -1437,12 +1536,16 @@ def main() -> int:
             if not kept:
                 kept.update(dkey=dkey_, ct=torch.as_tensor(ct_)[:8].clone(), out=out_[:8].clone(),
                             tv=tv_ if np.ndim(tv_) == 1 else tv_[:8])
+            if args.profile and "ct512" not in kept and len(ct_) >= 512:
+                # the first full chunk of the path, traced below
+                kept.update(ct512=torch.as_tensor(ct_)[:512].clone(),
+                            tv512=tv_ if np.ndim(tv_) == 1 else tv_[:512])
             return out_
         return kept_run
 
-    def door_s1(digits, bk_round, _real=K.schoolbook_product):
+    def door_s1(digits, bk_round, half_bg, _real=K.schoolbook_product):
         sb_door.append(digits.shape[0])
-        return _real(digits, bk_round)
+        return _real(digits, bk_round, half_bg)
 
     launches.reset()
     t0 = time.perf_counter()
@@ -1493,6 +1596,27 @@ def main() -> int:
     print(f"cli/{PV.name} PBS/s: {vrec['pbs_per_s']:.4f} on {card}", flush=True)
     print(f"cli/{PV.name} class: decrypted {vcls}, plaintext oracle {int(preds[0])} "
           f"(informational)", flush=True)
+    if args.profile:
+        # one 512-chunk of the path through the CLI's bootstrap (n rounds of
+        # torch rotate/difference/decompose/add around one S1 launch each)
+        prof_run = renc.make_chunked_bootstrap(kept["dkey"], chunk=pbs_chunk)
+        prof_run(kept["ct512"], kept["tv512"])
+        torch.cuda.synchronize()
+        p_wall, p_busy, p_rows = profile_forward(
+            lambda c: prof_run(c, kept["tv512"]), kept["ct512"], card,
+            f"{PV.name}_chunk512")
+        p_s1 = sum(ms for key, ms, _ in p_rows if "schoolbook_mma_kernel" in key)
+        p_s1_n = sum(c for key, _, c in p_rows if "schoolbook_mma_kernel" in key)
+        if p_s1_n != PV.n:
+            fail(f"profile {PV.name}: the trace holds {p_s1_n} S1 launches, not {PV.n}")
+        slices[f"profile/{PV.name}_chunk512"] = {
+            "wall_ms": p_wall, "device_busy_ms": p_busy, "idle_share": 1 - p_busy / p_wall,
+            "s1_ms": p_s1, "s1_share_of_busy": p_s1 / p_busy, "glue_ms": p_busy - p_s1,
+            "glue_share_of_busy": (p_busy - p_s1) / p_busy}
+        print(f"profile {PV.name}_chunk512: wall {p_wall:.3f} ms, device busy {p_busy:.3f} ms, "
+              f"idle share {1 - p_busy / p_wall:.4f}; S1 {p_s1:.3f} ms x{p_s1_n} "
+              f"({p_s1 / p_busy:.4f} of busy), torch glue and key switch {p_busy - p_s1:.3f} ms "
+              f"({(p_busy - p_s1) / p_busy:.4f}) on {card}", flush=True)
     slices[f"cli/{PV.name}"] = {"params": PV.name, **vrec, "keygen_s": t_keygen,
                                 "twin_check_s": t_twin, "class": vcls,
                                 "oracle_class": int(preds[0]), "s1_launches_at_door": len(sb_door)}

@@ -310,7 +310,7 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan]):
                                 bk: torch.Tensor) -> torch.Tensor:
         for i in range(n):
             digits = ops.decompose(ops.rotate(acc, abar[:, i]) - acc)
-            acc = acc + kernels.schoolbook_product(digits, bk[i])
+            acc = acc + kernels.schoolbook_product(digits, bk[i], ops.p.half_bg)
         return acc
 
     def impl(dkey: DeviceCloudKey, ct: torch.Tensor, testvect) -> torch.Tensor:

@@ -35,8 +35,9 @@ the Pallas kernels they replace do.
 A fifth kernel, ``schoolbook_product`` (S1, ``csrc/schoolbook.cu``), is the
 external product of the parameter sets without NTT primes (N >= 4096), and
 of any set prepared with ``schoolbook=True``: the JAX package computes it as
-an XLA int8 convolution (``redsec_tpu/crypto/bootstrap.py:538``), not in
-Pallas.  Its twin is an exact float64 FFT product.
+an XLA int8 convolution (``redsec_tpu/crypto/bootstrap.py:517-556``), not in
+Pallas.  S1 computes JAX's limb formulation, exactly, on the int8 tensor
+cores; its twin is an exact float64 FFT product.
 """
 
 from __future__ import annotations
@@ -460,15 +461,56 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
 # --------------------------------------------------------------------------- #
 
 _SB_ENTRIES = {
-    "redsec_schoolbook_product": [_P, _P, _P, _I, _I, _I, _P],
+    "redsec_schoolbook_product": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "redsec_schoolbook_tile": [_I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 _sb_loaded: list[Library] = []
+SCHOOLBOOK_MAX_HALF_BG = 512  # two s8 limbs of a digit: lo in [-128, 127], hi in [-2, 2]
+SCHOOLBOOK_MAX_ROWS = 64
 
 
 def _sb_lib() -> Library:
     if not _sb_loaded:
         _sb_loaded.append(Library(SCHOOLBOOK_SOURCE, _SB_ENTRIES))
     return _sb_loaded[0]
+
+
+def schoolbook_digit_limbs(half_bg: int) -> int:
+    """s8 limbs a digit in [-half_bg, half_bg) takes in S1: one up to 128,
+    two up to ``SCHOOLBOOK_MAX_HALF_BG``."""
+    if not 1 <= half_bg <= SCHOOLBOOK_MAX_HALF_BG:
+        raise ValueError(f"schoolbook_kernel takes Bg/2 in 1..{SCHOOLBOOK_MAX_HALF_BG} "
+                         f"(no limb plan beyond two s8 limbs); got {half_bg}")
+    return 1 if half_bg <= 128 else 2
+
+
+def schoolbook_tap_bound(half_bg: int) -> int:
+    """The most one tap adds to one of S1's int32 accumulators: key bytes are
+    at most 255, and the accumulator of shift s sums the low digit limb
+    (|lo| <= 128) against key byte s and, with two limbs, the high one
+    (|hi| <= 2) against key byte s - 1."""
+    return (128 if schoolbook_digit_limbs(half_bg) == 1 else 130) * 255
+
+
+def schoolbook_flush_rows(N: int, half_bg: int) -> int:
+    """Digit rows S1 sums in int32 before it adds its accumulators into the
+    uint32 total: the most for which rows x N taps stay below 2^31."""
+    return (2**31 - 1) // (schoolbook_tap_bound(half_bg) * N)
+
+
+def schoolbook_tile(B: int, N: int, half_bg: int, device=None) -> dict:
+    """The tile S1 launches with at this batch, N and Bg/2 on ``device``'s
+    card: ``nt`` (8 nt ciphertexts a block), ``mt`` (16 mt coefficients a
+    block), ``limbs`` (digit limbs) and ``instance``, the kernel's template
+    arguments as the compiler's report spells them."""
+    dev = torch.device(device if device is not None else "cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = (ctypes.c_int * 3)()
+    if _sb_lib().fn["redsec_schoolbook_tile"](B, N, half_bg, sms, out) != 0:
+        raise ValueError(f"schoolbook_kernel has no tile for B={B}, N={N}, Bg/2={half_bg}")
+    nt, mt, limbs = out
+    return {"nt": nt, "mt": mt, "limbs": limbs,
+            "instance": f"schoolbook_mma_kernelILi{nt}ELi{mt}ELi{limbs}E"}
 
 
 def _fft_error_bound(digits: torch.Tensor, halves: torch.Tensor) -> float:
@@ -495,11 +537,13 @@ def _fft_error_bound(digits: torch.Tensor, halves: torch.Tensor) -> float:
     return 2 * float((dn * hn).sum()) * factor
 
 
-def schoolbook_product_plain(digits: torch.Tensor, bk_round: torch.Tensor) -> torch.Tensor:
-    """digits int32 [B, rows, N] x one round of the raw BK int32 [rows, 2, N]
-    -> delta int32 [B, 2, N], delta[b, u] = sum_r digits[b, r] * bk[r, u] in
-    Z[X]/(X^N + 1) mod 2^32: the function of the JAX package's
-    ``external_delta_schoolbook`` after its ``decompose``.
+def schoolbook_product_plain(digits: torch.Tensor, bk_round: torch.Tensor,
+                             half_bg: int) -> torch.Tensor:
+    """digits int32 [B, rows, N] in [-half_bg, half_bg) x one round of the
+    raw BK int32 [rows, 2, N] -> delta int32 [B, 2, N], delta[b, u] =
+    sum_r digits[b, r] * bk[r, u] in Z[X]/(X^N + 1) mod 2^32: the function of
+    the JAX package's ``external_delta_schoolbook`` after its ``decompose``.
+    Raises on a digit outside [-half_bg, half_bg), the domain S1 takes.
 
     Exact through float64 FFTs: the key is split into sign-balanced 16-bit
     halves (bk = hi * 2^16 + lo, |lo|, |hi| <= 2^15), each half's product with
@@ -508,6 +552,10 @@ def schoolbook_product_plain(digits: torch.Tensor, bk_round: torch.Tensor) -> to
     int64.  Rounding is exact while the error stays below 1/2, which
     ``_fft_error_bound`` bounds from these inputs and this function asserts
     (at N = 8192, rows 8 and digits in [-512, 512) it is at most 0.062)."""
+    if digits.numel():
+        lo, hi = torch.stack(torch.aminmax(digits)).tolist()  # one reduction, one sync
+        if not (lo >= -half_bg and hi < half_bg):
+            raise ValueError(f"digits outside [-{half_bg}, {half_bg}): [{lo}, {hi}]")
     B, rows, N = digits.shape
     bk = bk_round.to(torch.int64)
     lo = ((bk + (1 << 15)) & 0xFFFF) - (1 << 15)
@@ -528,18 +576,23 @@ def schoolbook_product_plain(digits: torch.Tensor, bk_round: torch.Tensor) -> to
     return (((out + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
 
 
-def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor) -> torch.Tensor:
-    """S1: see ``schoolbook_product_plain``.  One launch a round; any int32
-    digits (the product is exact mod 2^32 for every input), N in
-    ``SCHOOLBOOK_N``."""
+def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor,
+                       half_bg: int) -> torch.Tensor:
+    """S1: see ``schoolbook_product_plain``.  One launch a round; digits in
+    [-half_bg, half_bg) with half_bg <= ``SCHOOLBOOK_MAX_HALF_BG`` (the
+    kernel's limb plan: it does not check the digits, and outside that range
+    its result is not the product), N in ``SCHOOLBOOK_N``, 1 ..
+    ``SCHOOLBOOK_MAX_ROWS`` digit rows, any batch."""
     if digits.device.type == "cpu":
-        return schoolbook_product_plain(digits, bk_round)
+        return schoolbook_product_plain(digits, bk_round, half_bg)
     if digits.ndim != 3:
         raise ValueError(f"digits has shape {tuple(digits.shape)}, expected [B, rows, N]")
     B, rows, N = digits.shape
-    if N not in SCHOOLBOOK_N or not 1 <= rows <= 64 or B < 1:
-        raise ValueError(f"schoolbook_kernel takes N in {SCHOOLBOOK_N} and 1..64 digit rows; "
+    if N not in SCHOOLBOOK_N or not 1 <= rows <= SCHOOLBOOK_MAX_ROWS or B < 1:
+        raise ValueError(f"schoolbook_kernel takes N in {SCHOOLBOOK_N} and "
+                         f"1..{SCHOOLBOOK_MAX_ROWS} digit rows; "
                          f"got digits of shape {tuple(digits.shape)}")
+    flush_rows = schoolbook_flush_rows(N, half_bg)
     dev = digits.device
     _require(digits, "digits", torch.int32, (B, rows, N), dev)
     _require(bk_round, "bk_round", torch.int32, (rows, 2, N), dev)
@@ -548,5 +601,5 @@ def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor) -> torch.Te
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     _sb_lib().launch("redsec_schoolbook_product", "schoolbook_product", dev, digits.data_ptr(),
-                     bk_round.data_ptr(), out.data_ptr(), B, rows, N)
+                     bk_round.data_ptr(), out.data_ptr(), B, rows, N, half_bg, flush_rows)
     return out

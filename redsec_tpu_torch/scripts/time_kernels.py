@@ -16,13 +16,15 @@ at ``small_v2_tpu``, and at 512 at every other parameter set of ``--sets``
 (``name`` or ``name/2`` for a bundled key; default ``small_v2``, the CLI's
 set); S1, where the checkout has it, at batch 512 at N 4096 and 8192 with 6
 and 8 digit rows (the schoolbook sets) and at 196 (``medium_v2``'s first
-sign1024x1 chunk).  One JSON line per run ends the output.
+sign1024x1 chunk) and 4 (a gate), with its float64-FFT twin timed beside it at
+[512, 8, 4096].  One JSON line per run ends the output.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import subprocess
@@ -33,9 +35,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 K4_BATCHES = (512, 32)  # a full PBS chunk and the smallest chunk of the model paths
 K4_REPS = 3
 # S1 shapes (N, digit rows, batch, Bg/2): medium_v2 at both chunk sizes of the
-# sign1024x1 path, medium, large, large_v2
-S1_SHAPES = ((4096, 8, 512, 128), (4096, 8, 196, 128), (4096, 6, 512, 512),
-             (8192, 6, 512, 512), (8192, 8, 512, 128))
+# sign1024x1 path and a gate's batch, medium, large, large_v2
+S1_SHAPES = ((4096, 8, 512, 128), (4096, 8, 196, 128), (4096, 8, 4, 128),
+             (4096, 6, 512, 512), (8192, 6, 512, 512), (8192, 8, 512, 128))
 
 
 def main(argv=None) -> dict:
@@ -130,13 +132,21 @@ def main(argv=None) -> dict:
         for line in K.build_library(K.SCHOOLBOOK_SOURCE).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"{args.tag} ptxas: {line.strip()}", flush=True)
+        # a checkout whose S1 takes Bg/2 (the limb plan of the int8 kernel)
+        takes_half = len(inspect.signature(K.schoolbook_product).parameters) == 3
         for Ns, rs, B, half in S1_SHAPES:
             digits, bk = ri(-half, half, (B, rs, Ns)), ri(-2**31, 2**31, (rs, 2, Ns))
-            same(f"schoolbook_product [{B}, {rs}, {Ns}]", K.schoolbook_product(digits, bk),
-                 K.schoolbook_product_plain(digits, bk))
+            extra = (half,) if takes_half else ()
+            same(f"schoolbook_product [{B}, {rs}, {Ns}]", K.schoolbook_product(digits, bk, *extra),
+                 K.schoolbook_product_plain(digits, bk, *extra))
             key = f"schoolbook_ms_N{Ns}_rows{rs}_{B}"
-            out[key] = ms(lambda: K.schoolbook_product(digits, bk), 5)
+            out[key] = ms(lambda: K.schoolbook_product(digits, bk, *extra), 5)
             print(f"{args.tag} S1 [{B}, {rs}, {Ns}]: {out[key]:.4f} ms", flush=True)
+            if (Ns, rs, B) == (4096, 8, 512):
+                out["schoolbook_twin_ms_N4096_rows8_512"] = ms(
+                    lambda: K.schoolbook_product_plain(digits, bk, *extra), 5)
+                print(f"{args.tag} S1 twin (float64 FFT) [{B}, {rs}, {Ns}]: "
+                      f"{out['schoolbook_twin_ms_N4096_rows8_512']:.4f} ms", flush=True)
     print(json.dumps(out), flush=True)
     return out
 

@@ -9,6 +9,9 @@ skips ``tests/conftest.py``, which pins JAX to the CPU):
 Tolerance: exact equality (integer arithmetic mod p and mod 2^32).
 """
 
+import ctypes
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -278,20 +281,63 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take(card):
 # and their v2 repairs: 6 or 8 digit rows) and the forced-schoolbook checks
 SCHOOLBOOK_SHAPES = [(4096, 6), (4096, 8), (8192, 6), (8192, 8), (1024, 12), (1024, 20),
                      (256, 20)]
+# Bg/2 of the sets with these rows: medium/large, the v2 sets, small_v2_tpu,
+# small_v2 and test_noiseless
+SCHOOLBOOK_HALF_BG = {6: 512, 8: 128, 12: 16, 20: 4}
 
 
 @pytest.mark.parametrize("N,rows", SCHOOLBOOK_SHAPES)
-@pytest.mark.parametrize("batch", [1, 17, 33, 70])  # 1, 2, 4 and 8 ciphertexts a thread
+# the tile edges: 8, 16 and 32 ciphertexts a block (4 pads to 8, 9 to 16),
+# ragged grids, medium_v2's 196-chunk and a full 512
+@pytest.mark.parametrize("batch", [1, 4, 8, 9, 17, 33, 70, 196, 512])
 def test_schoolbook_kernel_equals_twin(card, N, rows, batch):
     rng = np.random.default_rng(N + rows + batch)
-    half = 512 if rows == 6 else 128  # Bg/2 of the sets with these rows
+    half = SCHOOLBOOK_HALF_BG[rows]
     digits = _ri(rng, -half, half, (batch, rows, N))
     bk = _ri(rng, -2**31, 2**31, (rows, 2, N))
     bk[0, 0, :4] = -2**31
     before = K.launches.get("schoolbook_product")
-    got = K.schoolbook_product(digits, bk)
+    got = K.schoolbook_product(digits, bk, half)
     assert K.launches.get("schoolbook_product") == before + 1
-    assert torch.equal(got, K.schoolbook_product_plain(digits, bk))
+    assert torch.equal(got, K.schoolbook_product_plain(digits, bk, half))
+
+
+@pytest.mark.parametrize("half", [128, 512])
+@pytest.mark.parametrize("dval", ["low", "high"])
+@pytest.mark.parametrize("kval", [-2**31, -1, 0, 2**31 - 1])
+def test_schoolbook_kernel_at_extreme_inputs(card, half, dval, kval):
+    """Digits all -Bg/2 or all Bg/2 - 1 against keys all -2^31, -1 (every
+    key byte 255), 0 or 2^31 - 1: the accumulators at their bound (large_v2's
+    rows and N: 128 x 255 x 8 x 8192 = 2,139,095,040 in one flush)."""
+    N, rows = 8192, (8 if half == 128 else 6)
+    digits = torch.full((9, rows, N), -half if dval == "low" else half - 1, dtype=torch.int32,
+                        device="cuda")
+    bk = torch.full((rows, 2, N), kval, dtype=torch.int32, device="cuda")
+    assert torch.equal(K.schoolbook_product(digits, bk, half),
+                       K.schoolbook_product_plain(digits, bk, half))
+
+
+@pytest.mark.parametrize("rows,half", [(8, 512), (16, 512), (16, 128)])
+@pytest.mark.parametrize("inputs", ["random", "extreme"])
+def test_schoolbook_kernel_flushes_mid_launch(card, rows, half, inputs):
+    """More digit rows than one run between flushes (at N 8192, 7 rows at
+    Bg/2 512 and 8 at 128: ``kernels.schoolbook_flush_rows``), so the kernel
+    adds its int32 accumulators into the uint32 total and clears them
+    mid-launch, and again at the last row.  Extreme: digits all -Bg/2 against
+    keys all -1 (every key byte 255), each run's sums at their bound."""
+    N = 8192
+    assert rows > K.schoolbook_flush_rows(N, half)
+    if inputs == "random":
+        rng = np.random.default_rng(rows + half)
+        digits = _ri(rng, -half, half, (9, rows, N))
+        bk = _ri(rng, -2**31, 2**31, (rows, 2, N))
+    else:
+        digits = torch.full((9, rows, N), -half, dtype=torch.int32, device="cuda")
+        bk = torch.full((rows, 2, N), -1, dtype=torch.int32, device="cuda")
+    before = K.launches.get("schoolbook_product")
+    got = K.schoolbook_product(digits, bk, half)
+    assert K.launches.get("schoolbook_product") == before + 1
+    assert torch.equal(got, K.schoolbook_product_plain(digits, bk, half))
 
 
 def test_schoolbook_pbs_equals_the_ntt_pbs(key):
@@ -310,10 +356,45 @@ def test_schoolbook_wrapper_rejects_what_the_kernel_does_not_take(card):
     digits = torch.zeros((2, 6, 4096), dtype=torch.int32, device="cuda")
     bk = torch.zeros((6, 2, 4096), dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError, match="N in"):
-        K.schoolbook_product(digits[..., :2000].contiguous(), bk[..., :2000].contiguous())
+        K.schoolbook_product(digits[..., :2000].contiguous(), bk[..., :2000].contiguous(), 512)
     with pytest.raises(ValueError, match="dtype"):
-        K.schoolbook_product(digits.to(torch.int64), bk)
+        K.schoolbook_product(digits.to(torch.int64), bk, 512)
     with pytest.raises(ValueError, match="shape"):
-        K.schoolbook_product(digits, bk[:5].contiguous())
+        K.schoolbook_product(digits, bk[:5].contiguous(), 512)
     with pytest.raises(ValueError, match="contiguous"):
-        K.schoolbook_product(digits, bk.transpose(0, 1).contiguous().transpose(0, 1))
+        K.schoolbook_product(digits, bk.transpose(0, 1).contiguous().transpose(0, 1), 512)
+
+
+@pytest.mark.parametrize("half", [0, 513, 1024])
+def test_schoolbook_wrapper_rejects_bg_without_a_limb_plan(card, half):
+    digits = torch.zeros((2, 6, 4096), dtype=torch.int32, device="cuda")
+    bk = torch.zeros((6, 2, 4096), dtype=torch.int32, device="cuda")
+    before = K.launches.get("schoolbook_product")
+    with pytest.raises(ValueError, match="Bg/2"):
+        K.schoolbook_product(digits, bk, half)
+    assert K.launches.get("schoolbook_product") == before
+
+
+@pytest.mark.parametrize("n", [32, 64])
+# staged layouts: (K-direction stride between 16-byte core columns, stride
+# between 8-row groups) in bytes
+@pytest.mark.parametrize("kc,ng", [(128, 256), (1024, 128)])
+def test_wgmma_layouts_hold_on_the_card(card, n, kc, ng):
+    """The descriptor reading and register layouts S1's wgmma relies on
+    (``csrc/wgmma_check.cu``: one wgmma m64nNk32 u8.s8 against a host
+    product): LBO the K-direction stride between core columns and SBO the
+    stride between 8-row groups; the other reading must not match."""
+    lib = K.Library(os.path.join(os.path.dirname(K.SCHOOLBOOK_SOURCE), "wgmma_check.cu"),
+                    {"redsec_wgmma_check": [ctypes.c_int, *[ctypes.c_void_p] * 3,
+                                            *[ctypes.c_int] * 4, ctypes.c_void_p]})
+    rng = np.random.default_rng(n + kc)
+    A = torch.as_tensor(rng.integers(0, 256, (64, 32)).astype(np.uint8), device="cuda")
+    B = torch.as_tensor(rng.integers(-128, 128, (n, 32)).astype(np.int8), device="cuda")
+    want = A.cpu().numpy().astype(np.int64) @ B.cpu().numpy().astype(np.int64).T
+    matches = {}
+    for reading, (lbo, sbo) in (("lbo_k", (kc, ng)), ("lbo_mn", (ng, kc))):
+        got = torch.zeros((64, n), dtype=torch.int32, device="cuda")
+        lib.launch("redsec_wgmma_check", "wgmma_check", torch.device("cuda", 0), n,
+                   A.data_ptr(), B.data_ptr(), got.data_ptr(), kc, ng, lbo, sbo)
+        matches[reading] = bool(np.array_equal(got.cpu().numpy(), want))
+    assert matches == {"lbo_k": True, "lbo_mn": False}

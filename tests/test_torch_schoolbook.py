@@ -61,8 +61,8 @@ def _with_int8_wrap(product):
     digit -128 enters the wrapped (negated) half of [-d | d] as -128, not
     128.  The difference is c = -256 at those digits, in the products that
     wrap: delta[k] += sum_{j + s = k + N} c[j] bk[s]."""
-    def wrapped(digits, bk_round):
-        out = product(digits, bk_round).numpy().astype(np.int64)
+    def wrapped(digits, bk_round, half_bg):
+        out = product(digits, bk_round, half_bg).numpy().astype(np.int64)
         d, bk = digits.numpy(), bk_round.numpy().astype(np.int64)
         N = d.shape[-1]
         c = np.where(d == -128, -256, 0)
@@ -214,7 +214,7 @@ def test_schoolbook_twin_equals_int64_schoolbook_at_n4096():
     digits[0, 0, :4] = -512
     bk = rng.integers(-2**31, 2**31, size=(rows, 2, N), dtype=np.int64).astype(np.int32)
     bk[0, 0, :4] = [-2**31, 2**31 - 1, -2**31, -1]
-    got = kernels.schoolbook_product(torch.as_tensor(digits), torch.as_tensor(bk)).numpy()
+    got = kernels.schoolbook_product(torch.as_tensor(digits), torch.as_tensor(bk), 512).numpy()
     assert got.shape == (2, 2, N) and got.dtype == np.int32
     for b, u in ((0, 0), (1, 1)):
         want = sum(negacyclic_mul_host(digits[b, r], bk[r, u], N).astype(np.int64)
@@ -223,4 +223,4 @@ def test_schoolbook_twin_equals_int64_schoolbook_at_n4096():
                                       .astype(np.int32))
     with pytest.raises(ValueError, match="round wrongly"):  # digits past the exact range
         kernels.schoolbook_product_plain(torch.full((1, 8, 8192), 2**20, dtype=torch.int32),
-                                         torch.as_tensor(np.resize(bk, (8, 2, 8192))))
+                                         torch.as_tensor(np.resize(bk, (8, 2, 8192))), 2**21)
