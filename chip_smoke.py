@@ -354,6 +354,299 @@ def profile_forward(fwd, ct, card: str, tag: str) -> tuple:
 # --------------------------------------------------------------------------- #
 
 
+def free_port() -> int:
+    """A TCP port on localhost that no process holds (for the process
+    group's rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase12(c: dict) -> None:
+    """Phase 12: the calibration knobs through the CLI, the agreement
+    forecast, the "matmul" key flavour and the torch.distributed paths, at
+    ``c["P"]`` (small_v2_tpu on the card) on the device ``c["dev"]``.
+
+    ``c`` holds: the device, parameters, host keys (``sk``, ``cloud``) and
+    the radix-2 key prepared from them (``dkey``); the sign net's plan and
+    weights (``mplan``, ``weights``), its images, their raw pixels and the
+    oracle's predictions (``images``, ``raw``, ``preds``); the relu net's
+    raw pixels (``rraw``); ``run_cli``, a work directory, the card's line,
+    the batch and PBS chunk, and the ``by_path`` / ``slices`` records it adds
+    to.  Every path's launch counts are zeroed just before it and read just
+    after."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from redsec_tpu_torch.crypto import bootstrap as bs
+    from redsec_tpu_torch.crypto import kernels as K
+    from redsec_tpu_torch.device import launches
+    from redsec_tpu_torch.formats import keys as kio
+    from redsec_tpu_torch.formats.image_io import pixel_transform_for
+    from redsec_tpu_torch.models.spec import prep_model
+    from redsec_tpu_torch.models.zoo import get_model
+    from redsec_tpu_torch.parallel import mesh as pm
+    from redsec_tpu_torch.parallel import ntt_shard as pns
+    from redsec_tpu_torch.runtime import calibration, ptxt
+    from redsec_tpu_torch.runtime.encrypted import (
+        build_encrypted_forward, decrypt_scores, encrypt_images,
+    )
+    from redsec_tpu_torch.runtime.ranges import calibrate_ranges
+    from redsec_tpu_torch.scripts import predict_agreement
+    from redsec_tpu_torch.utils.metrics import StageTimer, model_stats, summarize
+
+    P, dev, sk, cloud, dkey = c["P"], c["dev"], c["sk"], c["cloud"], c["dkey"]
+    mplan, weights, images, raw, preds = (c["mplan"], c["weights"], c["images"], c["raw"],
+                                          c["preds"])
+    run_cli, card, batch, pbs_chunk = c["run_cli"], c["card"], c["batch"], c["pbs_chunk"]
+    by_path, slices = c["by_path"], c["slices"]
+    work = c["work"]
+    os.makedirs(work, exist_ok=True)
+    timer = StageTimer()
+    rec = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def k4_launches(sizes):
+        return sum(len(range(0, b, pbs_chunk)) for b in sizes if b)
+
+    # -- the calibration knobs through the CLI: relu1024x1, batch 8, calibrated
+    # on 16 other thinned synthetic images with --no-center, then with
+    # --gain-mode max; run-encrypted --calib applies what each file records
+    relu_name = "mnist/relu1024x1"
+    relu_w = os.path.join(HERE, "nets_trained", "mnist", "relu1024x1", "var_prep.dat")
+    kio.save_secret_key(os.path.join(work, "secret.key.npz"), sk)
+    kio.save_cloud_key(os.path.join(work, "eval.key.npz"), cloud)
+    crng = np.random.default_rng(12)
+    craw = crng.integers(0, 256, size=(16, 28, 28, 1)) * (crng.random((16, 28, 28, 1)) < 0.19)
+    ccsv, ecsv = os.path.join(work, "relu_calib.csv"), os.path.join(work, "relu_eval.csv")
+    rplan0 = prep_model(get_model(relu_name), relu_w)
+    rpreds = ptxt.predict(rplan0, pixel_transform_for(relu_name)(c["rraw"]), device=dev.type)
+    for path, rows, labels in ((ccsv, craw, [0] * 16), (ecsv, c["rraw"], rpreds)):
+        with open(path, "w") as f:
+            for label, img in zip(labels, rows):
+                f.write(f"{int(label)}," + ",".join(str(int(v)) for v in img.reshape(-1)) + "\n")
+    for tag, flags, env in (("no_center", ["--no-center"], {"REDSEC_CENTER": "0"}),
+                            ("gain_max", ["--gain-mode", "max"], {"REDSEC_GAIN_MODE": "max"})):
+        cal = os.path.join(work, f"relu_{tag}.npz")
+        run_cli("calibrate", "--model", relu_name, "--weights", relu_w, "--csv", ccsv,
+                "--rows", "0:16", "--params", P.name, "--input-gain", *flags, "--out", cal,
+                "--device", dev.type)
+        rplan = prep_model(get_model(relu_name), relu_w)
+        meta = calibration.load_calibration(cal, rplan)
+        opts = calibration.options_from_meta(meta)
+        if meta["env"] != {"REDSEC_INPUT_GAIN": "1", **env}:
+            fail(f"knobs/{tag}: the calibration records {meta['env']}")
+        lfwd = build_encrypted_forward(rplan, dkey, **opts)
+        info = lfwd.info
+        if tag == "no_center" and any(r.center is not None for r in info.values()):
+            fail(f"knobs/{tag}: --no-center resolved a relu or final-layer center")
+        run_cli("encrypt-image", "--secret", os.path.join(work, "secret.key.npz"), "--csv", ecsv,
+                "--rows", f"0:{batch}", "--model", relu_name, "--calib", cal,
+                "--out", os.path.join(work, "relu.ctxt.npz"))
+        launches.reset()
+        _, rrec = run_cli("run-encrypted", "--model", relu_name, "--weights", relu_w,
+                          "--eval", os.path.join(work, "eval.key.npz"),
+                          "--image", os.path.join(work, "relu.ctxt.npz"), "--calib", cal,
+                          "--out", os.path.join(work, "relu.out.npz"), "--device", dev.type)
+        sync()
+        rcounts = dict(launches.counts)
+        by_path[f"knobs/{tag}"] = (P.name, rcounts)
+        # the full-range relu dispatches its layer three times
+        mult = [3 if info[i].relu_mode == "full" else 1 for i in range(len(rplan.layers))]
+        sizes = [st.bootstraps * batch for st in model_stats(rplan)]
+        want = sum(k4_launches([b]) * m for b, m in zip(sizes, mult))
+        if dev.type == "cuda" and (rrec["k4_launches"], rcounts.get("blind_rotate")) != (want,
+                                                                                         want):
+            fail(f"knobs/{tag}: run-encrypted reports {rrec}, counters {rcounts}; expected "
+                 f"{want} K4 launches")
+        if rrec["pbs"] != sum(b * m for b, m in zip(sizes, mult)):
+            fail(f"knobs/{tag}: {rrec['pbs']} PBS reported for {sizes} x {mult}")
+        lct = kio.load_ciphertexts(os.path.join(work, "relu.ctxt.npz"))[0]
+        lout = lfwd(torch.as_tensor(lct.reshape(-1, 28, 28, 1, lct.shape[-1]), device=dev))
+        if not np.array_equal(lout.cpu().numpy(),
+                              kio.load_ciphertexts(os.path.join(work, "relu.out.npz"))[0]):
+            fail(f"knobs/{tag}: the score ciphertexts run-encrypted wrote differ from the "
+                 f"library path's under the same options")
+        rscores = decrypt_scores(sk, lout, P, lfwd.out_gain, lfwd.out_center)
+        ragree = float((rscores.argmax(axis=1) == rpreds).mean())
+        gains = {i: (r.in_gain, r.out_gain) for i, r in info.items()}
+        print(f"knobs/{tag}: calibrate {' '.join(flags)} recorded {meta['env']}; gains {gains}, "
+              f"relu modes { {i: r.relu_mode for i, r in info.items() if r.relu_mode} }; "
+              f"run-encrypted --calib {rrec['pbs']} PBS in {rrec['seconds']:.3f} s, "
+              f"{rrec['pbs_per_s']:.2f} PBS/s, launches {rcounts}, scores bit-identical to the "
+              f"library path's; argmax agreement with the plaintext oracle {ragree:.3f} "
+              f"(informational) on {card}", flush=True)
+        rec[f"knobs/{tag}"] = {**rrec, "env": meta["env"], "gains": gains,
+                               "argmax_agreement": ragree}
+    timer.mark("knobs")
+
+    # -- the agreement forecast beside a measured run of the same
+    # configuration: sign1024x1 calibrated on the slice's images, input gain
+    refdir = os.path.join(work, "reference")
+    os.makedirs(os.path.join(refdir, "nets", "mnist"))
+    with open(os.path.join(refdir, "nets", "mnist", "mnist_data.csv"), "w") as f:
+        for label, img in zip(preds, raw):
+            f.write(f"{int(label)}," + ",".join(str(int(v)) for v in img.reshape(-1)) + "\n")
+    launches.reset()
+    forecast = predict_agreement.main(["--model", "mnist/sign1024x1", "--varprep", weights,
+                                       "--reference", refdir, "--images", str(batch),
+                                       "--params", P.name, "--trials", "5", "--per-layer",
+                                       "--input-gain", "--device", dev.type])
+    if dict(launches.counts):
+        fail(f"predict_agreement launched kernels: {dict(launches.counts)}")
+    cplan = prep_model(get_model("mnist/sign1024x1"), weights)
+    calibrate_ranges(cplan, images, device=dev.type)
+    cfwd = build_encrypted_forward(cplan, dkey, input_gain=True)
+    cct = encrypt_images(sk, images, P, np.random.default_rng(13), gain=cfwd.in_gain)
+    launches.reset()
+    cout = cfwd(cct)
+    sync()
+    by_path["calibrated/sign1024x1"] = (P.name, dict(launches.counts))
+    cscores = decrypt_scores(sk, cout, P, cfwd.out_gain, cfwd.out_center)
+    measured = float((cscores.argmax(axis=1) == preds).mean())
+    print(f"predict_agreement sign1024x1 at {P.name}, {batch} images, input gain, 5 trials: "
+          f"forecast agreement {forecast['agreement_mean']:.4f} (min "
+          f"{forecast['agreement_min']:.4f}), per-layer flip rates "
+          f"{forecast['layer_flip_rates']}; measured on the card, same calibration: "
+          f"{measured:.4f} ({forecast['seconds']} s for the forecast)", flush=True)
+    rec["predict_agreement"] = {"forecast": forecast, "measured_agreement": measured}
+    del cfwd, cout
+    timer.mark("forecast")
+
+    # -- the "matmul" key flavour: prepared from the same raw key; one
+    # sign1024x1 image through it, bit-identical to K4's forward, then one
+    # 512-chunk of PBS timed beside K4's, the outputs bit-identical
+    launches.reset()
+    sync()
+    t0 = time.perf_counter()
+    mkey = bs.prepare_cloud_key(cloud, device=dev.type, ntt_flavor="matmul")
+    sync()
+    t_mprep = time.perf_counter() - t0
+    mfwd = build_encrypted_forward(mplan, mkey)
+    kfwd = build_encrypted_forward(mplan, dkey)
+    one = encrypt_images(sk, images[:1], P, np.random.default_rng(14), gain=mfwd.in_gain)
+    sync()
+    t0 = time.perf_counter()
+    mout = mfwd(one)
+    sync()
+    t_mfwd = time.perf_counter() - t0
+    mcounts = dict(launches.counts)
+    by_path["matmul/sign1024x1"] = (P.name, mcounts)
+    if mcounts:
+        fail(f"the 'matmul' key's path launched kernels: {mcounts}")
+    if not torch.equal(mout, kfwd(one)):
+        fail("matmul/sign1024x1: the 'matmul' key's forward differs from K4's")
+    try:  # a 'matmul' key never reaches K4
+        K.blind_rotate(torch.zeros((1, 2, P.N), dtype=torch.int32, device=dev),
+                       torch.zeros((1, P.n), dtype=torch.int32, device=dev), mkey.bk, P,
+                       mkey.plan)
+        fail("the blind-rotation kernel took a 'matmul' key")
+    except ValueError:
+        pass
+    crng = np.random.default_rng(15)
+    vals = crng.integers(-P.msg_space // 2, P.msg_space // 2, size=pbs_chunk)
+    from redsec_tpu_torch.crypto import lwe
+
+    ct512 = torch.as_tensor(lwe.encrypt_integers(sk.lwe_key, vals, P, crng), device=dev)
+    tv = bs.const_test_vector(P, 1, P.msg_space)
+    mpbs, kpbs = bs.make_batched_bootstrap(mkey), bs.make_batched_bootstrap(dkey)
+    times = {}
+    outs = {}
+    for name, fn in (("k4", kpbs), ("matmul", mpbs), ("matmul2", mpbs), ("k4_2", kpbs)):
+        sync()
+        t0 = time.perf_counter()
+        outs[name] = fn(ct512, tv)
+        sync()
+        times[name] = (time.perf_counter() - t0) * 1e3
+    if not all(torch.equal(outs["k4"], o) for o in outs.values()):
+        fail("matmul: the 'matmul' key's 512-chunk PBS differs from K4's")
+    k4_ms, mm_ms = min(times["k4"], times["k4_2"]), min(times["matmul"], times["matmul2"])
+    print(f"matmul/{P.name}: key prepared on the card in {t_mprep:.3f} s (four-step NTT, "
+          f"no kernel); one sign1024x1 image ({summarize(mplan)['total_bootstraps']} PBS) "
+          f"in {t_mfwd:.3f} s, bit-identical to K4's forward; a {pbs_chunk}-chunk PBS "
+          f"{mm_ms:.1f} ms against K4's {k4_ms:.3f} ms in the same process "
+          f"({mm_ms / k4_ms:.1f}x), outputs bit-identical (host clock around a "
+          f"synchronize: {times}) on {card}", flush=True)
+    rec["matmul"] = {"prepare_s": t_mprep, "forward_1_image_s": t_mfwd,
+                     "pbs_512_ms": mm_ms, "k4_512_ms": k4_ms, "ms": times}
+    del mfwd, mout
+    timer.mark("matmul")
+
+    # -- torch.distributed at world size 1 on this device's backend (NCCL on
+    # the card): dp and tp forwards of sign1024x1 at batch 8 and the
+    # poly-sharded PBS, each bit-identical to the single-device path
+    pm.init_distributed(f"tcp://localhost:{free_port()}", 1, 0, device=dev.type)
+    try:
+        backend = dist.get_backend()
+        mesh = pm.make_mesh(dev, tp=1)
+        # the first collective sets the communicator up: outside the timed spans
+        pm.all_reduce_int32(torch.zeros(1, dtype=torch.int32, device=dev), mesh.tp_group)
+        pm.all_reduce_int32(torch.zeros(1, dtype=torch.int32, device=dev))
+        bct = encrypt_images(sk, images, P, np.random.default_rng(16), gain=kfwd.in_gain)
+        sync()
+        t0 = time.perf_counter()
+        want = kfwd(bct)
+        sync()
+        t_single = time.perf_counter() - t0
+        per = summarize(mplan)["total_bootstraps"]
+        want_k4 = k4_launches([s.bootstraps * batch for s in model_stats(mplan)])
+        dist_rec = {"backend": backend, "world_size": dist.get_world_size(),
+                    "single_forward_s": t_single}
+        for tag, build in (("dp", pm.build_dp_encrypted_forward),
+                           ("tp", pm.build_tp_encrypted_forward)):
+            fwd = build(mplan, dkey, mesh)
+            launches.reset()
+            sync()
+            t0 = time.perf_counter()
+            got = pm.gather_ciphertext_batch(fwd(pm.shard_ciphertext_batch(bct, mesh)), mesh)
+            sync()
+            dt = time.perf_counter() - t0
+            counts = dict(launches.counts)
+            by_path[f"{tag}/sign1024x1"] = (P.name, counts)
+            if not torch.equal(got, want):
+                fail(f"{tag}/sign1024x1 ({backend}, world 1): differs from the single-device "
+                     f"forward")
+            if dev.type == "cuda" and counts.get("blind_rotate") != want_k4:
+                fail(f"{tag}/sign1024x1: {counts} launches, expected {want_k4} of K4")
+            print(f"{tag}/sign1024x1 ({backend}, world size 1): {batch} images x {per} PBS in "
+                  f"{dt:.3f} s ({batch * per / dt:.2f} PBS/s) against the single-device "
+                  f"forward's {t_single:.3f} s, bit-identical, launches {counts} on {card}",
+                  flush=True)
+            dist_rec[f"{tag}_forward_s"] = dt
+        launches.reset()
+        poly = pns.make_poly_sharded_bootstrap(mkey, mesh)
+        sync()
+        t0 = time.perf_counter()
+        pout = poly(ct512, tv)
+        sync()
+        t_poly = time.perf_counter() - t0
+        if not torch.equal(pout, outs["matmul"]):
+            fail(f"poly-sharded PBS ({backend}, world 1) differs from the single-device one")
+        if dict(launches.counts):
+            fail(f"the poly-sharded PBS launched kernels: {dict(launches.counts)}")
+        print(f"poly-sharded PBS ({backend}, world size 1, sp 1): {pbs_chunk} ciphertexts in "
+              f"{t_poly * 1e3:.1f} ms against the single-device 'matmul' PBS's {mm_ms:.1f} ms, "
+              f"bit-identical on {card}", flush=True)
+        dist_rec["poly_pbs_512_ms"] = t_poly * 1e3
+        rec["distributed"] = dist_rec
+    finally:
+        dist.destroy_process_group()
+    timer.mark("distributed")
+    rec["stages_s"] = dict(timer.stages)
+    slices["phase12"] = rec
+    print("phase 12 stages:\n" + timer.report(), flush=True)
+    shutil.rmtree(work)
+
+
+# --------------------------------------------------------------------------- #
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1650,6 +1943,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     slices["schoolbook_phase_s"] = time.perf_counter() - t_phase
     print(f"schoolbook phase: {slices['schoolbook_phase_s']:.1f} s", flush=True)
+
+    # ---- phase 12: the calibration knobs, the agreement forecast, the
+    # "matmul" key flavour and torch.distributed at world size 1 (NCCL)
+    t_phase = time.perf_counter()
+    phase12({"P": P, "dev": dev, "sk": sk, "cloud": cloud, "dkey": dkey, "mplan": mplan,
+             "weights": weights, "images": images, "raw": raw, "preds": preds,
+             "rraw": raw * ink, "run_cli": run_cli, "card": card, "batch": BATCH,
+             "pbs_chunk": pbs_chunk, "by_path": by_path, "slices": slices,
+             "work": os.path.join(HERE, "build", "smoke_phase12")})
+    slices["phase12_s"] = time.perf_counter() - t_phase
+    print(f"phase 12: {slices['phase12_s']:.1f} s", flush=True)
 
     # each kernel's launches on the paths of its parameter sets (the records
     # of one kernel's shapes share its counter; a bundled key's path is

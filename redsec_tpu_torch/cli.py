@@ -87,12 +87,15 @@ def cmd_calibrate(args):
     runtime/calibration.py records them for provenance.  The resulting
     .npz is public metadata: it is derived from plaintext weights and
     plaintext sample data only.  ``--input-gain``, ``--relu-mode``,
-    ``--majority-plan``, ``--escalate`` and ``--escalate-params`` are the JAX
-    package's ``REDSEC_INPUT_GAIN``, ``REDSEC_RELU_MODE``,
-    ``REDSEC_MAJORITY_PLAN``, ``REDSEC_ESCALATE`` and
-    ``REDSEC_ESCALATE_PARAMS``, recorded in the artifact under those names
-    (a per-layer plan states any vote count a global ``REDSEC_MAJORITY`` from
-    a layer on would)."""
+    ``--majority-plan``, ``--escalate``, ``--escalate-params``,
+    ``--no-center``, ``--no-tiebreak``, ``--gain-mode``, ``--cascade-w`` and
+    ``--max-flip`` are the JAX package's ``REDSEC_INPUT_GAIN``,
+    ``REDSEC_RELU_MODE``, ``REDSEC_MAJORITY_PLAN``, ``REDSEC_ESCALATE``,
+    ``REDSEC_ESCALATE_PARAMS``, ``REDSEC_CENTER=0``, ``REDSEC_TIEBREAK=0``,
+    ``REDSEC_GAIN_MODE``, ``REDSEC_CASCADE_W`` and ``REDSEC_MAX_FLIP``,
+    recorded in the artifact under those names (a per-layer plan states any
+    vote count a global ``REDSEC_MAJORITY`` from a layer on would);
+    ``run-encrypted --calib`` applies what the file records."""
     from .crypto.params import get_params
     from .formats import image_io
     from .models.spec import prep_model
@@ -111,6 +114,7 @@ def cmd_calibrate(args):
     from .runtime.calibration import ESCALATE_PARAMS
     from .runtime.encrypted import majority_ks
 
+    knobs = knobs_from_args(args)
     esc = None
     if args.escalate:
         esc = ({int(v) for v in args.escalate.split(",") if v.strip()},
@@ -119,11 +123,11 @@ def cmd_calibrate(args):
                        input_gain=args.input_gain,
                        sigma_units=params.mod_switch_sigma_units(), relu_mode=args.relu_mode,
                        majority_ks=majority_ks(plan, majority_plan=args.majority_plan),
-                       escalate=esc)
+                       escalate=esc, **knobs)
     meta = save_calibration(args.out, plan, args.params, calib_rows=f"{args.csv}[{args.rows}]",
                             input_gain=args.input_gain, relu_mode=args.relu_mode,
                             majority_plan=args.majority_plan, escalate=args.escalate,
-                            escalate_params=args.escalate_params)
+                            escalate_params=args.escalate_params, **knobs)
     print(f"calibration ({len(rows)} rows) -> {args.out}")
     print(json.dumps({k: meta[k] for k in
                       ("model", "params", "weights_sha", "in_gain", "gains",
@@ -290,6 +294,32 @@ def cmd_compile(args):
     print(json.dumps(out, indent=2, default=str))
 
 
+def add_knob_args(p: argparse.ArgumentParser) -> None:
+    """The calibration knobs of ``resolve_pbs_ranges`` as flags, in place of
+    the JAX package's environment variables."""
+    from .runtime.ranges import CASCADE_W, GAIN_MODES, MAX_FLIP
+
+    p.add_argument("--no-center", action="store_true",
+                   help="no relu or final-layer centering (REDSEC_CENTER=0)")
+    p.add_argument("--no-tiebreak", action="store_true",
+                   help="no parity tie-break on sign layers (REDSEC_TIEBREAK=0)")
+    p.add_argument("--gain-mode", choices=GAIN_MODES, default="flip",
+                   help="flip-optimal gains (default) or the max-bound power-of-two "
+                        "rule (REDSEC_GAIN_MODE)")
+    p.add_argument("--cascade-w", type=float, default=CASCADE_W,
+                   help=f"weight of the modeled upstream-flip cascade (REDSEC_CASCADE_W; "
+                        f"default {CASCADE_W})")
+    p.add_argument("--max-flip", type=float, default=MAX_FLIP,
+                   help=f"largest predicted local flip rate the guard accepts "
+                        f"(REDSEC_MAX_FLIP; default {MAX_FLIP})")
+
+
+def knobs_from_args(args) -> dict:
+    """``resolve_pbs_ranges``'s knob arguments from ``add_knob_args``' flags."""
+    return dict(center=not args.no_center, tiebreak=not args.no_tiebreak,
+                gain_mode=args.gain_mode, cascade_w=args.cascade_w, max_flip=args.max_flip)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="redsec_tpu_torch", description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -360,6 +390,7 @@ def main(argv=None):
     p.add_argument("--escalate-params",
                    help="parameter set of the escalation key (REDSEC_ESCALATE_PARAMS; "
                         "default small_v2_n2048)")
+    add_knob_args(p)
     device_arg(p)
     p.set_defaults(fn=cmd_calibrate)
 

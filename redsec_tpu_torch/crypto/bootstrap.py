@@ -24,8 +24,13 @@ Bg/2 = 128 (``medium_v2``, ``large_v2``), where the two differ.
 All arithmetic is exact, so the output is bit-identical to the JAX package's
 ``make_batched_bootstrap`` for the same key and ciphertexts, whatever the
 NTT-domain order.  The port prepares its BK in the radix-2 bit-reversed order
-of ``ntt.ntt_device`` (flavour ``"radix2"``); the kernels use the same
-butterflies.
+of ``ntt.ntt_device`` (flavour ``"radix2"``) unless the caller asks for the
+four-step order of ``ntt_matmul`` (flavour ``"matmul"``, the JAX package's
+``REDSEC_NTT=matmul``, the layout its Pallas blind-rotation kernel and
+``parallel/ntt_shard.py`` take).  The kernels use the radix-2 butterflies; a
+"matmul" key runs the JAX package's XLA loop in torch instead (n rounds of
+rotate, decompose, four-step transforms per prime, the exact MAC, inverse,
+CRT) and never reaches the blind-rotation kernel.
 
 A numpy oracle of the whole pipeline (``bootstrap_host``) is kept for tests.
 """
@@ -41,6 +46,7 @@ import torch
 from ..device import int32_matmul, resolve_device
 from . import kernels
 from . import ntt as ntt_mod
+from . import ntt_matmul
 from .keygen import CloudKey, _crt_host
 from .params import TfheParams
 from .torus import mod_switch_to_torus32
@@ -66,8 +72,10 @@ class DeviceCloudKey:
     flavour ``"schoolbook"``): ``bk`` int32 [n, rows, 2, N], the raw
     coefficient-domain BK that the schoolbook kernel reads a round at a time
     (exact as it is; the JAX package keeps reversed-tap int8 limbs of it for
-    its int8 convolution).  ``ksk``: int32 [N*t, n+1] multiply-form
-    key-switching key."""
+    its int8 convolution).  Flavour ``"matmul"``: the same residues in the
+    four-step [k1, k2] order of ``ntt_matmul``, held as int16
+    [P, n', R, 2*limbs, R4, C4] (N = R4 * C4): a shape the radix-2 kernels
+    refuse.  ``ksk``: int32 [N*t, n+1] multiply-form key-switching key."""
 
     params: TfheParams
     plan: Optional[ntt_mod.NttPlan]
@@ -132,8 +140,11 @@ def _rerand(cloud: CloudKey, dev: torch.device) -> Optional[torch.Tensor]:
         cloud.rerand.astype(np.int32), device=dev)
 
 
+NTT_FLAVORS = ("radix2", "matmul")
+
+
 def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
-                      schoolbook: bool = False) -> DeviceCloudKey:
+                      schoolbook: bool = False, ntt_flavor: str = "radix2") -> DeviceCloudKey:
     """Upload the raw CloudKey and transform the BK into the CRT-NTT domain
     on the device (through the ``ntt`` kernel on CUDA), ``chunk`` key bits at
     a time to bound the working set.
@@ -145,17 +156,30 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
     ``chunk`` key bits at a time, flavour ``"schoolbook"``.  As in the JAX
     package, a schoolbook key ignores ``bk_pair`` (it runs unbundled).  On
     CUDA an NTT combination the kernels are not built for
-    (``kernels.supported``) raises: nothing falls back."""
+    (``kernels.supported``) raises: nothing falls back.
+
+    ``ntt_flavor="matmul"`` (the JAX package's ``REDSEC_NTT=matmul``)
+    transforms the limbs with the four-step ``ntt_matmul`` pair on the device
+    instead of the NTT kernel, and the key's PBS runs the torch loop of that
+    flavour; N must be one ``ntt_matmul.supported`` takes."""
+    if ntt_flavor not in NTT_FLAVORS:
+        raise ValueError(f"ntt_flavor must be one of {NTT_FLAVORS}, got {ntt_flavor!r}")
     dev = resolve_device(device)
     p = cloud.params
     bundled = cloud.bk_pair is not None
     plan = bootstrap_plan(p, bundled, schoolbook)
     ksk = _upload(cloud.ksk.reshape(-1, p.n + 1), dev, 4096)
     if plan is None:
+        if ntt_flavor != "radix2":
+            raise ValueError(f"{p.name}: a schoolbook key (no NTT plan) has no "
+                             f"{ntt_flavor!r} flavour")
         return DeviceCloudKey(params=p, plan=None, bk=_upload(cloud.bk, dev, chunk), ksk=ksk,
                               rerand=_rerand(cloud, dev), ntt_flavor="schoolbook")
     bundle = 2 if bundled else 1
-    if dev.type == "cuda" and not kernels.supported(p, plan, bundle):
+    matmul = ntt_flavor == "matmul"
+    if matmul and not ntt_matmul.supported(p.N):
+        raise ValueError(f"{p.name}: the four-step NTT does not take N={p.N}")
+    if dev.type == "cuda" and not matmul and not kernels.supported(p, plan, bundle):
         raise ValueError(
             f"{p.name}: primes {plan.primes} at N={p.N}, bundle {bundle}, are outside "
             "what the CUDA kernels take (2 or 3 primes < 2^16, N in 256..2048, "
@@ -176,12 +200,15 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
         limbs = torch.stack(int8_limbs(bk), dim=3)  # [c, R, 2, limbs, N]
         for pi, prime in enumerate(plan.primes):
             lmod = (limbs + prime * (limbs < 0).to(torch.int32)).reshape(-1, N)
-            res = kernels.ntt(lmod.contiguous(), plan, pi)
+            res = (ntt_matmul.ntt_device_mm(lmod, plan, pi) if matmul
+                   else kernels.ntt(lmod.contiguous(), plan, pi))
             # residues up to 2^16 - 1 keep their 16-bit pattern
             parts[pi].append(res.to(torch.int16).reshape(bk.shape[0], R, 2 * BK_LIMBS, N))
     bk_ntt = torch.stack([torch.cat(ps, dim=0) for ps in parts]).contiguous()
+    if matmul:
+        bk_ntt = bk_ntt.unflatten(-1, ntt_matmul._split_rc(N))
     return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk=ksk, rerand=_rerand(cloud, dev),
-                          bundle=bundle)
+                          bundle=bundle, ntt_flavor=ntt_flavor)
 
 
 def const_test_vector(params: TfheParams, value: int, msize: int) -> np.ndarray:
@@ -296,13 +323,29 @@ def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
     return tv.reshape(-1, N).expand(B, N)
 
 
-def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan]):
+def blind_rotate_matmul(acc: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
+                        params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """The blind rotation of a "matmul" key: the JAX package's XLA loop on
+    its matmul branch, in torch on the key's device.  Each of the n rounds
+    (n/2 bundled) rotates and decomposes, transforms the digits per prime
+    with ``ntt_matmul.ntt_device_mm``, runs the exact lazy MAC against the
+    round's four-step BK slice, and transforms back and recombines
+    (``kernels.external_product_plain`` with the four-step pair).  Plain
+    torch: the JAX package computes it outside any Pallas kernel."""
+    return kernels.blind_rotate_plain(acc, abar, bk.flatten(-2), params, plan,
+                                      (ntt_matmul.ntt_device_mm, ntt_matmul.intt_device_mm))
+
+
+def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
+                        ntt_flavor: str = "radix2"):
     """``impl(dkey, ct [B, n+1], testvect [N]|[B, N]) -> [B, n+1]``.  With an
     NTT plan the blind rotation is ``kernels.blind_rotate`` (the CUDA kernel
     on a CUDA tensor, its plain twin on a CPU tensor), plain or bundled as the
-    key is.  Without one (``plan`` None) it is the JAX package's schoolbook
-    body: n rounds of rotate, difference and decompose around
-    ``kernels.schoolbook_product`` on the raw BK's round slice."""
+    key is, or ``blind_rotate_matmul`` for ``ntt_flavor="matmul"``.  Without
+    one (``plan`` None) it is the JAX package's schoolbook body: n rounds of
+    rotate, difference and decompose around ``kernels.schoolbook_product`` on
+    the raw BK's round slice.  The impl checks every key it is given against
+    ``ntt_flavor``."""
     N, n = p.N, p.n
     ops = RoundOps(p)
 
@@ -313,7 +356,10 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan]):
             acc = acc + kernels.schoolbook_product(digits, bk[i], ops.p.half_bg)
         return acc
 
+    want = "schoolbook" if plan is None else ntt_flavor
+
     def impl(dkey: DeviceCloudKey, ct: torch.Tensor, testvect) -> torch.Tensor:
+        _check_key(dkey, want)
         abar = ops.mod_switch(ct[:, :n]).contiguous()
         bbar = ops.mod_switch(ct[:, n])
         tv = _test_vectors(testvect, ct.shape[0], N, ct.device)
@@ -321,6 +367,8 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan]):
         acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1).contiguous()
         if plan is None:
             acc = blind_rotate_schoolbook(acc, abar, dkey.bk)
+        elif ntt_flavor == "matmul":
+            acc = blind_rotate_matmul(acc, abar, dkey.bk, p, plan)
         else:
             acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
         a_n, b_n = ops.sample_extract(acc)
@@ -329,16 +377,24 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan]):
     return impl
 
 
-def _check_key(dkey: DeviceCloudKey) -> None:
-    """The key's flavour must be the one its plan asks for ("radix2" with an
-    NTT plan, "schoolbook" without), and a schoolbook key runs unbundled, as
-    the JAX package requires (``make_bootstrap_impl``, bundle=2 without a
-    plan raises there)."""
-    want = "radix2" if dkey.plan is not None else "schoolbook"
-    if dkey.ntt_flavor != want:
+def _check_key(dkey: DeviceCloudKey, need: Optional[str] = None) -> None:
+    """The key's flavour must be one its plan allows ("radix2" or "matmul"
+    with an NTT plan, "schoolbook" without), its BK must have that flavour's
+    shape, and ``need`` (when given) must be its flavour: a key in one
+    NTT-domain order is garbage to code written for another.  A schoolbook
+    key runs unbundled, as the JAX package requires (``make_bootstrap_impl``,
+    bundle=2 without a plan raises there)."""
+    allowed = NTT_FLAVORS if dkey.plan is not None else ("schoolbook",)
+    if dkey.ntt_flavor not in allowed:
         raise ValueError(
-            f"device key has NTT flavour {dkey.ntt_flavor!r}, but its plan needs {want!r}; "
-            "the port's kernels and twins take 'radix2' NTT keys and 'schoolbook' raw keys")
+            f"device key has NTT flavour {dkey.ntt_flavor!r}, but its plan allows {allowed}")
+    if need is not None and dkey.ntt_flavor != need:
+        raise ValueError(f"device key has NTT flavour {dkey.ntt_flavor!r}, but this path "
+                         f"needs {need!r}; prepare the key with ntt_flavor={need!r}")
+    ndim = {"radix2": 5, "matmul": 6, "schoolbook": 4}[dkey.ntt_flavor]
+    if dkey.bk.ndim != ndim:
+        raise ValueError(f"a {dkey.ntt_flavor!r}-flavour key's BK has {ndim} dimensions, this one "
+                         f"{tuple(dkey.bk.shape)}")
     if dkey.plan is None and dkey.bundle != 1:
         raise ValueError("bundle=2 requires an NTT plan (the schoolbook path for the "
                          "medium/large parameter sets runs unbundled)")
@@ -348,7 +404,7 @@ def make_batched_bootstrap(dkey: DeviceCloudKey):
     """Batched PBS bound to a device key: ``(ct [B, n+1], testvect [N]|[B, N])
     -> [B, n+1]`` int32 on the key's device."""
     _check_key(dkey)
-    impl = make_bootstrap_impl(dkey.params, dkey.plan)
+    impl = make_bootstrap_impl(dkey.params, dkey.plan, dkey.ntt_flavor)
 
     def bootstrap(ct, testvect):
         ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
@@ -362,7 +418,7 @@ def make_chunked_bootstrap(dkey: DeviceCloudKey, chunk: int = 512):
     ``chunk``-sized slices (bounds the working set of the plain path and of
     the leveled glue around the kernel)."""
     _check_key(dkey)
-    impl = make_bootstrap_impl(dkey.params, dkey.plan)
+    impl = make_bootstrap_impl(dkey.params, dkey.plan, dkey.ntt_flavor)
     N = dkey.params.N
 
     def run(ct, testvect):

@@ -267,40 +267,58 @@ def ntt(x: torch.Tensor, plan: ntt_mod.NttPlan, pi: int,
     return y
 
 
+# The radix-2 transform pair of the kernels' twins (bit-reversed NTT domain).
+RADIX2 = (ntt_mod.ntt_device, ntt_mod.intt_device)
+
+
 # --------------------------------------------------------------------------- #
 # K2: one round's external product                                            #
 # --------------------------------------------------------------------------- #
 
 
 def external_product_plain(digits: torch.Tensor, bk_round: torch.Tensor,
-                           plan: ntt_mod.NttPlan) -> torch.Tensor:
+                           plan: ntt_mod.NttPlan, fwd=ntt_mod.ntt_device,
+                           inv=ntt_mod.intt_device) -> torch.Tensor:
     """digits int32 [M, R, N] (signed gadget digits) x BK round slice int16
     [P, R, 2*limbs, N] (NTT domain) -> torus delta int32 [M, 2, N]: forward
     NTT per prime, lazy MAC over the R rows, inverse NTT, CRT, and the
     recombination of the 4 BK limbs.  R is the round's digit rows, or three
     times that for a bundled round (one contraction over its three
-    differences)."""
+    differences).  ``fwd``/``inv``: the transform pair the BK was prepared
+    with (radix-2 for the kernels; the four-step ``ntt_matmul`` pair for a
+    "matmul" key)."""
     M, rows, N = digits.shape
-    limbs = bs.BK_LIMBS
     conv = []
     for pi, p in enumerate(plan.primes):
-        dn = ntt_mod.ntt_device(digits + p * (digits < 0).to(torch.int32), plan, pi)
-        bki = residues(bk_round[pi])  # [R, 8, N]
-        # lazy int32 MAC: `group` products of residues stay below 2^31 (one
-        # at 40961, whose square is 1.68e9)
-        group = max(1, (2**31 - 1) // ((p - 1) ** 2))
-        total, part = None, None
-        for j in range(rows):
-            prod = dn[:, j, None, :] * bki[j][None]
-            part = prod if part is None else part + prod
-            if (j + 1) % group == 0 or j == rows - 1:
-                total = part % p if total is None else total + part % p
-                part = None
-        s = total % p
-        conv.append(ntt_mod.intt_device(s, plan, pi).reshape(M, 2, limbs, N))
+        dn = fwd(digits + p * (digits < 0).to(torch.int32), plan, pi)
+        s = mac_rows(dn, residues(bk_round[pi]), p)  # [M, 8, N]
+        conv.append(inv(s, plan, pi).reshape(M, 2, bs.BK_LIMBS, N))
+    return recombine_limbs(conv, plan)
+
+
+def mac_rows(dn: torch.Tensor, bki: torch.Tensor, p: int) -> torch.Tensor:
+    """sum_j dn[:, j] * bki[j] mod p for NTT-domain digits int32 [M, R, L]
+    and BK residues int32 [R, 8, L] -> [M, 8, L]: the lazy int32 MAC, where
+    ``group`` products of residues stay below 2^31 (one at 40961, whose
+    square is 1.68e9)."""
+    group = max(1, (2**31 - 1) // ((p - 1) ** 2))
+    rows = dn.shape[1]
+    total, part = None, None
+    for j in range(rows):
+        prod = dn[:, j, None, :] * bki[j][None]
+        part = prod if part is None else part + prod
+        if (j + 1) % group == 0 or j == rows - 1:
+            total = part % p if total is None else total + part % p
+            part = None
+    return total % p
+
+
+def recombine_limbs(conv, plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """Per-prime residues [M, 2, limbs, ...] -> torus int32 [M, 2, ...]: CRT
+    of each BK limb's products, shifted by its 8 bits, summed mod 2^32."""
     out = None
-    for limb in range(limbs):
-        v = ntt_mod.crt_to_torus32([c[:, :, limb, :] for c in conv], plan)
+    for limb in range(bs.BK_LIMBS):
+        v = ntt_mod.crt_to_torus32([c[:, :, limb] for c in conv], plan)
         v = v * (1 << (bs.BK_LIMB_BITS * limb))
         out = v if out is None else out + v
     return out
@@ -330,17 +348,18 @@ def external_product(digits: torch.Tensor, bk_round: torch.Tensor,
 
 
 def cmux_round_plain(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
-                     params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
+                     params: TfheParams, plan: ntt_mod.NttPlan,
+                     transforms=RADIX2) -> torch.Tensor:
     """acc int32 [M, 2, N], exponents t int32 [M] in [0, 2N), BK round slice
     int16 [P, rows, 8, N] -> acc + ExtProd(Decompose(X^t acc - acc), BK)."""
     ops = bs.RoundOps(params)
     digits = ops.decompose(ops.rotate(acc, t) - acc)
-    return acc + external_product_plain(digits, bk_round, plan)
+    return acc + external_product_plain(digits, bk_round, plan, *transforms)
 
 
 def bundled_round_plain(acc: torch.Tensor, ti: torch.Tensor, tj: torch.Tensor,
                         bk_round: torch.Tensor, params: TfheParams,
-                        plan: ntt_mod.NttPlan) -> torch.Tensor:
+                        plan: ntt_mod.NttPlan, transforms=RADIX2) -> torch.Tensor:
     """One 2-bit bundled CMUX round (the JAX package's ``bundle == 2`` body):
     u = X^ti acc - acc, v = X^tj acc - acc, w = X^tj u - u; the digits of
     [u, v, w] stacked so that row = which * rows + bloc * l + level, against
@@ -353,7 +372,7 @@ def bundled_round_plain(acc: torch.Tensor, ti: torch.Tensor, tj: torch.Tensor,
     w = ops.rotate(u, tj) - u
     digits = ops.decompose(torch.stack([u, v, w], dim=1).reshape(3 * M, 2, N))
     return acc + external_product_plain(digits.reshape(M, 3 * params.decomp_rows, N),
-                                        bk_round, plan)
+                                        bk_round, plan, *transforms)
 
 
 def _gadget_args(params: TfheParams):
@@ -386,7 +405,13 @@ def cmux_round(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
 
 def key_bundle(bk: torch.Tensor, params: TfheParams) -> int:
     """1 for a BK of n rounds [P, n, rows, 8, N], 2 for a bundled one of n/2
-    rounds [P, n/2, 3 * rows, 8, N]."""
+    rounds [P, n/2, 3 * rows, 8, N].  Raises on anything else, a four-step
+    ("matmul") BK [P, n, rows, 8, R, C] included: the kernels and their twins
+    take radix-2 keys only."""
+    if bk.ndim != 5:
+        raise ValueError(f"BK of shape {tuple(bk.shape)} is not a radix-2 NTT key "
+                         "[P, rounds, rows, 8, N] (a 'matmul' key is [P, n, rows, 8, R, C]): "
+                         "the blind-rotation kernel and its twin take radix-2 keys only")
     if bk.shape[1] == params.n and bk.shape[2] == params.decomp_rows:
         return 1
     if 2 * bk.shape[1] == params.n and bk.shape[2] == 3 * params.decomp_rows:
@@ -396,18 +421,22 @@ def key_bundle(bk: torch.Tensor, params: TfheParams) -> int:
 
 
 def blind_rotate_plain(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
-                       params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
+                       params: TfheParams, plan: ntt_mod.NttPlan,
+                       transforms=RADIX2) -> torch.Tensor:
     """acc0 int32 [B, 2, N], abar int32 [B, n] in [0, 2N), prepared BK int16
     [P, n, rows, 8, N] -> accumulator after all n CMUX rounds; a bundled BK
-    [P, n/2, 3 * rows, 8, N] runs n/2 bundled rounds on exponent pairs."""
+    [P, n/2, 3 * rows, 8, N] runs n/2 bundled rounds on exponent pairs.
+    ``transforms``: the (forward, inverse) NTT pair the BK was prepared with
+    (the loop of a "matmul" key passes the four-step pair and its BK viewed
+    as [..., N])."""
     acc = acc0
     if key_bundle(bk, params) == 2:
         for i in range(params.n // 2):
             acc = bundled_round_plain(acc, abar[:, 2 * i], abar[:, 2 * i + 1], bk[:, i],
-                                      params, plan)
+                                      params, plan, transforms)
         return acc
     for i in range(params.n):
-        acc = cmux_round_plain(acc, abar[:, i], bk[:, i], params, plan)
+        acc = cmux_round_plain(acc, abar[:, i], bk[:, i], params, plan, transforms)
     return acc
 
 

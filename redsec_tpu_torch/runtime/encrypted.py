@@ -11,9 +11,12 @@ bias-only layers with conv/fc, sumpool and maxpool, the whole model in one
 eager pass, majority-voted sign boundaries and per-layer escalation to a
 second key.  Where the JAX package reads ``REDSEC_INPUT_GAIN``,
 ``REDSEC_RELU_MODE``, ``REDSEC_MAJORITY``, ``REDSEC_MAJORITY_FROM``,
-``REDSEC_MAJORITY_PLAN`` and ``REDSEC_ESCALATE`` from the environment, the
-builders here take ``input_gain``, ``relu_mode``, ``majority``,
-``majority_from``, ``majority_plan`` and ``escalate``.
+``REDSEC_MAJORITY_PLAN``, ``REDSEC_ESCALATE`` and the calibration knobs
+(``REDSEC_CENTER``, ``REDSEC_TIEBREAK``, ``REDSEC_GAIN_MODE``,
+``REDSEC_CASCADE_W``, ``REDSEC_MAX_FLIP``) from the environment, the functions
+here take ``input_gain``, ``relu_mode``, ``majority``, ``majority_from``,
+``majority_plan``, ``escalate`` and ``center``, ``tiebreak``, ``gain_mode``,
+``cascade_w``, ``max_flip``.
 """
 
 from __future__ import annotations
@@ -28,21 +31,24 @@ from ..crypto.bootstrap import DeviceCloudKey, make_chunked_bootstrap
 from ..models.spec import Activation, ModelPlan
 from ..ops import encrypted as eops
 from ..utils.metrics import model_stats
-from .ranges import resolve_pbs_ranges
+from .ranges import CASCADE_W, MAX_FLIP, resolve_pbs_ranges
 
 
 def _resolve_info(model: ModelPlan, params, range_check: bool = True,
                   input_gain: bool = False, relu_mode: Optional[str] = None,
-                  majority_ks: Optional[Dict[int, int]] = None, escalate=None):
+                  majority_ks: Optional[Dict[int, int]] = None, escalate=None,
+                  **knobs):
     """Per-layer PbsRange info: relu implementation ("quarter" 1-PBS |
     "full" 3-PBS FDFB), per-edge encoding gains, per-channel relu centering,
     and the loud range guard (runtime/ranges.py), which judges a voted or
-    escalated boundary as it will run."""
+    escalated boundary as it will run.  ``knobs``: the calibration knobs of
+    ``resolve_pbs_ranges`` (``center``, ``tiebreak``, ``gain_mode``,
+    ``cascade_w``, ``max_flip``)."""
     return resolve_pbs_ranges(model, params.msg_space, strict=range_check,
                               input_gain=input_gain,
                               sigma_units=params.mod_switch_sigma_units(),
                               relu_mode=relu_mode, majority_ks=majority_ks,
-                              escalate=escalate)
+                              escalate=escalate, **knobs)
 
 
 def parse_majority_plan(plan: Optional[str]) -> Dict[int, int]:
@@ -235,7 +241,9 @@ def build_encrypted_forward(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: i
                             range_check: bool = True, input_gain: bool = False,
                             relu_mode: Optional[str] = None, majority: int = 1,
                             majority_from: int = 0, majority_plan: Optional[str] = None,
-                            escalate=None) -> Callable:
+                            escalate=None, center: bool = True, tiebreak: bool = True,
+                            gain_mode: str = "flip", cascade_w: float = CASCADE_W,
+                            max_flip: float = MAX_FLIP) -> Callable:
     """Encrypted forward bound to a device key:
     int32 [B, H, W, C, n+1] -> [B, classes, n+1], on the key's device.
 
@@ -265,14 +273,21 @@ def build_encrypted_forward(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: i
     ``--eval2``; default second set ``small_v2_n2048``: the same n and
     message space at N = 2048, half the mod-switch sigma).  The range guard
     judges a voted boundary at its binomial tail and an escalated one at the
-    second key's sigma.  The JAX package's per-program bootstrap ceiling
+    second key's sigma.  ``center``, ``tiebreak``, ``gain_mode``,
+    ``cascade_w`` and ``max_flip``: the calibration knobs of
+    ``resolve_pbs_ranges`` (the JAX package's ``REDSEC_CENTER``,
+    ``REDSEC_TIEBREAK``, ``REDSEC_GAIN_MODE``, ``REDSEC_CASCADE_W``,
+    ``REDSEC_MAX_FLIP``).  The JAX package's per-program bootstrap ceiling
     (``REDSEC_MAX_PROGRAM_BOOTS``) and its escalated macro cap guard a TPU
     remote-compile backend and have no counterpart: a CUDA launch has no
     such ceiling."""
     ks = majority_ks(model, majority, majority_from, majority_plan)
     esc = None if escalate is None else (set(escalate[0]), escalate[1].params)
-    info = _resolve_info(model, dkey.params, range_check, input_gain, relu_mode, ks, esc)
+    info = _resolve_info(model, dkey.params, range_check, input_gain, relu_mode, ks, esc,
+                         center=center, tiebreak=tiebreak, gain_mode=gain_mode,
+                         cascade_w=cascade_w, max_flip=max_flip)
     forward = build_forward_impl(model, dkey, pbs_chunk, info, ks, escalate)
+    forward.info = info
     forward.mode = jax_forward_mode(model, escalated=escalate is not None)
     forward.pbs_per_image = _pbs_per_image(model, info, ks)
     return forward

@@ -18,9 +18,11 @@ per layer and fails loudly when no implementation is valid.
 
 A copy of the JAX package's module: numpy only, except that
 ``calibrate_ranges`` runs the torch plaintext oracle.  Where the JAX package
-reads ``REDSEC_*`` environment variables, the port takes an argument
-(``relu_mode``, ``majority_ks``, ``escalate``) or keeps the default as a
-constant.
+reads ``REDSEC_*`` environment variables, the port takes an argument:
+``center`` (``REDSEC_CENTER``), ``tiebreak`` (``REDSEC_TIEBREAK``),
+``gain_mode`` (``REDSEC_GAIN_MODE``), ``cascade_w`` (``REDSEC_CASCADE_W``),
+``max_flip`` (``REDSEC_MAX_FLIP``), ``relu_mode``, ``majority_ks`` and
+``escalate``.
 """
 
 from __future__ import annotations
@@ -35,14 +37,16 @@ import torch
 from ..device import resolve_device
 from ..models.spec import Activation, LayerPlan, ModelPlan
 
-# Weight of the modeled upstream-flip cascade in flip-optimal gain
+# Default weight of the modeled upstream-flip cascade in flip-optimal gain
 # selection: the independent-flip Poisson model overestimates measured
 # cascade at depth ~2-4x (flips are spatially correlated and partially
 # cancel); 0 would be the pure local optimum.  The JAX package's default,
 # from its simulator sweep (scripts/predict_agreement.py).
 CASCADE_W = 0.25
-# Largest predicted local per-activation flip rate the strict guard accepts.
+# Default largest predicted local per-activation flip rate the strict guard
+# accepts.
 MAX_FLIP = 0.05
+GAIN_MODES = ("flip", "max")
 
 
 @dataclasses.dataclass
@@ -322,6 +326,8 @@ def resolve_pbs_ranges(
     input_gain: bool = False, sigma_units: Optional[float] = None,
     relu_mode: Optional[str] = None, majority_ks: Optional[Dict[int, int]] = None,
     escalate: Optional[Tuple[Set[int], object]] = None,
+    center: bool = True, tiebreak: bool = True, gain_mode: str = "flip",
+    cascade_w: float = CASCADE_W, max_flip: float = MAX_FLIP,
 ) -> Dict[int, PbsRange]:
     """Pick the relu implementation, per-edge encoding gains, and guard
     every PBS boundary.
@@ -351,9 +357,20 @@ def resolve_pbs_ranges(
     ({layer: k}, the JAX package's ``REDSEC_MAJORITY*``) suppresses a voted
     boundary's rate to its binomial tail, and ``escalate`` = (layers,
     TfheParams of the second key; ``REDSEC_ESCALATE``) judges those layers at
-    the second key's mod-switch sigma."""
+    the second key's mod-switch sigma.
+
+    The calibration knobs, each the JAX package's environment variable of the
+    same name: ``center`` False (``REDSEC_CENTER=0``) assigns no relu or
+    final-layer centering; ``tiebreak`` False (``REDSEC_TIEBREAK=0``) no
+    parity tie-break; ``gain_mode`` "max" (``REDSEC_GAIN_MODE=max``) keeps the
+    max-bound power-of-two gains where flip-optimal gains would be chosen;
+    ``cascade_w`` (``REDSEC_CASCADE_W``) scales the modeled upstream-flip
+    cascade; ``max_flip`` (``REDSEC_MAX_FLIP``) is the largest predicted local
+    flip rate the strict guard accepts."""
     if relu_mode not in (None, "quarter", "full"):
         raise ValueError(f"relu_mode must be None, 'quarter' or 'full', got {relu_mode!r}")
+    if gain_mode not in GAIN_MODES:
+        raise ValueError(f"gain_mode must be one of {GAIN_MODES}, got {gain_mode!r}")
     certified = certified_pbs_bounds(model)
     out: Dict[int, PbsRange] = {}
     quarter, half = msg_space // 4, msg_space // 2
@@ -363,74 +380,79 @@ def resolve_pbs_ranges(
         ranges.append(r)
         out[i] = r
 
-    # Per-channel centering for relu layers: the
+    # Per-channel centering for relu layers (``center=False`` disables): the
     # staircase is translation-foldable (unlike sign's pinned boundary), so
     # an asymmetric calibrated range [lo, hi] re-encodes as +-(hi-lo)/2 via
     # an exact noiseless shift — this is what makes relu1024x3 (|v|max 2690
     # at 100 images, beyond the +-2048 budget) runnable at all, and roughly
     # doubles the gain budget on the other relu edges.  The reference has no
     # analogue: its relu chain wraps silently (lib/IntFunc.cpp:860-973).
-    # FINAL-layer decrypt centering: a bias-only last layer's logits can
-    # exceed the +-msg_space/2 decode range (relu1024x3: -2562 at 32
-    # images) and wrap DETERMINISTICALLY at decrypt — the reference has
-    # the same silent failure (decrypt_image.cpp:50-59 recenters
-    # blindly).  A per-class shift s_c (public metadata, applied as a
-    # noiseless body add) keeps every class in range; the decryptor
-    # subtracts it back out (decrypt_scores(centers=...)).  Only the
-    # LAST layer is eligible — a mid-net shift would propagate into
-    # downstream weights.
-    last = len(model.layers) - 1
-    Lf = model.layers[last]
-    if (Lf.quant.mode == Activation.NONE
-            and Lf.measured_chan_interval is not None):
-        lo, hi = Lf.measured_chan_interval
-        ub = int(np.maximum(np.abs(lo), np.abs(hi)).max())
-        s = -((lo + hi) // 2)
-        s = s - (s % 2)  # keep the all-centers-slot-aligned invariant
-        # engage only when the uncentered range threatens the decode
-        # budget (wrap territory, or it would cap the gain schedule) —
-        # an unnecessary center perturbs gain selection for no benefit
-        if np.any(s != 0) and ub >= half / gain_headroom:
-            ranges[last].center = s.astype(np.int64)
-            ranges[last].measured = int(
-                np.maximum(np.abs(lo + s), np.abs(hi + s)).max())
-    for i, layer in enumerate(model.layers):
-        if (layer.quant.mode == Activation.RELU
-                and layer.measured_chan_interval is not None):
-            lo, hi = layer.measured_chan_interval
+    if center:
+        # FINAL-layer decrypt centering: a bias-only last layer's logits can
+        # exceed the +-msg_space/2 decode range (relu1024x3: -2562 at 32
+        # images) and wrap DETERMINISTICALLY at decrypt — the reference has
+        # the same silent failure (decrypt_image.cpp:50-59 recenters
+        # blindly).  A per-class shift s_c (public metadata, applied as a
+        # noiseless body add) keeps every class in range; the decryptor
+        # subtracts it back out (decrypt_scores(centers=...)).  Only the
+        # LAST layer is eligible — a mid-net shift would propagate into
+        # downstream weights.
+        last = len(model.layers) - 1
+        Lf = model.layers[last]
+        if (Lf.quant.mode == Activation.NONE
+                and Lf.measured_chan_interval is not None):
+            lo, hi = Lf.measured_chan_interval
+            ub = int(np.maximum(np.abs(lo), np.abs(hi)).max())
             s = -((lo + hi) // 2)
-            # align shifts to the 2N rotation grid (msg_space/2N units,
-            # = 2 for every shipped set): a sub-slot phase shift would
-            # change mod-switch rounding vs the uncentered grid and
-            # break the exact tv fold (tests/test_noise_sim.py)
-            s = s - (s % 2)
-            if np.any(s != 0):
-                ranges[i].center = s.astype(np.int64)
-                ranges[i].measured = int(
+            s = s - (s % 2)  # keep the all-centers-slot-aligned invariant
+            # engage only when the uncentered range threatens the decode
+            # budget (wrap territory, or it would cap the gain schedule) —
+            # an unnecessary center perturbs gain selection for no benefit
+            if np.any(s != 0) and ub >= half / gain_headroom:
+                ranges[last].center = s.astype(np.int64)
+                ranges[last].measured = int(
                     np.maximum(np.abs(lo + s), np.abs(hi + s)).max())
+        for i, layer in enumerate(model.layers):
+            if (layer.quant.mode == Activation.RELU
+                    and layer.measured_chan_interval is not None):
+                lo, hi = layer.measured_chan_interval
+                s = -((lo + hi) // 2)
+                # align shifts to the 2N rotation grid (msg_space/2N units,
+                # = 2 for every shipped set): a sub-slot phase shift would
+                # change mod-switch rounding vs the uncentered grid and
+                # break the exact tv fold (tests/test_noise_sim.py)
+                s = s - (s % 2)
+                if np.any(s != 0):
+                    ranges[i].center = s.astype(np.int64)
+                    ranges[i].measured = int(
+                        np.maximum(np.abs(lo + s), np.abs(hi + s)).max())
 
-    # Parity tie-break: positions whose
+    # Parity tie-break (``tiebreak=False`` disables): positions whose
     # calibrated pre+bias values are all even can realize an exact-zero
     # phase — a coin flip under mod-switch noise.  Shifting those phases by
     # +in_gain (folded exactly: the oracle's sign(0)=+1 and every even value
     # keeps its sign) converts zero margins to full-gain margins.
-    for i, layer in enumerate(model.layers):
-        sc = layer.sign_calib
-        if (layer.quant.mode == Activation.SIGN and sc is not None
-                and bool(sc["mask"].any())):
-            ranges[i].tie_break = sc["mask"]
+    if tiebreak:
+        for i, layer in enumerate(model.layers):
+            sc = layer.sign_calib
+            if (layer.quant.mode == Activation.SIGN and sc is not None
+                    and bool(sc["mask"].any())):
+                ranges[i].tie_break = sc["mask"]
 
-    # Flip-optimal gain selection: when a sign layer has calibration
+    # Flip-optimal gain selection (``gain_mode="max"`` restores the
+    # max-bound power-of-two rule): when a sign layer has calibration
     # histograms and the caller supplied the mod-switch sigma, pick the
     # INTEGER gain minimizing predicted flips (noise + wraps) instead of the
     # largest power of two under the max bound — see _flip_optimal_gain.
-    flip_mode = gains and sigma_units is not None and sigma_units > 0
+    flip_mode = (gains and sigma_units is not None and sigma_units > 0
+                 and gain_mode == "flip")
 
     def _sign_hist(j: int):
         sc = model.layers[j].sign_calib
         if sc is None or model.layers[j].quant.mode != Activation.SIGN:
             return None
-        return sc["hist"] if ranges[j].tie_break is not None else sc["hist_raw"]
+        return sc["hist"] if (tiebreak and ranges[j].tie_break is not None) \
+            else sc["hist_raw"]
 
     if gains:
         # choose out_gain of layer i from the bound of layer i+1 (whose
@@ -488,7 +510,9 @@ def resolve_pbs_ranges(
                 continue  # bootstrap-free layer: encoding passes through
             h = _sign_hist(i + 1) if flip_mode else None
             if h is not None:
-                lam = CASCADE_W * _fanin(model.layers[i + 1]) * p_cur
+                # cascade_w scales the modeled upstream-flip cascade (see
+                # CASCADE_W); 0 = pure local optimum
+                lam = cascade_w * _fanin(model.layers[i + 1]) * p_cur
                 g, er = _flip_optimal_gain(h, sigma_units, half, lam)
                 ranges[i].out_gain = g
                 ranges[i + 1].in_gain = g
@@ -554,11 +578,11 @@ def resolve_pbs_ranges(
                 m = (k + 1) // 2
                 local = float(sum(math.comb(k, j) * local**j * (1.0 - local)**(k - j)
                                   for j in range(m, k + 1)))
-            if strict and local is not None and local > MAX_FLIP:
+            if strict and local is not None and local > max_flip:
                 raise ValueError(
                     f"layer {i} ({model.spec.name}): predicted per-activation "
-                    f"flip rate {local:.3f} exceeds MAX_FLIP="
-                    f"{MAX_FLIP} even at the flip-optimal "
+                    f"flip rate {local:.3f} exceeds "
+                    f"REDSEC_MAX_FLIP={max_flip} even at the flip-optimal "
                     f"encoding gain — the message space cannot hold this "
                     f"layer's margins against the mod-switch noise; use a "
                     f"larger-N parameter set or strict=False")

@@ -1,4 +1,4 @@
-"""Per-layer metrics: analytic op counts.
+"""Per-layer metrics: analytic op counts and wall-clock instrumentation.
 
 The reference's observability is stdout timers in the GPU operators
 (lib/GPU/BinFunc_gpu.cu:214-216 "BinConv: X seconds") and analytic op counts
@@ -10,6 +10,7 @@ the cost) and leveled MAC/adds.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List
 
 from ..models.spec import Activation, LayerPlan, ModelPlan
@@ -60,3 +61,21 @@ def summarize(plan: ModelPlan) -> Dict:
         "total_bootstraps": sum(s.bootstraps for s in per),
         "total_leveled_macs": sum(s.leveled_macs for s in per),
     }
+
+
+class StageTimer:
+    """Wall-clock stage timer (host side), the analogue of the reference's
+    per-layer prints; mark a stage after the work it times has finished on
+    the device (``torch.cuda.synchronize()``)."""
+
+    def __init__(self):
+        self.stages: List[tuple] = []
+        self._t = time.perf_counter()
+
+    def mark(self, name: str):
+        now = time.perf_counter()
+        self.stages.append((name, now - self._t))
+        self._t = now
+
+    def report(self) -> str:
+        return "\n".join(f"{n}: {dt:.3f} seconds" for n, dt in self.stages)

@@ -68,15 +68,33 @@ def assert_same_ranges(got, want):
             _same_value(getattr(got[i], f), getattr(want[i], f), (i, f))
 
 
-def _resolve_both(plan, jplan, monkeypatch, input_gain=False, relu_mode=None, strict=True):
+KNOB_ENV = {"center": "REDSEC_CENTER", "tiebreak": "REDSEC_TIEBREAK",
+            "gain_mode": "REDSEC_GAIN_MODE", "cascade_w": "REDSEC_CASCADE_W",
+            "max_flip": "REDSEC_MAX_FLIP"}
+
+
+def _knob_env(knobs):
+    """The JAX package's environment for the port's knob arguments."""
+    out = {}
+    for k, v in knobs.items():
+        out[KNOB_ENV[k]] = ("1" if v else "0") if isinstance(v, bool) else str(v)
+    return out
+
+
+def _resolve_both(plan, jplan, monkeypatch, input_gain=False, relu_mode=None, strict=True,
+                  **knobs):
     """resolve_pbs_ranges in both packages; the JAX side reads its relu mode
-    from the environment."""
+    and the calibration knobs from the environment."""
     if relu_mode:
         monkeypatch.setenv("REDSEC_RELU_MODE", relu_mode)
     else:
         monkeypatch.delenv("REDSEC_RELU_MODE", raising=False)
+    for name in KNOB_ENV.values():
+        monkeypatch.delenv(name, raising=False)
+    for name, v in _knob_env(knobs).items():
+        monkeypatch.setenv(name, v)
     kw = dict(input_gain=input_gain, sigma_units=P.mod_switch_sigma_units(), strict=strict)
-    return (ranges.resolve_pbs_ranges(plan, P.msg_space, relu_mode=relu_mode, **kw),
+    return (ranges.resolve_pbs_ranges(plan, P.msg_space, relu_mode=relu_mode, **kw, **knobs),
             jranges.resolve_pbs_ranges(jplan, JP.msg_space, **kw))
 
 
@@ -224,29 +242,122 @@ def test_load_rejects_other_weights_model_and_format(tmp_path):
 
 
 _DEFAULTS = {"input_gain": False, "relu_mode": None, "majority": 1, "majority_from": 0,
-             "majority_plan": None}
+             "majority_plan": None, "center": True, "tiebreak": True, "gain_mode": "flip",
+             "cascade_w": 0.25, "max_flip": 0.05}
+_KNOBS = tuple(KNOB_ENV)
 
 
-# majority voting and escalation are ported: their knobs become options
+def _calibrated(net):
+    """(port plan, JAX plan), calibrated the same way: relu1024x1 from its
+    committed artifact, sign1024x1 on twelve synthetic images."""
+    plan, jplan = _plans(net)
+    if net == "relu1024x1":
+        path = os.path.join(NETS, "mnist", "relu1024x1", "calibration.npz")
+        cal.load_calibration(path, plan)
+        jcal.load_calibration(path, jplan)
+    else:
+        ranges.calibrate_ranges(plan, _images(net), device="cpu")
+        jranges.calibrate_ranges(jplan, _images(net))
+    return plan, jplan
+
+
+# every recorded knob becomes an option: majority voting and escalation
 # (escalation's through escalation_from_meta, since it needs a second key)
+# and the five calibration knobs, which then resolve as in JAX under the
+# same environment
 @pytest.mark.parametrize("env,ok", [
     ({"REDSEC_MAJORITY": "3"}, {"majority": 3}),
     ({"REDSEC_MAJORITY_PLAN": "5:5", "REDSEC_MAJORITY_FROM": "2"},
      {"majority_plan": "5:5", "majority_from": 2}),
     ({"REDSEC_ESCALATE": "6,7"}, {}),
-    ({"REDSEC_GAIN_MODE": "max"}, False),
-    ({"REDSEC_CASCADE_W": "0.5"}, False),
-    ({"REDSEC_MAX_FLIP": "0.2"}, False),
-    ({"REDSEC_CENTER": "0"}, False),
-    ({"REDSEC_TIEBREAK": "0"}, False),
+    ({"REDSEC_GAIN_MODE": "max"}, {"gain_mode": "max"}),
+    ({"REDSEC_CASCADE_W": "0.5"}, {"cascade_w": 0.5}),
+    ({"REDSEC_MAX_FLIP": "0.2"}, {"max_flip": 0.2}),
+    ({"REDSEC_CENTER": "0"}, {"center": False}),
+    ({"REDSEC_TIEBREAK": "0"}, {"tiebreak": False}),
     ({"REDSEC_GAIN_MODE": "flip", "REDSEC_CASCADE_W": "0.25", "REDSEC_CENTER": "1",
       "REDSEC_RELU_MODE": "full"}, {"relu_mode": "full"}),
 ])
-def test_options_from_meta_raises_on_knobs_the_port_lacks(env, ok):
-    if ok is not False:
-        assert cal.options_from_meta({"env": env}) == {**_DEFAULTS, **ok}
-        want = ({6, 7}, "small_v2_n2048") if "REDSEC_ESCALATE" in env else (set(), "small_v2_n2048")
-        assert cal.escalation_from_meta({"env": env}) == want
+def test_options_from_meta_loads_every_recorded_knob(env, ok, monkeypatch):
+    opts = cal.options_from_meta({"env": env})
+    assert opts == {**_DEFAULTS, **ok}
+    want = ({6, 7}, "small_v2_n2048") if "REDSEC_ESCALATE" in env else (set(), "small_v2_n2048")
+    assert cal.escalation_from_meta({"env": env}) == want
+    if set(ok) & set(_KNOBS):
+        for net in ("sign1024x1", "relu1024x1"):
+            plan, jplan = _calibrated(net)
+            knobs = {k: opts[k] for k in _KNOBS if opts[k] != _DEFAULTS[k]}
+            assert_same_ranges(*_resolve_both(plan, jplan, monkeypatch, True, opts["relu_mode"],
+                                              strict=False, **knobs))
+
+
+@pytest.mark.parametrize("net", ["relu1024x1", "sign1024x1"])
+@pytest.mark.parametrize("knob,value", [("center", False), ("tiebreak", False),
+                                        ("gain_mode", "max"), ("cascade_w", 0.5),
+                                        ("max_flip", 0.001)])
+def test_each_knob_resolves_as_the_jax_environment_variable(net, knob, value, monkeypatch):
+    """Each knob at a value other than its default against the JAX package
+    under its environment variable: the same PbsRanges, or the same refusal
+    of the strict guard (its message names REDSEC_MAX_FLIP, as JAX's does).
+    Where the net has the layers a knob acts on, it changes the resolution."""
+    plan, jplan = _calibrated(net)
+    outcome = []
+    for strict in (False, True):
+        try:
+            got, want = _resolve_both(plan, jplan, monkeypatch, True, strict=strict,
+                                      **{knob: value})
+            assert_same_ranges(got, want)
+            outcome.append(got)
+        except ValueError as e:
+            with pytest.raises(ValueError) as je:
+                jranges.resolve_pbs_ranges(jplan, JP.msg_space, strict=True, input_gain=True,
+                                           sigma_units=JP.mod_switch_sigma_units())
+            assert str(e) == str(je.value)
+            if knob == "max_flip":
+                assert "REDSEC_MAX_FLIP=0.001" in str(e)
+            outcome.append("refused")
+    default, _ = _resolve_both(plan, jplan, monkeypatch, True, strict=False)
+    acts = {("relu1024x1", "center"), ("sign1024x1", "tiebreak"), ("sign1024x1", "gain_mode"),
+            ("sign1024x1", "cascade_w"), ("sign1024x1", "max_flip")}
+    if (net, knob) == ("sign1024x1", "max_flip"):
+        assert outcome[1] == "refused"
+    elif (net, knob) in acts:
+        with pytest.raises(AssertionError):
+            assert_same_ranges(outcome[0], default)
     else:
-        with pytest.raises(ValueError, match="REDSEC_"):
-            cal.options_from_meta({"env": env})
+        assert_same_ranges(outcome[0], default)
+
+
+def test_a_file_with_every_knob_set_loads_both_ways(tmp_path, monkeypatch):
+    """The port saves a calibration with all five knobs off their defaults;
+    JAX loads it, replays its environment and resolves the same ranges.  JAX
+    saves under that environment; the port loads the same options from it,
+    and the two files hold the same meta and arrays."""
+    plan, jplan = _calibrated("sign1024x1")
+    knobs = dict(center=False, tiebreak=False, gain_mode="max", cascade_w=0.5, max_flip=0.2)
+    path = str(tmp_path / "port.npz")
+    meta = cal.save_calibration(path, plan, "small_v2_tpu", "synthetic[0:12]",
+                                input_gain=True, **knobs)
+    fresh = _plans("sign1024x1")[1]
+    jmeta = jcal.load_calibration(path, fresh)
+    assert jmeta == meta
+    env = {}
+    jcal.apply_env_knobs(jmeta, env)
+    assert env == {"REDSEC_INPUT_GAIN": "1", **_knob_env(knobs)}
+    opts = cal.options_from_meta(meta)
+    assert opts == {**_DEFAULTS, "input_gain": True, **knobs}
+    got, want = _resolve_both(plan, fresh, monkeypatch, True, strict=False, **knobs)
+    assert_same_ranges(got, want)
+    assert {str(i): [r.in_gain, r.out_gain] for i, r in got.items()} == meta["gains"]
+
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jpath = str(tmp_path / "jax.npz")
+    assert jcal.save_calibration(jpath, jplan, "small_v2_tpu", "synthetic[0:12]") == meta
+    fresh = _plans("sign1024x1")[0]
+    assert cal.options_from_meta(cal.load_calibration(jpath, fresh)) == opts
+    assert_same_calibration(fresh, jplan)
+    with np.load(path) as a, np.load(jpath) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)

@@ -398,3 +398,43 @@ def test_wgmma_layouts_hold_on_the_card(card, n, kc, ng):
                    A.data_ptr(), B.data_ptr(), got.data_ptr(), kc, ng, lbo, sbo)
         matches[reading] = bool(np.array_equal(got.cpu().numpy(), want))
     assert matches == {"lbo_k": True, "lbo_mn": False}
+
+
+# --------------------------------------------------------------------------- #
+# The four-step NTT and the "matmul" key flavour on the card (no kernel: fp32 #
+# limb matmuls with TF32 off, exact while every partial stays below 2^24)     #
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("N", [256, 1024, 2048])
+def test_four_step_ntt_on_the_card_equals_the_cpu(card, N):
+    from redsec_tpu_torch.crypto import ntt
+    from redsec_tpu_torch.crypto import ntt_matmul as mm
+
+    plan = ntt.make_plan(N, max_operand=4, limb_bits=8, accum=20)
+    rng = np.random.default_rng(N)
+    for pi, p in enumerate(plan.primes):
+        x = rng.integers(0, p, size=(64, N)).astype(np.int32)
+        x[0] = p - 1  # every limb product at its largest
+        y = mm.ntt_device_mm(torch.as_tensor(x, device="cuda"), plan, pi)
+        assert torch.equal(y.cpu(), mm.ntt_device_mm(torch.as_tensor(x), plan, pi))
+        assert torch.equal(mm.intt_device_mm(y, plan, pi).cpu(), torch.as_tensor(x))
+
+
+def test_matmul_key_pbs_on_the_card_equals_k4(key):
+    sk, cloud, dkey = key
+    mkey = bs.prepare_cloud_key(cloud, device="cuda", ntt_flavor="matmul")
+    assert torch.equal(K.residues(mkey.bk).cpu().flatten(-2),
+                       K.residues(bs.prepare_cloud_key(cloud, device="cpu",
+                                                       ntt_flavor="matmul").bk).flatten(-2))
+    rng = np.random.default_rng(7)
+    ct = lwe.encrypt_integers(sk.lwe_key, rng.integers(-300, 300, size=9), P, rng)
+    tv = bs.const_test_vector(P, 1, P.msg_space)
+    before = K.launches.get("blind_rotate")
+    got = bs.make_batched_bootstrap(mkey)(ct, tv)
+    assert K.launches.get("blind_rotate") == before  # the 'matmul' path never reaches K4
+    assert torch.equal(got, bs.make_batched_bootstrap(dkey)(ct, tv))
+    with pytest.raises(ValueError, match="radix-2"):
+        K.blind_rotate(torch.zeros((1, 2, P.N), dtype=torch.int32, device="cuda"),
+                       torch.zeros((1, P.n), dtype=torch.int32, device="cuda"), mkey.bk, P,
+                       mkey.plan)

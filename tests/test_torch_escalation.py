@@ -232,7 +232,7 @@ def test_guard_judges_voted_and_escalated_boundaries_as_jax(monkeypatch, ks, esc
             want = jrr.resolve_pbs_ranges(jplan, sp.msg_space, strict=strict, **kw)
             outcome.append("ok")
         except ValueError as e:
-            outcome.append(str(e).replace("REDSEC_MAX_FLIP=", "MAX_FLIP="))
+            outcome.append(str(e))
         if not strict:
             for i in got:
                 assert got[i].escalated_local_rate == want[i].escalated_local_rate
@@ -264,7 +264,9 @@ def test_calibration_records_voting_and_escalation_both_ways(tmp_path, monkeypat
     jmeta = cal.load_calibration(jpath, mplan)
     assert cal.options_from_meta(jmeta) == {"input_gain": False, "relu_mode": None,
                                             "majority": 3, "majority_from": 1,
-                                            "majority_plan": "2:5"}
+                                            "majority_plan": "2:5", "center": True,
+                                            "tiebreak": True, "gain_mode": "flip",
+                                            "cascade_w": 0.25, "max_flip": 0.05}
     assert cal.escalation_from_meta(jmeta) == ({1, 2}, "test_noiseless")
 
 

@@ -35,6 +35,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import redsec_tpu_torch.formats.image_io, redsec_tpu_torch.utils.debug\n"
         "import redsec_tpu_torch.compiler.netlist, redsec_tpu_torch.compiler.weight_convert\n"
         "import redsec_tpu_torch.compiler.wizard, redsec_tpu_torch.crypto.gates\n"
+        "import redsec_tpu_torch.utils.noise_budget, redsec_tpu_torch.utils.noise_sim\n"
+        "import redsec_tpu_torch.crypto.ntt_matmul, redsec_tpu_torch.parallel.mesh\n"
+        "import redsec_tpu_torch.parallel.ntt_shard\n"
+        "import redsec_tpu_torch.scripts.predict_agreement\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'redsec_tpu' or m.startswith('redsec_tpu.'))\n"
         "print(','.join(bad))\n"

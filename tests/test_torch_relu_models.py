@@ -123,7 +123,9 @@ def test_relu1024x1_full_width_bit_identical_to_jax(keys, monkeypatch, relu_mode
     opts = cal.options_from_meta(cal.load_calibration(
         os.path.join(RELU_NET, "calibration.npz"), plan))
     jcal.load_calibration(os.path.join(RELU_NET, "calibration.npz"), jplan)
-    assert opts == {"input_gain": True, "relu_mode": None}
+    assert opts == {"input_gain": True, "relu_mode": None, "majority": 1, "majority_from": 0,
+                    "majority_plan": None, "center": True, "tiebreak": True,
+                    "gain_mode": "flip", "cascade_w": 0.25, "max_flip": 0.05}
     rng = np.random.default_rng(1)  # a fifth of the pixels inked, as on MNIST rows
     raw = rng.integers(0, 256, size=(1, 28, 28, 1)) * (rng.random((1, 28, 28, 1)) < 0.19)
     x = pixel_transform_for("mnist/relu1024x1")(raw)
