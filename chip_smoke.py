@@ -143,6 +143,29 @@ Phases (any failure exits non-zero):
      and MUX at ``small_v2_tpu`` (K4), and AND at full ``medium_v2`` on the
      path's key (S1).
 
+12. ``phase12``: the calibration knobs through the command line, the
+   agreement forecast beside a measured run, the "matmul" key flavour and the
+   dp/tp forwards and poly-sharded PBS in an NCCL group of one rank.
+13. ``phase13``: the BYON trainers and the native oracle.
+   - The sign trainer at full ``cifar/binarynet`` on 100 synthetic images
+     (numpy seed 1): one loss and gradient without noise on the card against
+     the CPU's (loss within 1e-5 relative, each gradient within 1e-4 of its
+     largest entry); 20 steps on the card, timed; every conv and FC sum of
+     the trained net on the card an integer; export, ``weight_convert``,
+     ``prep_model``, and the export's plaintext logits on the card equal to
+     the CPU's.  The twin's agreement with the plaintext engine and its least
+     |v| are printed: they hang on float rounding at near-tied boundaries.
+   - The relu trainer at full ``mnist/relu1024x1`` on 64 synthetic ternary
+     images, 20 steps on the card; the exported engine's logits equal to the
+     float64 hard walk's (``logits_bit_exact``); calibrated on 16 other
+     images, 8 images encrypted at ``small_v2_tpu`` through K4, every launch
+     counted at the kernel's door and by the counters; the decrypted argmax
+     against the plaintext engine printed.
+   - The native CGGI core (``redsec_tpu_torch/native``) built with g++ on the
+     chip's host: 64 PBS on the phase-4 key, bit-identical to K4's, its PBS/s
+     and OpenMP threads beside K4's.
+   - ``entry(device="cuda")``: the scores' shape.
+
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, the script exits non-zero before printing a result.
@@ -642,6 +665,242 @@ def phase12(c: dict) -> None:
     slices["phase12"] = rec
     print("phase 12 stages:\n" + timer.report(), flush=True)
     shutil.rmtree(work)
+
+
+# phase 13's workloads: (model, synthetic images); the native oracle's batch
+TRAIN_SIGN = ("cifar/binarynet", 100)
+TRAIN_RELU = ("mnist/relu1024x1", 64)
+NATIVE_BATCH = 64
+
+
+def phase13(c: dict) -> None:
+    """Phase 13: the BYON trainers on the card, trained weights through K4,
+    the native CGGI oracle beside K4 and ``entry()``, at ``c["P"]``
+    (small_v2_tpu) on the device ``c["dev"]``.
+
+    ``c`` holds the device, parameters, host keys (``sk``, ``cloud``), the
+    radix-2 key prepared from them (``dkey``), the card's line, the PBS
+    chunk and the ``by_path`` / ``slices`` records it adds to.  Only what is
+    deterministic is asserted: integer sums, the export's plaintext logits on
+    both devices, the float64 relu walk against the integer engine, bit
+    identity of two PBS implementations and launch counts.  The sign twin's
+    agreement with the plaintext engine hangs on float rounding at near-tied
+    boundaries and is printed."""
+    import numpy as np
+    import torch
+
+    from redsec_tpu_torch import native
+    from redsec_tpu_torch.compiler import train as tr
+    from redsec_tpu_torch.compiler import train_relu as trr
+    from redsec_tpu_torch.crypto import bootstrap as bs
+    from redsec_tpu_torch.crypto import kernels as K
+    from redsec_tpu_torch.crypto import lwe
+    from redsec_tpu_torch.device import launches
+    from redsec_tpu_torch.entry import entry
+    from redsec_tpu_torch.formats.image_io import pixel_transform_for
+    from redsec_tpu_torch.models.spec import prep_model
+    from redsec_tpu_torch.models.zoo import get_model
+    from redsec_tpu_torch.runtime import ptxt
+    from redsec_tpu_torch.runtime.encrypted import (
+        build_encrypted_forward, decrypt_scores, encrypt_images,
+    )
+    from redsec_tpu_torch.runtime.ranges import calibrate_ranges
+    from redsec_tpu_torch.utils.metrics import StageTimer, model_stats
+
+    P, dev, sk, cloud, dkey = c["P"], c["dev"], c["sk"], c["cloud"], c["dkey"]
+    card, pbs_chunk, by_path, slices = c["card"], c["pbs_chunk"], c["by_path"], c["slices"]
+    cpu = torch.device("cpu")
+    timer = StageTimer()
+    rec = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    # -- a. the sign trainer at full width on synthetic images (numpy seed 1)
+    name, count = TRAIN_SIGN
+    spec = get_model(name)
+    d = spec.input_dims
+    rng = np.random.default_rng(1)
+    px = pixel_transform_for(name)(rng.integers(0, 256, size=(count, d.h, d.w, d.in_dep)))
+    labels = rng.integers(0, spec.layers[-1].out_depth, size=count)
+    cfg = tr.TrainConfig(steps=20, log_every=10)
+    params0 = tr.init_params(spec, cfg.seed)
+
+    def loss_and_grads(device):
+        forward, geom = tr.build_twin(spec)
+        tp = tr.to_torch(params0, device, requires_grad=True)
+        onehot = torch.nn.functional.one_hot(torch.as_tensor(labels, device=device),
+                                             geom[-1]["shape"][3]).to(torch.float32)
+        loss, _ = tr.sign_loss(forward, tp, torch.as_tensor(px, device=device), onehot, cfg)
+        grads = torch.autograd.grad(loss, [t for p in tp for t in p.values()])
+        return float(loss.detach()), [g.cpu() for g in grads]
+
+    l_dev, g_dev = loss_and_grads(dev)
+    sync()
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = loss_and_grads(cpu)
+    t_cpu = time.perf_counter() - t0
+    if abs(l_dev - l_cpu) > 1e-5 * abs(l_cpu):
+        fail(f"phase 13 train/{name}: loss without noise {l_dev} on {dev}, {l_cpu} on the CPU")
+    grad_err = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for a, b in zip(g_dev, g_cpu)]
+    if max(grad_err) > 1e-4 or not all(bool(b.abs().max() > 0) for b in g_cpu):
+        fail(f"phase 13 train/{name}: gradients on {dev} differ from the CPU's by "
+             f"{grad_err} of their largest entries")
+    sync()
+    t0 = time.perf_counter()
+    params, hist = tr.train(spec, px, labels, cfg, device=dev.type)
+    sync()
+    t_train = time.perf_counter() - t0
+    sums = tr.stats_pass(spec, params, px, device=dev.type)
+    if not all(torch.equal(s, torch.round(s)) for s, _, _ in sums):
+        fail(f"phase 13 train/{name}: a conv or FC sum on {dev} is not an integer")
+    raw, prep, report = tr.export_and_check(spec, params, hist, px, labels, device=dev.type)
+    plan = prep_model(spec, prep)
+    logits_dev = ptxt.build_forward(plan, dev.type)(px).cpu()
+    logits_cpu = ptxt.build_forward(plan, "cpu")(px)
+    if not torch.equal(logits_dev, logits_cpu):
+        fail(f"phase 13 train/{name}: the export's plaintext logits on {dev} differ from "
+             f"the CPU's")
+    min_v = min(report["min_abs_margin"])
+    print(f"train/{name}: {count} synthetic images, one loss and gradient without noise on "
+          f"the card within {max(grad_err):.3e} of the CPU's (largest entries; loss "
+          f"{l_dev:.6f} against {l_cpu:.6f}, CPU {t_cpu:.2f} s); {cfg.steps} steps in "
+          f"{t_train:.3f} s ({t_train / cfg.steps:.4f} s a step, {cfg.steps / t_train:.3f} "
+          f"steps/s) on {card}; every conv/FC sum integral; export -> weight_convert -> "
+          f"prep_model, plaintext logits on the card equal the CPU's; twin against plaintext "
+          f"agreement {report['twin_vs_ptxt_agreement']:.4f}, min |v| {min_v:.4g} "
+          f"(informational)", flush=True)
+    rec[f"train/{name}"] = {"images": count, "steps": cfg.steps, "train_s": t_train,
+                            "s_per_step": t_train / cfg.steps, "loss_dev": l_dev,
+                            "loss_cpu": l_cpu, "grad_err": grad_err,
+                            "agreement": report["twin_vs_ptxt_agreement"], "min_abs_v": min_v}
+    del sums, logits_dev, logits_cpu, g_dev, g_cpu
+    timer.mark("sign trainer")
+
+    # -- b. the relu trainer at full width, then the trained net through K4
+    name, count = TRAIN_RELU
+    spec = get_model(name)
+    d = spec.input_dims
+    rng = np.random.default_rng(2)
+
+    def ternary(k):
+        raw_px = rng.integers(0, 256, size=(k, d.h, d.w, d.in_dep))
+        return pixel_transform_for(name)(raw_px * (rng.random(raw_px.shape) < 0.19))
+
+    px, cal = ternary(count), ternary(16)
+    labels = rng.integers(0, spec.layers[-1].out_depth, size=count)
+    rcfg = trr.ReluTrainConfig(steps=20, log_every=10)
+    sync()
+    t0 = time.perf_counter()
+    params, hist = trr.train_relu(spec, px, labels, rcfg, device=dev.type)
+    sync()
+    t_relu = time.perf_counter() - t0
+    raw, prep, rreport = trr.export_and_check_relu(spec, params, hist, px, labels,
+                                                  device=dev.type)
+    if not rreport["logits_bit_exact"]:
+        fail(f"phase 13 train/{name}: the exported engine's logits differ from the float64 "
+             f"hard walk")
+    plan = prep_model(spec, prep)
+    calibrate_ranges(plan, cal, device=dev.type)
+    fwd = build_encrypted_forward(plan, dkey, input_gain=True)
+    batch = 8
+    ct = torch.as_tensor(encrypt_images(sk, px[:batch], P, np.random.default_rng(3),
+                                        gain=fwd.in_gain), device=dev)
+    door = [0]
+
+    def door_k4(*args, _real=K.blind_rotate):
+        door[0] += 1
+        return _real(*args)
+
+    launches.reset()
+    sync()
+    t0 = time.perf_counter()
+    with mock.patch.object(K, "blind_rotate", door_k4):
+        out = fwd(ct)
+    sync()
+    t_enc = time.perf_counter() - t0
+    counts = dict(launches.counts)
+    by_path[f"trained/{name}"] = (P.name, counts)
+    mult = [3 if fwd.info[i].relu_mode == "full" else 1 for i in range(len(plan.layers))]
+    sizes = [st.bootstraps * batch for st in model_stats(plan)]
+    want = sum(len(range(0, b, pbs_chunk)) * m for b, m in zip(sizes, mult) if b)
+    if (door[0], counts.get("blind_rotate", 0)) != (want, want if dev.type == "cuda" else 0):
+        fail(f"phase 13 trained/{name}: {door[0]} K4 calls at the door, counters {counts}; "
+             f"expected {want}")
+    scores = decrypt_scores(sk, out, P, fwd.out_gain, fwd.out_center)
+    agree = float((scores.argmax(axis=1) == ptxt.predict(plan, px[:batch],
+                                                         device=dev.type)).mean())
+    pbs = sum(b * m for b, m in zip(sizes, mult))
+    print(f"train/{name}: {count} synthetic images, {rcfg.steps} steps in {t_relu:.3f} s "
+          f"({t_relu / rcfg.steps:.4f} s a step) on {card}; logits_bit_exact; calibrated on 16 "
+          f"other images (input gain {fwd.in_gain}, relu "
+          f"{sorted({r.relu_mode for r in fwd.info.values() if r.relu_mode})}); {batch} images "
+          f"encrypted at {P.name}: {pbs} PBS in {t_enc:.3f} s, {door[0]} K4 launches at the "
+          f"door, counters {counts}; decrypted argmax agreement with the plaintext engine "
+          f"{agree:.3f} (informational)", flush=True)
+    rec[f"train/{name}"] = {"images": count, "steps": rcfg.steps, "train_s": t_relu,
+                            "s_per_step": t_relu / rcfg.steps, "encrypted_s": t_enc,
+                            "pbs": pbs, "k4_launches": door[0], "argmax_agreement": agree}
+    del fwd, out, ct
+    timer.mark("relu trainer and K4")
+
+    # -- c. the native oracle on this host beside K4, on the smoke's key
+    t0 = time.perf_counter()
+    lib = native.build()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng = native.NativeEngine(cloud)
+    t_engine = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    vals = rng.integers(-P.msg_space // 2, P.msg_space // 2, size=NATIVE_BATCH)
+    ct = lwe.encrypt_integers(sk.lwe_key, vals, P, rng)
+    tv = bs.const_test_vector(P, 1, P.msg_space)
+    t0 = time.perf_counter()
+    nout = eng.bootstrap(ct, tv)
+    t_native = time.perf_counter() - t0
+    eng.close()
+    pbs_fn = bs.make_batched_bootstrap(dkey)
+    tct = torch.as_tensor(ct, device=dev)
+    pbs_fn(tct, tv)  # the first call at this batch pays the setup
+    launches.reset()
+    sync()
+    t0 = time.perf_counter()
+    kout = pbs_fn(tct, tv)
+    sync()
+    t_k4 = time.perf_counter() - t0
+    by_path[f"native/{P.name}"] = (P.name, dict(launches.counts))
+    if not np.array_equal(nout, kout.cpu().numpy()):
+        diff = np.argwhere(nout != kout.cpu().numpy())
+        fail(f"phase 13 native/{P.name}: the native PBS differs from K4's at {len(diff)} "
+             f"positions, first {diff[0].tolist()}")
+    threads = native.num_threads()
+    print(f"native/{P.name}: built in {t_build:.1f} s ({os.path.relpath(lib, HERE)}), engine "
+          f"(BK to NTT domain, primes {eng.primes}) in {t_engine:.2f} s; {NATIVE_BATCH} PBS "
+          f"in {t_native:.3f} s on {threads} OpenMP threads ({NATIVE_BATCH / t_native:.2f} "
+          f"PBS/s), bit-identical to K4's {NATIVE_BATCH} in {t_k4 * 1e3:.3f} ms "
+          f"({NATIVE_BATCH / t_k4:.1f} PBS/s) on {card}", flush=True)
+    rec[f"native/{P.name}"] = {"build_s": t_build, "engine_s": t_engine, "pbs": NATIVE_BATCH,
+                               "native_s": t_native, "native_pbs_per_s": NATIVE_BATCH / t_native,
+                               "threads": threads, "k4_s": t_k4,
+                               "k4_pbs_per_s": NATIVE_BATCH / t_k4}
+    timer.mark("native oracle")
+
+    # -- d. entry(): the small encrypted forward and its arguments
+    launches.reset()
+    fn, args = entry(device=dev.type)
+    eout = fn(*args)
+    sync()
+    by_path["entry"] = ("test_noiseless", dict(launches.counts))
+    if tuple(eout.shape) != (4, 10, 65):
+        fail(f"phase 13 entry: scores of shape {tuple(eout.shape)}")
+    print(f"entry(device={dev.type!r}): scores {tuple(eout.shape)}, launches "
+          f"{dict(launches.counts)}", flush=True)
+    timer.mark("entry")
+    rec["stages_s"] = dict(timer.stages)
+    slices["phase13"] = rec
+    print("phase 13 stages:\n" + timer.report(), flush=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -1954,6 +2213,14 @@ def main() -> int:
              "work": os.path.join(HERE, "build", "smoke_phase12")})
     slices["phase12_s"] = time.perf_counter() - t_phase
     print(f"phase 12: {slices['phase12_s']:.1f} s", flush=True)
+
+    # ---- phase 13: the BYON trainers, trained weights through K4, the native
+    # oracle and entry()
+    t_phase = time.perf_counter()
+    phase13({"P": P, "dev": dev, "sk": sk, "cloud": cloud, "dkey": dkey, "card": card,
+             "pbs_chunk": pbs_chunk, "by_path": by_path, "slices": slices})
+    slices["phase13_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: {slices['phase13_s']:.1f} s", flush=True)
 
     # each kernel's launches on the paths of its parameter sets (the records
     # of one kernel's shapes share its counter; a bundled key's path is

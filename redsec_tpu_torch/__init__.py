@@ -14,7 +14,11 @@ Subpackages
 - ``models``  : model IR, prep pass and the model zoo.
 - ``runtime`` : plaintext oracle, certified PBS ranges, encrypted engine.
 - ``ops``     : encrypted operators over LWE ciphertext tensors.
+- ``compiler``: netlist wizard and compiler, weight convert, and the BYON
+                trainers on torch autograd (``train``, ``train_relu``).
+- ``native``  : the OpenMP C++ CGGI core (g++, ctypes), the CPU oracle.
 - ``convert`` : carries the JAX package's keys and model plans across.
+- ``entry``   : ``entry()``, a small encrypted forward and its arguments.
 
 Entry points default to ``device="cuda"`` and raise without CUDA unless the
 caller passes ``device="cpu"``.

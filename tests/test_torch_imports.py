@@ -39,6 +39,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import redsec_tpu_torch.crypto.ntt_matmul, redsec_tpu_torch.parallel.mesh\n"
         "import redsec_tpu_torch.parallel.ntt_shard\n"
         "import redsec_tpu_torch.scripts.predict_agreement\n"
+        "import redsec_tpu_torch.compiler.train, redsec_tpu_torch.compiler.train_relu\n"
+        "import redsec_tpu_torch.scripts.train_cifar_small, redsec_tpu_torch.scripts.train_relu_mnist\n"
+        "import redsec_tpu_torch.native, redsec_tpu_torch.entry\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'redsec_tpu' or m.startswith('redsec_tpu.'))\n"
         "print(','.join(bad))\n"
@@ -48,6 +51,35 @@ def test_import_leaves_jax_and_the_jax_package_out():
                          env=env, cwd=REPO, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == ""
+
+
+def test_trainers_and_entry_run_with_jax_and_optax_blocked():
+    """The trainers' JAX originals import jax and optax inside functions, so
+    an import test alone would not catch a port that kept one such import:
+    run two training steps of each trainer, the exports and ``entry`` with
+    those modules made unimportable."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = sys.modules['optax'] = sys.modules['redsec_tpu'] = None\n"
+        "import numpy as np\n"
+        "sys.path.insert(0, 'tests')\n"
+        "from torch_train_specs import mini_relu_spec, mini_spec, relu_data, sign_data\n"
+        "from redsec_tpu_torch.compiler import train, train_relu\n"
+        "from redsec_tpu_torch.entry import entry\n"
+        "px, labels = sign_data()\n"
+        "raw, prep, rep = train.train_and_export(mini_spec(), px, labels,\n"
+        "    train.TrainConfig(steps=2), device='cpu')\n"
+        "rpx, rlabels = relu_data()\n"
+        "rraw, rprep, rrep = train_relu.train_and_export_relu(mini_relu_spec(), rpx, rlabels,\n"
+        "    train_relu.ReluTrainConfig(steps=2), device='cpu')\n"
+        "fn, args = entry(device='cpu')\n"
+        "print(len(raw), len(prep), rrep['logits_bit_exact'], tuple(fn(*args).shape))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1].endswith("True (4, 10, 65)")
 
 
 def test_no_source_file_imports_jax_or_the_jax_package():
