@@ -22,15 +22,18 @@ Phases (any failure exits non-zero):
    256 rows, each dealt out over enough blocks to fill the card) run on
    [512, 2, 1024] and on a batch of 64, the Toeplitz probe on its one shape.
    The blind rotation also runs at ``small_v2``, the command line's default
-   set (20 digit rows: one ciphertext a block at every batch), at batches
-   512 and 133, timed at 512: the ``kernels`` line's ``blind_rotate_small_v2``.
-   The NTT also runs at ``small``'s three primes (40961 above 2^15) and at
-   N = 2048 (12289, 40961: ``ntt_n2048``); the blind rotation at the
-   instances of this slice's keys, at batches 512, 133 and 1, timed at 512:
-   ``small_v2_n2048`` (N 2048), ``small`` (three primes), bundled
-   ``small_v2_tpu`` and ``small_v2_tpu2`` (``bundle=2``: n/2 rounds of 3 x 2l
-   digit rows; three primes at tpu2), each with its ciphertexts a block,
-   chunk of digit rows, shared bytes, registers and spills.  Every key
+   set (20 digit rows: two ciphertexts a block beyond one wave of blocks,
+   with the rows in chunks of 12), at batches 512, 133, 5 and 1, timed at
+   512: the ``kernels`` line's ``blind_rotate_small_v2``.  The NTT also runs
+   at ``small``'s three primes (40961 above 2^15) and at N = 2048 (12289,
+   40961: ``ntt_n2048``); the blind rotation at the instances of these keys,
+   at batches 512, 133, 5 and 1, timed at 512: ``small_v2_n2048`` (N 2048),
+   ``small`` (three primes), bundled ``small_v2_tpu`` and ``small_v2_tpu2``
+   (``bundle=2``: n/2 rounds of 3 x 2l digit rows; three primes at tpu2).
+   At every instance and batch the layout the library chooses must be
+   ``kernels.k4_layout``'s; each record gives the ciphertexts a block and
+   a key load serves, the cluster size, the chunk of digit rows, the shared
+   bytes, registers and spills.  Every key
    prepared on the card in this phase (``small_v2`` and the four above) must
    equal, bit for bit, the same key prepared with the NTT twin in the
    kernel's place: that holds K1 at exactly the row counts each preparation
@@ -1133,6 +1136,27 @@ def main() -> int:
            2 * acc.numel() * 4 + M * 4 + bk0.numel() * 2, M * cmux_ops(rows, N),
            "redsec_tpu/crypto/pallas_round.py:254")
 
+    # K4's layout at every instance and batch below must be kernels.k4_layout's
+    # (two ciphertexts a block, each key row loaded serving both, beyond one
+    # wave of blocks wherever two fit)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def k4_layout_held(B4, params, plan_, bundle=1):
+        cfg = K.blind_rotate_config(B4, params, plan_, bundle)
+        want = K.k4_layout(B4, params, plan_, bundle, sms)
+        if {k: cfg[k] for k in want} != want:
+            fail(f"blind_rotate at {params.name}/{bundle} batch {B4}: the library's layout "
+                 f"{cfg} is not kernels.k4_layout's {want}")
+        return cfg
+
+    def k4_layout_fields(cfg):
+        regs, spill = ptxas_usage(ptxas, cfg["instance"])
+        return dict(instance=cfg["instance"], ciphertexts_per_block=cfg["group"],
+                    cluster=cfg["cluster"],
+                    ciphertexts_per_key_load=cfg["ciphertexts_per_key_load"],
+                    chunk_rows=cfg["chunk_rows"], shared_bytes=cfg["shared_bytes"],
+                    tables_resident=cfg["tables_resident"], registers=regs, spill_bytes=spill)
+
     # K4 over all n rounds, at every batch the forward gives it and at batches
     # that take the one-ciphertext-a-block path (1, 5) or end on a ragged
     # block (133); timed at the full chunk and at the smallest of the path
@@ -1148,7 +1172,7 @@ def main() -> int:
         torch.cuda.synchronize()
         pms = (time.perf_counter() - t0) * 1e3
         err = same(f"blind_rotate batch {B4}", got, want)
-        k4_cfg[B4] = K.blind_rotate_config(B4, P)
+        k4_cfg[B4] = k4_layout_held(B4, P, plan)
         if B4 in k4_timed:
             k4_ms[B4] = cuda_ms(lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan), 3)
         if B4 == k4_batches[0]:
@@ -1170,12 +1194,12 @@ def main() -> int:
     print(f"kernel blind_rotate build: {build}", flush=True)
     del acc0, abar, got, want
 
-    # K4 at small_v2, the CLI's default set: 20 digit rows, one ciphertext a
-    # block at every batch (two no longer fit a block's shared memory)
+    # K4 at small_v2, the CLI's default set: 20 digit rows, two ciphertexts a
+    # block with the rows in chunks of 12 beyond one wave of blocks
     _, cloud2 = kg.keygen(P2, seed=0)
     dkey2 = bs.prepare_cloud_key(cloud2, device="cuda")
     plan2, rows2 = dkey2.plan, P2.decomp_rows
-    for B4 in (pbs_chunk, 133):
+    for B4 in (pbs_chunk, 133, 5, 1):
         acc0 = ri(-2**31, 2**31, (B4, 2, N))
         abar = ri(0, 2 * N, (B4, n))
         got = K.blind_rotate(acc0, abar, dkey2.bk, P2, plan2)
@@ -1185,30 +1209,26 @@ def main() -> int:
         torch.cuda.synchronize()
         pms2 = (time.perf_counter() - t0) * 1e3
         err = same(f"blind_rotate {P2.name} batch {B4}", got, want)
-        cfg2 = K.blind_rotate_config(B4, P2)
-        group = cfg2["group"]
-        if group != 1:
-            fail(f"blind_rotate at {P2.name} batch {B4} took {group} ciphertexts a block")
+        cfg2 = k4_layout_held(B4, P2, plan2)
         if B4 == pbs_chunk:
             ms2 = cuda_ms(lambda: K.blind_rotate(acc0, abar, dkey2.bk, P2, plan2), 3)
-            k4_2 = dict(shape=[B4, 2, N], err=err, ms=ms2, pms=pms2,
+            k4_2 = dict(shape=[B4, 2, N], err=err, ms=ms2, pms=pms2, cfg=cfg2,
                         bytes_=dkey2.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
                         ops=B4 * n * cmux_ops(rows2, N))
         print(f"kernel blind_rotate {P2.name} [{B4}, 2, {N}], {rows2} digit rows: "
-              f"bit-identical to twin, {group} ciphertext a block"
+              f"bit-identical to twin, {cfg2}"
               + (f", {ms2:.4f} ms" if B4 == pbs_chunk else ""), flush=True)
     report("blind_rotate_small_v2", k4_2["shape"], k4_2["err"], k4_2["ms"], k4_2["pms"],
            k4_2["bytes_"], k4_2["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
            params=P2.name, counter="blind_rotate", digit_rows=rows2,
-           ciphertexts_per_block=1, shared_bytes_g1=cfg2["shared_bytes"],
-           shared_bytes_g2=cfg2["shared_bytes_g2"])
+           shared_bytes_g2=k4_2["cfg"]["shared_bytes_g2"], **k4_layout_fields(k4_2["cfg"]))
     check_key(P2.name, cloud2, dkey2)
     del acc0, abar, got, want, dkey2
 
-    # K1 at N = 2048 and K4 at the instances of this slice's keys: N = 2048
-    # (primes 12289 and 40961), three primes (small), bundled rounds
-    # (small_v2_tpu: 36 digit rows; small_v2_tpu2: 30 rows, three primes);
-    # one ciphertext a block, at batches 512, 133 and 1, timed at 512
+    # K1 at N = 2048 and K4 at the instances of these keys: N = 2048 (primes
+    # 12289 and 40961), three primes (small), bundled rounds (small_v2_tpu:
+    # 36 digit rows; small_v2_tpu2: 30 rows, three primes); at batches 512,
+    # 133, 5 and 1, timed at 512
     PN = get_params("small_v2_n2048")
     P3 = get_params("small_v2_tpu2")
     new_keys = {}  # (set name, bundle) -> (secret key, cloud key), seed 0
@@ -1238,7 +1258,7 @@ def main() -> int:
                    counter="ntt", timed_prime=pn.primes[1])
             del x
         k4n = {}
-        for B4 in (pbs_chunk, 133, 1):
+        for B4 in (pbs_chunk, 133, 5, 1):
             acc0 = ri(-2**31, 2**31, (B4, 2, Nn))
             abar = ri(0, 2 * Nn, (B4, Pn.n))
             got = K.blind_rotate(acc0, abar, dkn.bk, Pn, pn)
@@ -1248,7 +1268,7 @@ def main() -> int:
             torch.cuda.synchronize()
             pms = (time.perf_counter() - t0) * 1e3
             err = same(f"blind_rotate {path} batch {B4}", got, want)
-            cfg = K.blind_rotate_config(B4, Pn, pn, bundle)
+            cfg = k4_layout_held(B4, Pn, pn, bundle)
             if B4 == pbs_chunk:
                 k4n = dict(err=err, pms=pms, cfg=cfg,
                            ms=cuda_ms(lambda: K.blind_rotate(acc0, abar, dkn.bk, Pn, pn), 3),
@@ -1257,16 +1277,12 @@ def main() -> int:
             print(f"kernel blind_rotate {path} [{B4}, 2, {Nn}], {len(pn.primes)} primes "
                   f"{pn.primes}: bit-identical to twin ({pms:.0f} ms), {cfg}"
                   + (f", {k4n['ms']:.4f} ms" if B4 == pbs_chunk else ""), flush=True)
-        G, D = k4n["cfg"]["group"], 3 if bundle == 2 else 1
-        regs, spill = ptxas_usage(ptxas, f"blind_rotate_kernelILi{Nn}ELi{G}ELi{len(pn.primes)}"
-                                         f"ELi{D}E")
+        D = 3 if bundle == 2 else 1
         report(f"blind_rotate_{Pn.name}" + ("_bundle2" if bundle == 2 else ""),
                [pbs_chunk, 2, Nn], k4n["err"], k4n["ms"], k4n["pms"], k4n["bytes_"],
                k4n["ops"], "redsec_tpu/crypto/pallas_blind.py:60", params=path,
                counter="blind_rotate", primes=pn.primes, bundle=bundle,
-               digit_rows=Rn * D, rounds=Pn.n // bundle,
-               ciphertexts_per_block=G, chunk_rows=k4n["cfg"]["chunk_rows"],
-               shared_bytes=k4n["cfg"]["shared_bytes"], registers=regs, spill_bytes=spill)
+               digit_rows=Rn * D, rounds=Pn.n // bundle, **k4_layout_fields(k4n["cfg"]))
         del acc0, abar, got, want, dkn
         torch.cuda.empty_cache()
 

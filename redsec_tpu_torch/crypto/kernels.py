@@ -83,7 +83,10 @@ def _plan_ok(plan: ntt_mod.NttPlan) -> bool:
 def supported(params: TfheParams, plan: ntt_mod.NttPlan, bundle: int = 1) -> bool:
     """Whether the CUDA kernels take this parameter set, NTT plan and key
     bundling.  A bundled round's three differences do not fit shared memory
-    beside the N = 2048 transforms, so bundled keys stop at N = 1024."""
+    beside the N = 2048 transforms, so bundled keys stop at N = 1024.  How
+    K4 lays out each instance it takes (``group`` ciphertexts a block, so
+    that one load of a key row serves them all; digit rows in chunks) is
+    ``k4_layout``."""
     return (_plan_ok(plan) and params.l * params.bg_bit <= 32 and params.N == plan.N
             and (bundle == 1 or (bundle == 2 and params.n % 2 == 0 and plan.N < 2048)))
 
@@ -164,8 +167,8 @@ _ENTRIES = {
     "redsec_external_product": [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     "redsec_cmux_round": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
     "redsec_blind_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _I, _I,
-                            _P],
-    "redsec_blind_rotate_config": [_I, _I, _I, _I, _I, ctypes.POINTER(_I)],
+                            _I, _P],
+    "redsec_blind_rotate_config": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 _loaded: list[Library] = []
 
@@ -441,8 +444,12 @@ def blind_rotate_plain(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
 
 
 def blind_rotate(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
-                 params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """K4: see ``blind_rotate_plain``.  One launch runs all rounds."""
+                 params: TfheParams, plan: ntt_mod.NttPlan,
+                 chunk_rows: int | None = None) -> torch.Tensor:
+    """K4: see ``blind_rotate_plain``.  One launch runs all rounds, laid out
+    as ``k4_layout`` says; ``chunk_rows`` asks for that many digit rows a
+    chunk instead of the layout's (to time one against another: it must fit
+    shared memory, else the launch raises)."""
     if acc0.device.type == "cpu":
         return blind_rotate_plain(acc0, abar, bk, params, plan)
     bundle = key_bundle(bk, params)
@@ -460,29 +467,123 @@ def blind_rotate(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
     pr = tuple(plan.primes) + (0,) * (3 - len(plan.primes))
     _lib().launch("redsec_blind_rotate", "blind_rotate", dev, acc0.data_ptr(),
                   abar.data_ptr(), bk.data_ptr(), tabs.data_ptr(), out.data_ptr(), B, n, N,
-                  *_gadget_args(params), len(plan.primes), *pr, bundle)
+                  *_gadget_args(params), len(plan.primes), *pr, bundle, chunk_rows or 0)
     return out
 
 
 def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = None,
-                        bundle: int = 1) -> dict:
-    """How K4 runs at this batch on the current card, as the C entry chooses
-    it: ``group`` ciphertexts a block (2 when the batch exceeds the SM count
-    and two fit shared memory, so that one key load serves both),
-    ``chunk_rows`` digit rows transformed and multiplied at a time (all of
-    them where shared memory holds them), the block's dynamic
-    ``shared_bytes``, and ``shared_bytes_g2``, what two ciphertexts a block
-    would take with all their digit rows (above the 232,448 a block may have
-    where they do not fit)."""
+                        bundle: int = 1, sm_count: int | None = None) -> dict:
+    """How K4 runs at this batch, as the built library's C entry chooses it
+    for a card of ``sm_count`` SMs (default: the current card's): the keys of
+    ``k4_layout``, which mirrors the rule in Python, plus
+    ``shared_bytes_g2``, what two ciphertexts a block would take with all
+    their digit rows and every prime's stage tables (above the 232,448 a
+    block may have where they do not fit)."""
     plan = plan or bs.bootstrap_plan(params, bundle == 2)
-    out = (ctypes.c_int * 4)()
+    if sm_count is None:
+        sm_count = torch.cuda.get_device_properties(torch.cuda.current_device()) \
+            .multi_processor_count
+    out = (ctypes.c_int * 6)()
     code = _lib().fn["redsec_blind_rotate_config"](batch, params.N, params.l,
-                                                   len(plan.primes), bundle, out)
+                                                   len(plan.primes), bundle, sm_count, out)
     if code != 0:
         raise ValueError(f"blind_rotate_kernel has no instance for N={params.N}, "
                          f"{len(plan.primes)} primes, bundle {bundle}")
-    return {"group": out[0], "chunk_rows": out[1], "shared_bytes": out[2],
-            "shared_bytes_g2": out[3]}
+    N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
+    return {"group": out[0], "cluster": 1, "chunk_rows": out[1], "shared_bytes": out[2],
+            "tables_resident": bool(out[3]), "accumulators_on_r2": bool(out[5]),
+            "ciphertexts_per_key_load": out[0], "instance": _k4_instance(N, out[0], P, D),
+            "shared_bytes_g2": out[4]}
+
+
+# K4's layout (csrc/pbs.cu: Geo, Smem, k4_chunk, k4_config), mirrored so that
+# the CPU tests can hold it: shared memory a block may have on sm_90
+K4_MAX_SHARED = 232448
+
+
+def k4_shared_bytes(N: int, group: int, primes: int, diffs: int, chunk: int,
+                    tables: int, on_r2: bool = False) -> int:
+    """Dynamic shared bytes of ``Smem<N, group, primes, diffs>`` with ``chunk``
+    digit rows a chunk and the stage tables of ``tables`` primes: the tables
+    (uint2 [tables][2][N]), the exchange buffers ([POLYS][2][N + N/16 padded]
+    words, the key ring in the MAC), accumulators and differences ([group]
+    [1 + diffs][2][N] words; the accumulators' not counted where they live
+    on the last region, ``on_r2``), digit rows or MAC sums (uint16 [group *
+    max(chunk, 8)][N]) and the inverse transforms of all primes but the last
+    (uint16 [primes - 1][group * 8][N])."""
+    polys = 8 if N <= 1024 else 4
+    xw = N + N // 16  # N + 16 * S words, S = N / 256
+    words = (diffs if on_r2 else 1 + diffs) * group * 2 * N
+    return (8 * tables * 2 * N + 4 * (polys * 2 * xw + words)
+            + 2 * (group * max(chunk, 8) * N + (primes - 1) * group * 8 * N))
+
+
+def _k4_tables(N: int, group: int, primes: int, diffs: int) -> tuple[int, bool]:
+    """Primes whose stage tables stay in shared memory, and whether the
+    accumulators live on r2 for it: every prime's where they fit beside the
+    smallest chunk (N <= 1024), if need be with the accumulators on r2;
+    else one prime's at a time."""
+    smallest = (8 if N <= 1024 else 4) // group
+    for on_r2 in (False, True):
+        if N <= 1024 and k4_shared_bytes(N, group, primes, diffs, smallest, primes,
+                                         on_r2) <= K4_MAX_SHARED:
+            return primes, on_r2
+    return 1, False
+
+
+def _k4_chunk(N: int, group: int, primes: int, diffs: int, rows: int) -> int:
+    """The largest chunk of digit rows that fits at ``group`` ciphertexts a
+    block: all rows, else a multiple of POLYS / group; 0 where none fits
+    (the instance is not built)."""
+    step = (8 if N <= 1024 else 4) // group
+    tables, on_r2 = _k4_tables(N, group, primes, diffs)
+    if k4_shared_bytes(N, group, primes, diffs, step, tables, on_r2) > K4_MAX_SHARED:
+        return 0
+    cr = rows
+    while k4_shared_bytes(N, group, primes, diffs, cr, tables, on_r2) > K4_MAX_SHARED:
+        cr = (cr - 1) // step * step
+    return cr
+
+
+def _k4_instance(N: int, group: int, primes: int, diffs: int) -> str:
+    """The kernel a layout launches, as the compiler's report and the SASS
+    name it (the start of its mangled name)."""
+    return f"blind_rotate_kernelILi{N}ELi{group}ELi{primes}ELi{diffs}E"
+
+
+def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = None,
+              bundle: int = 1, sm_count: int = 132) -> dict:
+    """How K4 lays out a launch, a function of N, the primes, the bundling,
+    the digit rows, the batch and the card's SM count only (132 on the H100
+    SXM).  ``group``: ciphertexts a block, 2 when the batch exceeds the SM
+    count and two fit shared memory at some chunk of digit rows, so that each
+    key row a block loads serves both; ``cluster``: blocks that share a key
+    load, 1 (a cluster of two blocks with one multicast bulk copy a key row,
+    where two ciphertexts do not fit a block, was slower than one a block:
+    PERF.md); ``ciphertexts_per_key_load``: group x cluster;
+    ``chunk_rows``: digit rows transformed and multiplied at a time (the
+    largest chunk that fits); ``shared_bytes``: the block's dynamic shared
+    memory; ``tables_resident``: every prime's stage tables stay in shared
+    memory (else one prime's at a time, staged again for every prime of
+    every round); ``accumulators_on_r2``: the accumulators live on the
+    region of the inverse transforms, idle between rounds, each thread
+    carrying its own accumulator words through the round in registers (what
+    lets the tables stay where they would not fit beside the accumulators);
+    ``instance``: the kernel launched, as the compiler's report names it.
+    Raises for a combination ``supported`` refuses."""
+    plan = plan or bs.bootstrap_plan(params, bundle == 2)
+    if plan is None or not supported(params, plan, bundle):
+        raise ValueError(f"{params.name}, bundle {bundle}: not a blind_rotate_kernel instance")
+    N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
+    rows = D * params.decomp_rows
+    cr2 = _k4_chunk(N, 2, P, D, rows)
+    group = 2 if batch > sm_count and cr2 > 0 else 1
+    cr = cr2 if group == 2 else _k4_chunk(N, 1, P, D, rows)
+    tables, on_r2 = _k4_tables(N, group, P, D)
+    return {"group": group, "cluster": 1, "chunk_rows": cr,
+            "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables, on_r2),
+            "tables_resident": tables == P, "accumulators_on_r2": on_r2,
+            "ciphertexts_per_key_load": group, "instance": _k4_instance(N, group, P, D)}
 
 
 # --------------------------------------------------------------------------- #

@@ -20,11 +20,11 @@
 //
 // Design.  A block has N/2 threads (N/4 at N = 2048) and owns G ciphertexts
 // (G = 2 when the batch exceeds the card's SM count and two fit shared
-// memory, else 1; a ragged last block computes on a zero accumulator and
-// stores nothing for the missing ciphertext).  Every NTT-plan branch of the
-// JAX package has an instance: N = 256 .. 2048, two or three primes below
-// 2^16, plain rounds and 2-bit bundled ones (blind_rotate_kernel<N, G, P, D>,
-// D = 1 or 3 differences a round).
+// memory at some chunk of digit rows, else 1; a ragged last block computes
+// on a zero accumulator and stores nothing for the missing ciphertext).
+// Every NTT-plan branch of the JAX package has an instance: N = 256 .. 2048,
+// two or three primes below 2^16, plain rounds and 2-bit bundled ones
+// (blind_rotate_kernel<N, G, P, D>, D = 1 or 3 differences a round).
 //
 // * Transforms run in registers.  N/16 threads share one polynomial, 16
 //   coefficients a thread, so a block transforms 8 polynomials at once (4 at
@@ -65,13 +65,14 @@
 //   the JAX package's fp32 estimate on every reachable value.
 // * Twiddles.  The stage tables of every prime and both directions (uint2 =
 //   (w, w'), 16 KB a prime at N = 1024) are staged in shared memory once a
-//   block; at N = 2048 they hold one prime's at a time (32 KB), loaded again
-//   for every prime of every round.  Twist and untwist (one coalesced load a
-//   coefficient) come through the read-only cache.  Table layout per prime,
-//   uint2 [4][N]: twist, forward stage tables (the stage of half-span h at
-//   offset N - 2h), untwist (psi^-j / N), inverse stage tables (half-span h
-//   at offset h - 1); values and order of ntt.NttPlan (kernels.shoup_tables
-//   builds it).
+//   block; where they do not fit beside the rest (N = 2048, and two
+//   ciphertexts a block at three primes) they hold one prime's at a time
+//   (32 or 16 KB), loaded again for every prime of every round.  Twist and
+//   untwist (one coalesced load a coefficient) come through the read-only
+//   cache.  Table layout per prime, uint2 [4][N]: twist, forward stage
+//   tables (the stage of half-span h at offset N - 2h), untwist (psi^-j /
+//   N), inverse stage tables (half-span h at offset h - 1); values and order
+//   of ntt.NttPlan (kernels.shoup_tables builds it).
 // * One key load serves G ciphertexts, and its latency stays out of the
 //   loop: in the MAC a thread owns E = N/T consecutive coefficients of all
 //   G.  The exchange buffers, idle then, hold a ring of four BK rows (two at
@@ -80,10 +81,11 @@
 //   a 16-bit load (zero-extended: 40961 is a 16-bit pattern of the int16
 //   BK) and uses it G times.
 // * Digit rows in chunks.  Where all rows' transforms do not fit shared
-//   memory beside the rest (20 rows at N = 2048, a bundled round's 30 rows
-//   at three primes), the rows are transformed and multiplied `cr` at a
-//   time (a multiple of the polynomials a block transforms); the MAC's sums
-//   stay in registers across chunks.
+//   memory beside the rest (20 rows at N = 2048 or of two ciphertexts, a
+//   bundled round's 30 rows at three primes or 36 of two ciphertexts), the
+//   rows are transformed and multiplied `cr` at a time (G * cr a multiple of
+//   the polynomials a block transforms: the largest such chunk that fits);
+//   the MAC's sums stay in registers across chunks.
 // * blind_rotate loops over all rounds inside the block (the TPU's
 //   sequential grid axis has no Hopper counterpart): the accumulators stay in
 //   shared memory; each round writes X^t acc - acc + gadget offset once into
@@ -97,23 +99,38 @@
 // Shared memory (dynamic, opted in with cudaFuncSetAttribute; a block may
 // have 232,448 B), stage tables / exchange / accumulators and differences /
 // digit rows and MAC sums (uint16, aliased) / results of all primes but the
-// last:
-//   small_v2_tpu, N 1024, 12 rows, G 2:  32 + 68 + 32 + 48 + 32 KB = 217,088 B
-//   small_v2, 20 rows, G 1:              32 + 68 + 16 + 40 + 16 KB = 176,128 B
-//   small, three primes, 6 rows, G 1:    48 + 68 + 16 + 16 + 32 KB = 184,320 B
-//   small_v2_n2048, N 2048, chunks of 12: 32 + 68 + 32 + 48 + 32 KB = 217,088 B
-//   bundled small_v2_tpu, 36 rows, G 1:  32 + 68 + 32 + 72 + 16 KB = 225,280 B
+// last, beyond one wave of blocks (kernels.k4_layout mirrors the rule):
+//   small_v2_tpu, N 1024, 12 rows, G 2:   32 + 68 + 32 + 48 + 32 KB = 217,088 B
+//   small_v2, 20 rows in chunks of 12, G 2:
+//                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
+//   small, three primes, 6 rows, G 2, one prime's tables at a time:
+//                                          16 + 68 + 32 + 32 + 64 KB = 217,088 B
+//   bundled small_v2_tpu, 36 rows in chunks of 8, G 2, accumulators on r2:
+//                                          32 + 68 + 48 + 32 + 32 KB = 217,088 B
+//   small_v2_n2048, N 2048, chunks of 12, G 1:
+//                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
 //   bundled small_v2_tpu2, 30 rows in chunks of 16, three primes, G 1:
-//                                         48 + 68 + 32 + 32 + 32 KB = 217,088 B
+//                                          48 + 68 + 32 + 32 + 32 KB = 217,088 B
+// Two ciphertexts of the last two do not fit (299,008 and 249,856 B at the
+// smallest chunk with one prime's tables); a cluster of two blocks, one
+// ciphertext each, that loaded each key row once for both by a multicast
+// bulk copy was slower than one a block on the H100 (PERF.md), so they run
+// one a block.  Up to one wave of blocks every set runs one a block (small_v2
+// 176,128 B with all 20 rows, small 184,320, bundled small_v2_tpu 225,280).
 // A bundled round at N = 2048 (three differences of 16 KB) does not fit and
 // has no instance.  One block of 16 warps per SM (124-128 registers a thread).
 //
-// Bound on this card: int32 instructions.  The prepared BK is 137.6 MB at
-// small_v2_tpu, 41 us at 3.35 TB/s, while 512 ciphertexts' rounds are
-// ~2e11 modular operations (chip_smoke.py counts both); each operation is
-// several instructions.  PERF.md has the instruction count read from the
-// SASS (scripts/sass_count.py), the floor it gives at 64 int32 lanes an SM,
-// and the measured times.
+// Bound on this card: int32 instructions in the transforms, and in the MAC
+// the rate at which the ring brings key rows from L2 into shared memory.
+// The prepared BK is 137.6 MB at small_v2_tpu, 41 us at 3.35 TB/s, while 512
+// ciphertexts' rounds are ~2e11 modular operations (chip_smoke.py counts
+// both); each operation is several instructions.  But every block reads
+// every key row of every round from L2, and the ring moves them at 5.4e12
+// B/s with 4-byte copies (8.5e12 with 8-byte ones at N = 2048;
+// tools/l2_rate.py), which is why a key row loaded once for two ciphertexts
+// pays.  PERF.md has the instruction count read from the SASS
+// (scripts/sass_count.py), the floor it gives at 64 int32 lanes an SM, and
+// the measured times.
 //
 // Each extern "C" entry returns cudaGetLastError() after its launch; the
 // Python wrapper raises if it is not 0.
@@ -527,29 +544,54 @@ __device__ __forceinline__ uint32_t crt3(uint32_t c0, uint32_t c1, uint32_t c2, 
 // Shared memory of G ciphertexts of a block, P primes, D differences a
 // round (1, or 3 for a bundled round), digit rows transformed and multiplied
 // `cr` at a time; all offsets are multiples of 16 bytes.
+// r1 holds a chunk's G * cr digit rows, then the G * 8 MAC sums.
+template <int G>
+__host__ __device__ constexpr int r1_rows(int cr) {
+  return G * (cr > 8 ? cr : 8);
+}
+
+// Bytes of Smem<N, G, P, D> with the stage tables of tp primes and the
+// accumulators in their own words (alias false) or on r2 (true).
+template <int N, int G, int P, int D>
+__host__ __device__ constexpr size_t smem_bytes(int tp, int cr, bool alias) {
+  return sizeof(uint2) * tp * 2 * N +
+         sizeof(uint32_t) * (Geo<N>::POLYS * 2 * Geo<N>::XW + (alias ? D : 1 + D) * G * 2 * N) +
+         sizeof(uint16_t) * (static_cast<size_t>(r1_rows<G>(cr)) * N +
+                             static_cast<size_t>(P - 1) * G * 8 * N);
+}
+
 template <int N, int G, int P, int D>
 struct Smem {
   using Ge = Geo<N>;
-  static constexpr int TP = Ge::RESIDENT ? P : 1;  // primes whose tables stay
+  static constexpr int SMALLEST = Ge::POLYS / G;  // the smallest chunk of digit rows
+  // Every prime's stage tables stay where they fit beside the smallest chunk
+  // of digit rows, if need be with the accumulators on r2 (ALIAS: between
+  // rounds r2 is idle, and in a round each thread carries the accumulator
+  // words it adds to in registers once the differences are out); else one
+  // prime's at a time, staged again for every prime of every round (N =
+  // 2048; three primes at G = 2)
+  static constexpr bool FITS = smem_bytes<N, G, P, D>(P, SMALLEST, false) <= kMaxSmem;
+  static constexpr bool RES =
+      Ge::RESIDENT && (FITS || smem_bytes<N, G, P, D>(P, SMALLEST, true) <= kMaxSmem);
+  static constexpr bool ALIAS = RES && !FITS;
+  static constexpr int TP = RES ? P : 1;  // primes whose tables stay
   uint2* stage;     // [TP][2: forward, inverse][N]
   uint32_t* ex;     // [POLYS][2][XW] exchange buffers, the BK ring in the MAC
-  uint32_t* acc;    // [G][2][N] accumulators (unused by external_product)
+  uint32_t* acc;    // [G][2][N] accumulators (unused by external_product); on r2 if ALIAS
   uint32_t* diff;   // [G][D][2][N] X^t acc - acc + gadget offset (likewise)
   uint16_t* r1;     // [G * max(cr, 8)][N]: digit rows in the NTT domain, then MAC sums
   uint16_t* r2;     // [P - 1][G * 8][N]: the inverse transforms of all primes but the last
   __host__ __device__ static constexpr size_t bytes(int cr) {
-    return sizeof(uint2) * TP * 2 * N +
-           sizeof(uint32_t) * (Ge::POLYS * 2 * Ge::XW + (1 + D) * G * 2 * N) +
-           sizeof(uint16_t) * (static_cast<size_t>(G) * (cr > 8 ? cr : 8) * N +
-                               static_cast<size_t>(P - 1) * G * 8 * N);
+    return smem_bytes<N, G, P, D>(TP, cr, ALIAS);
   }
   __device__ Smem(unsigned char* base, int cr) {
     stage = reinterpret_cast<uint2*>(base);
     ex = reinterpret_cast<uint32_t*>(stage + TP * 2 * N);
     acc = ex + Ge::POLYS * 2 * Ge::XW;
-    diff = acc + G * 2 * N;
+    diff = ALIAS ? acc : acc + G * 2 * N;
     r1 = reinterpret_cast<uint16_t*>(diff + D * G * 2 * N);
-    r2 = r1 + static_cast<size_t>(G) * (cr > 8 ? cr : 8) * N;
+    r2 = r1 + static_cast<size_t>(r1_rows<G>(cr)) * N;
+    if (ALIAS) acc = reinterpret_cast<uint32_t*>(r2);  // r2 has (P - 1) * G * 32 N bytes
   }
 };
 
@@ -594,8 +636,8 @@ __device__ __forceinline__ void external_product_block(
     const Mod md = crt_mod(crt, pi);
     const uint32_t p = md.p;
     const uint2* tab = tabs + pi * 4 * N;
-    const uint2* stage = sm.stage + (Ge::RESIDENT ? pi * 2 * N : 0);
-    if (!Ge::RESIDENT) stage_tables<N>(sm.stage, tabs, pi, 1);
+    const uint2* stage = sm.stage + (Smem<N, G, P, D>::RES ? pi * 2 * N : 0);
+    if (!Smem<N, G, P, D>::RES) stage_tables<N>(sm.stage, tabs, pi, 1);
     const uint32_t bias = digit.small_bias(p);
     // MAC accumulators: this thread's coefficients E*tid .. E*tid + E - 1 of
     // all 8 outputs and G ciphertexts, each BK residue fetched once for all
@@ -960,10 +1002,11 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
     const int16_t* __restrict__ bk, const uint2* __restrict__ tabs,
     int32_t* __restrict__ acc_out, int B, int n, int cr, Gadget g, Crt crt) {
   using Ge = Geo<N>;
+  using S = Smem<N, G, P, D>;
   constexpr int E = Ge::E;
   extern __shared__ uint4 smem_raw[];
   const int rows = D * 2 * g.l;
-  const Smem<N, G, P, D> sm(reinterpret_cast<unsigned char*>(smem_raw), cr);
+  const S sm(reinterpret_cast<unsigned char*>(smem_raw), cr);
   const int tid = threadIdx.x;
   const long long first = static_cast<long long>(blockIdx.x) * G;
   const int rounds = D == 3 ? n / 2 : n;
@@ -974,13 +1017,24 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
     for (int k = tid; k < 2 * N; k += Ge::T)
       sm.acc[c * 2 * N + k] =
           first + c < B ? static_cast<uint32_t>(acc0[(first + c) * 2 * N + k]) : 0u;
-  if (Ge::RESIDENT)
+  if (S::RES)
     stage_tables<N>(sm.stage, tabs, 0, P);  // ends with a barrier
   else
     __syncthreads();
   const GadgetDigits<N, D> dig{sm.diff, g};
 #pragma unroll 1
   for (int j = 0; j < rounds; ++j) {
+    // ALIAS: this thread's accumulator words, carried while the round
+    // overwrites r2 (the differences' reads of acc end at their barrier)
+    uint32_t own[G][2][E];
+    if constexpr (S::ALIAS) {
+#pragma unroll
+      for (int c = 0; c < G; ++c)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < E; ++e) own[c][u][e] = sm.acc[(c * 2 + u) * N + E * tid + e];
+    }
     if constexpr (D == 1) {
       int tt[G];
 #pragma unroll
@@ -999,20 +1053,33 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
     // reads sm.diff, never sm.acc, and only r1 and r2 after its last barrier
     external_product_block<N, G, P, D>(dig, rows, cr, bk + j * round_stride, prime_stride, tabs,
                                        crt, sm, delta);
+    if constexpr (S::ALIAS) {
+      __syncthreads();  // every thread has read r2 for its CRT
 #pragma unroll
-    for (int c = 0; c < G; ++c)
+      for (int c = 0; c < G; ++c)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        uint32_t* a = sm.acc + (c * 2 + u) * N + E * tid;
-        if constexpr (E == 2) {
-          const uint2 v = *reinterpret_cast<uint2*>(a);
-          *reinterpret_cast<uint2*>(a) = make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
-        } else {
-          const uint4 v = *reinterpret_cast<uint4*>(a);
-          *reinterpret_cast<uint4*>(a) = make_uint4(v.x + delta[c][u][0], v.y + delta[c][u][1],
-                                                    v.z + delta[c][u][2], v.w + delta[c][u][3]);
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            sm.acc[(c * 2 + u) * N + E * tid + e] = own[c][u][e] + delta[c][u][e];
+    } else {
+#pragma unroll
+      for (int c = 0; c < G; ++c)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          uint32_t* a = sm.acc + (c * 2 + u) * N + E * tid;
+          if constexpr (E == 2) {
+            const uint2 v = *reinterpret_cast<uint2*>(a);
+            *reinterpret_cast<uint2*>(a) =
+                make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
+          } else {
+            const uint4 v = *reinterpret_cast<uint4*>(a);
+            *reinterpret_cast<uint4*>(a) =
+                make_uint4(v.x + delta[c][u][0], v.y + delta[c][u][1], v.z + delta[c][u][2],
+                           v.w + delta[c][u][3]);
+          }
         }
-      }
+    }
     __syncthreads();
   }
 #pragma unroll
@@ -1088,33 +1155,52 @@ bool allow_smem(Kernel kernel, size_t bytes) {
 // at the smallest chunk of digit rows.
 template <int N, int G, int P, int D>
 constexpr bool k4_built() {
-  return Smem<N, G, P, D>::bytes(Geo<N>::POLYS) <= kMaxSmem;
+  return Smem<N, G, P, D>::bytes(Geo<N>::POLYS / G) <= kMaxSmem;
 }
 
-// How a launch of K4 runs.  Two ciphertexts a block when one a block would
-// need more than one wave of blocks and all digit rows of two fit shared
-// memory; else one, with the digit rows in chunks of a multiple of POLYS
-// where all of them do not fit.
+// The largest chunk of digit rows whose layout fits a block at G
+// ciphertexts: all rows, else a multiple of POLYS / G (G * cr digit
+// polynomials fill whole batches of transforms); 0 where none fits.
+template <int N, int G, int P, int D>
+int k4_chunk(int rows) {
+  if constexpr (k4_built<N, G, P, D>()) {
+    constexpr int step = Geo<N>::POLYS / G;
+    int cr = rows;
+    while (Smem<N, G, P, D>::bytes(cr) > kMaxSmem) cr = (cr - 1) / step * step;
+    return cr;
+  }
+  return 0;
+}
+
+// How a launch of K4 runs, a function of the instance, the digit rows, the
+// batch and the card's SM count only.  Two ciphertexts a block, so that one
+// load of a key row serves both, when one a block would need more than one
+// wave of blocks and two fit shared memory at some chunk of digit rows (the
+// largest such chunk); else one.  `chunk` > 0 asks for that many rows a
+// chunk instead (for timing; it must fit).
 struct K4Config {
   int G, cr;
   size_t bytes;
+  bool resident;  // every prime's stage tables stay in shared memory
+  bool alias;     // the accumulators live on r2 (Smem::ALIAS)
 };
 
+template <int N, int G, int P, int D>
+K4Config k4_layout(int cr) {
+  using S = Smem<N, G, P, D>;
+  return K4Config{G, cr, S::bytes(cr), S::RES, S::ALIAS};
+}
+
 template <int N, int P, int D>
-bool k4_config(int B, int rows, K4Config* out) {
-  if constexpr (k4_built<N, 2, P, D>()) {
-    if (B > sm_count() && Smem<N, 2, P, D>::bytes(rows) <= kMaxSmem) {
-      *out = K4Config{2, rows, Smem<N, 2, P, D>::bytes(rows)};
-      return true;
-    }
-  }
-  if constexpr (k4_built<N, 1, P, D>()) {
-    int cr = rows;
-    while (Smem<N, 1, P, D>::bytes(cr) > kMaxSmem) cr = (cr - 1) / Geo<N>::POLYS * Geo<N>::POLYS;
-    *out = K4Config{1, cr, Smem<N, 1, P, D>::bytes(cr)};
-    return true;
-  }
-  return false;
+bool k4_config(int B, int rows, int sms, int chunk, K4Config* out) {
+  const int cr2 = k4_chunk<N, 2, P, D>(rows), cr1 = k4_chunk<N, 1, P, D>(rows);
+  if (B > sms && cr2 > 0)
+    *out = k4_layout<N, 2, P, D>(chunk > 0 ? chunk : cr2);
+  else if (cr1 > 0)
+    *out = k4_layout<N, 1, P, D>(chunk > 0 ? chunk : cr1);
+  else
+    return false;
+  return chunk <= rows && out->bytes <= kMaxSmem;
 }
 
 template <int N, int G, int P, int D>
@@ -1133,10 +1219,11 @@ int launch_blind_rotate(const K4Config& cf, const int32_t* acc0, const int32_t* 
 
 template <int N, int P, int D>
 int dispatch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t* bk,
-                          const uint2* tabs, int32_t* out, int B, int n, Gadget g, Crt crt,
-                          cudaStream_t stream) {
+                          const uint2* tabs, int32_t* out, int B, int n, int chunk, Gadget g,
+                          Crt crt, cudaStream_t stream) {
   K4Config cf;
-  if (!k4_config<N, P, D>(B, D * 2 * g.l, &cf)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!k4_config<N, P, D>(B, D * 2 * g.l, sm_count(), chunk, &cf))
+    return static_cast<int>(cudaErrorInvalidValue);
   return cf.G == 2
              ? launch_blind_rotate<N, 2, P, D>(cf, acc0, abar, bk, tabs, out, B, n, g, crt, stream)
              : launch_blind_rotate<N, 1, P, D>(cf, acc0, abar, bk, tabs, out, B, n, g, crt, stream);
@@ -1238,45 +1325,52 @@ int redsec_cmux_round(const int32_t* acc, const int32_t* t, const int16_t* bk,
   return static_cast<int>(cudaGetLastError());
 }
 
-// How K4 runs at batch B: out[0] ciphertexts a block, out[1] digit rows a
-// chunk, out[2] dynamic shared bytes, out[3] the shared bytes two ciphertexts
-// a block would take with all their digit rows (above what a block may have
-// where they do not fit).  Returns non-zero for a combination without an
-// instance.
-int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int* out) {
+// How K4 runs at batch B on a card with `sms` SMs: out[0] ciphertexts a
+// block, out[1] digit rows a chunk, out[2] dynamic shared bytes, out[3] 1
+// where every prime's stage tables stay in shared memory (0: one prime's at
+// a time, staged again for every prime of every round), out[4] the shared
+// bytes two ciphertexts a block would take with all their digit rows and
+// every prime's tables (above what a block may have where they do not fit),
+// out[5] 1 where the accumulators live on r2 (Smem::ALIAS).  Returns
+// non-zero for a combination without an instance.
+int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, int* out) {
   const int D = bundle == 2 ? 3 : 1;
-  K4Config cf{0, 0, 0};
+  K4Config cf{0, 0, 0, false, false};
   size_t bytes2 = 0;
   bool ok = false;
   REDSEC_DISPATCH_K4(N, P, D, {
-    ok = k4_config<NN, PP, DD>(B, DD * 2 * l, &cf);
-    bytes2 = Smem<NN, 2, PP, DD>::bytes(DD * 2 * l);
+    ok = k4_config<NN, PP, DD>(B, DD * 2 * l, sms, 0, &cf);
+    bytes2 = smem_bytes<NN, 2, PP, DD>(Geo<NN>::RESIDENT ? PP : 1, DD * 2 * l, false);
     break;
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   out[0] = cf.G;
   out[1] = cf.cr;
   out[2] = static_cast<int>(cf.bytes);
-  out[3] = static_cast<int>(bytes2);
+  out[3] = cf.resident;
+  out[4] = static_cast<int>(bytes2);
+  out[5] = cf.alias;
   return 0;
 }
 
 // K4: all CMUX rounds; bk int16 [P][n][rows][8][N] (bundle 1) or
 // [P][n/2][3 * rows][8][N] (bundle 2), abar int32 [B][n]; primes p0 < p1 (< p2).
+// chunk 0: digit rows a chunk as k4_config chooses them; else that many (it
+// must fit).
 int redsec_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t* bk,
                         const uint2* tabs, int32_t* out, int B, int n, int N, int l, int bg_bit,
-                        uint32_t offset, int P, int p0, int p1, int p2, int bundle,
+                        uint32_t offset, int P, int p0, int p1, int p2, int bundle, int chunk,
                         cudaStream_t stream) {
   const int pr[3] = {p0, p1, p2};
   if (B <= 0 || n <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(P, pr) ||
-      (bundle != 1 && bundle != 2) || (bundle == 2 && n % 2))
+      (bundle != 1 && bundle != 2) || (bundle == 2 && n % 2) || chunk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Crt crt = make_crt(P, pr);
   const Gadget g = make_gadget(l, bg_bit, offset, pr[P - 1], N);
   const int D = bundle == 2 ? 3 : 1;
   int code = static_cast<int>(cudaErrorInvalidValue);
   REDSEC_DISPATCH_K4(N, P, D, code = dispatch_blind_rotate<NN, PP, DD>(acc0, abar, bk, tabs, out, B,
-                                                                       n, g, crt, stream);
+                                                                       n, chunk, g, crt, stream);
                      break);
   return code;
 }

@@ -18,6 +18,18 @@ parent's passes that enter it, 1 or 0 as a rule), it multiplies them out: the in
 one thread executes in one launch.  Times the threads of a launch and over
 the card's instruction rate, that is the least time this code could take.
 Instructions under a predicate count as executed.
+
+``--executions`` gives instead, for each loop or region and then for the
+straight-line code, how many times one thread executes its own body (what
+is not nested deeper) in one launch, not multiplied by the enclosing spans:
+that also counts a region whose span holds the ``else`` of another branch
+(the compiler lays an ``if`` and its ``else`` out so).  With ``--threads``
+(the threads of a launch) it prints the floors of that stream on the H100:
+its int32 instructions (``mul`` and ``alu``) at 16.75e12 a second (64 lanes
+an SM a clock, as ``chip_smoke.py`` takes the int32 peak) and all its
+instructions at twice that (4 warp instructions an SM a clock); with
+``--parts`` (``name=first-last;...``, span numbers as printed) the share of
+the instructions in each.
 """
 
 from __future__ import annotations
@@ -38,6 +50,8 @@ CLASSES = (
     ("bar", ("BAR",)),
 )
 KINDS = ("mul", "alu", "lds", "sts", "ldg", "stg", "bar", "other")
+INT32_RATE = 67e12 / 4      # int32 lanes of the H100 a second, as chip_smoke.py takes it
+INSTR_RATE = 2 * INT32_RATE  # thread instructions dispatched a second: 4 warps an SM a clock
 INSTR = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_.]*)\s*(.*?);")
 
 
@@ -95,6 +109,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--kernel", required=True, help="substring of the mangled kernel name")
     ap.add_argument("--trips", help="trip count of each loop (1 or 0 for a region), in the "
                                     "order printed")
+    ap.add_argument("--executions", help="own-body executions a thread of each loop or "
+                                         "region, then of the straight-line code")
+    ap.add_argument("--threads", type=float, help="threads of a launch: print the floors")
+    ap.add_argument("--parts", help="name=first-last;... spans whose share to print")
     ap.add_argument("--region", type=int, default=48,
                     help="least length of a conditional region that is listed on its own")
     args = ap.parse_args(argv)
@@ -113,6 +131,10 @@ def main(argv=None) -> dict:
     trips = [float(t) for t in args.trips.split(",")] if args.trips else [None] * len(loops)
     if len(trips) != len(loops):
         raise SystemExit(f"{len(loops)} loops, {len(trips)} trip counts")
+    execs = [float(t) for t in args.executions.split(",")] if args.executions else None
+    if execs is not None and len(execs) != len(loops) + 1:
+        raise SystemExit(f"{len(loops)} loops and the straight-line code, "
+                         f"{len(execs)} execution counts")
     # owner[i] = innermost loop holding instruction i (-1: straight-line code)
     owner = [-1] * len(instrs)
     for li, (a, b, _) in enumerate(loops):  # outermost first, so inner ones overwrite
@@ -129,6 +151,8 @@ def main(argv=None) -> dict:
         mult, lj = 1, li
         while lj >= 0 and trips[lj] is not None:
             mult, lj = mult * trips[lj], parent[lj]
+        if execs is not None:
+            mult = execs[li]  # the straight-line code is last (li = -1)
         depth, lj = 0, li
         while lj >= 0:
             depth, lj = depth + 1, parent[lj]
@@ -142,11 +166,27 @@ def main(argv=None) -> dict:
         print(f"{name:32s} {sum(c.values()):6d} instructions: "
               + " ".join(f"{k} {v}" for k, v in by_class.items()))
     result = {"kernel": args.kernel, "static": len(instrs), "loops": rows}
-    if args.trips:
+    if args.trips or execs is not None:
         result["per_thread"] = {k: round(v) for k, v in total.items()}
         result["per_thread_total"] = round(sum(total.values()))
         print(f"one thread executes {result['per_thread_total']} instructions: "
               + " ".join(f"{k} {v}" for k, v in sorted(result["per_thread"].items())))
+    if args.threads and result.get("per_thread_total"):
+        int32 = total["mul"] + total["alu"]
+        result["int32_floor_ms"] = int32 * args.threads / INT32_RATE * 1e3
+        result["dispatch_floor_ms"] = sum(total.values()) * args.threads / INSTR_RATE * 1e3
+        print(f"floors on the H100 for {args.threads:g} threads: int32 "
+              f"{result['int32_floor_ms']:.4f} ms, dispatch {result['dispatch_floor_ms']:.4f} ms")
+    if args.parts and result.get("per_thread_total"):
+        shares = {}
+        for part in args.parts.split(";"):
+            name, _, span = part.partition("=")
+            lo, _, hi = span.partition("-")
+            shares[name] = sum(r["executed"] * r["body"] for r in rows
+                               if r["loop"] >= 0 and int(lo) <= r["loop"] <= int(hi or lo))
+        result["shares"] = {k: v / result["per_thread_total"] for k, v in shares.items()}
+        print("shares of the instructions: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in result["shares"].items()))
     print(json.dumps(result))
     return result
 

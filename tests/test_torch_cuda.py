@@ -97,11 +97,16 @@ def _blind_rotate_equals_twin(params, dkey, batch):
     got = K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan)
     assert K.launches.get("blind_rotate") == before + 1
     assert torch.equal(got, K.blind_rotate_plain(acc0, abar, dkey.bk, params, dkey.plan))
+    _config_equals_mirror(batch, params, dkey.plan, K.key_bundle(dkey.bk, params))
+
+
+def _config_equals_mirror(batch, params, plan, bundle):
+    """The layout the built library chooses is the Python mirror's."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    bundle = K.key_bundle(dkey.bk, params)
-    cfg = K.blind_rotate_config(batch, params, dkey.plan, bundle)
-    want_group = 2 if batch > sms and cfg["shared_bytes_g2"] <= 232448 else 1
-    assert cfg["group"] == want_group
+    cfg = K.blind_rotate_config(batch, params, plan, bundle)
+    want = K.k4_layout(batch, params, plan, bundle, sms)
+    assert {k: cfg[k] for k in want} == want
+    return cfg
 
 
 # one ciphertext a block up to the card's SM count, two beyond it; an odd
@@ -126,16 +131,34 @@ def key_small_v2():
     return SMALL_V2, bs.prepare_cloud_key(cloud, device="cuda")
 
 
-# the CLI's default set: 20 digit rows, so two ciphertexts no longer fit a
-# block's shared memory (one a block at every batch) and the MAC reduces
-# inside its row loop
-@pytest.mark.parametrize("batch", [1, 133, 512])
+# the CLI's default set: 20 digit rows, so two ciphertexts fit a block's
+# shared memory only with the rows in chunks (12 + 8) and the MAC reduces
+# inside its row loop; one ciphertext a block up to the SM count
+@pytest.mark.parametrize("batch", [1, 5, 133, 512])
 def test_blind_rotate_kernel_equals_twin_at_small_v2(key_small_v2, batch):
     params, dkey = key_small_v2
     assert params.decomp_rows == 20
-    assert K.blind_rotate_config(batch, params)["shared_bytes_g2"] > 232448
+    cfg = K.blind_rotate_config(batch, params)
+    assert cfg["shared_bytes_g2"] > 232448
     _blind_rotate_equals_twin(params, dkey, batch)
-    assert K.blind_rotate_config(batch, params)["group"] == 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (cfg["group"], cfg["chunk_rows"]) == ((2, 12) if batch > sms else (1, 20))
+
+
+@pytest.mark.parametrize("chunk", [4, 8, 12])
+def test_blind_rotate_chunk_rows_override_equals_twin(key_small_v2, chunk):
+    """Any chunk of digit rows that fits gives the same result (two
+    ciphertexts a block at 133)."""
+    params, dkey = key_small_v2
+    rng = np.random.default_rng(chunk)
+    acc0 = _ri(rng, -2**31, 2**31, (133, 2, params.N))
+    abar = _ri(rng, 0, 2 * params.N, (133, params.n))
+    got = K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan, chunk_rows=chunk)
+    assert torch.equal(got[:3], K.blind_rotate_plain(acc0[:3], abar[:3], dkey.bk, params,
+                                                     dkey.plan))
+    assert torch.equal(got, K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan))
+    with pytest.raises(RuntimeError):  # 20 rows of two ciphertexts do not fit
+        K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan, chunk_rows=20)
 
 
 NEW_SETS = [("small_v2_n2048", 1), ("small", 1), ("test_noiseless", 2), ("small_v2_tpu", 2),
@@ -154,9 +177,10 @@ def new_key(request):
     return params, bundle, bs.prepare_cloud_key(cloud, device="cuda")
 
 
-# the K4 instances of N = 2048, three primes and bundled rounds, one
-# ciphertext a block; 133 is above the SM count
-@pytest.mark.parametrize("batch", [1, 3, 133])
+# the K4 instances of N = 2048, three primes and bundled rounds at their
+# layouts (kernels.k4_layout); 133 and 512 are above the SM count, 133 and 5
+# end on a ragged block or cluster
+@pytest.mark.parametrize("batch", [1, 3, 5, 133, 512])
 def test_blind_rotate_kernel_equals_twin_at_the_new_instances(new_key, batch):
     params, bundle, dkey = new_key
     assert dkey.bundle == bundle and K.key_bundle(dkey.bk, params) == bundle
@@ -166,10 +190,13 @@ def test_blind_rotate_kernel_equals_twin_at_the_new_instances(new_key, batch):
     before = K.launches.get("blind_rotate")
     got = K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan)
     assert K.launches.get("blind_rotate") == before + 1
-    m = min(batch, 3)  # the twin on a prefix: every ciphertext runs the same code
-    assert torch.equal(got[:m], K.blind_rotate_plain(acc0[:m], abar[:m], dkey.bk, params,
-                                                     dkey.plan))
-    cfg = K.blind_rotate_config(batch, params, dkey.plan, bundle)
+    # the twin on the first and the last ciphertexts (the last block's may be
+    # alone in it): every ciphertext runs the same code
+    idx = torch.tensor(sorted({0, 1, 2, batch - 2, batch - 1} & set(range(batch))),
+                       device=acc0.device)
+    assert torch.equal(got[idx], K.blind_rotate_plain(acc0[idx], abar[idx], dkey.bk, params,
+                                                      dkey.plan))
+    cfg = _config_equals_mirror(batch, params, dkey.plan, bundle)
     assert cfg["shared_bytes"] <= 232448 and 1 <= cfg["chunk_rows"]
 
 
