@@ -32,8 +32,8 @@ Phases (any failure exits non-zero):
    (``bundle=2``: n/2 rounds of 3 x 2l digit rows; three primes at tpu2).
    At every instance and batch the layout the library chooses must be
    ``kernels.k4_layout``'s; each record gives the ciphertexts a block and
-   a key load serves, the cluster size, the chunk of digit rows, the shared
-   bytes, registers and spills.  Every key
+   a key load serves (every block loads its own key rows), the chunk of
+   digit rows, the shared bytes, registers and spills.  Every key
    prepared on the card in this phase (``small_v2`` and the four above) must
    equal, bit for bit, the same key prepared with the NTT twin in the
    kernel's place: that holds K1 at exactly the row counts each preparation
@@ -1028,6 +1028,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     # ---- phase 3: kernels against their twins
+    t_kernels = time.perf_counter()
     gen = np.random.default_rng(7)
     rec = {}
 
@@ -1152,8 +1153,7 @@ def main() -> int:
     def k4_layout_fields(cfg):
         regs, spill = ptxas_usage(ptxas, cfg["instance"])
         return dict(instance=cfg["instance"], ciphertexts_per_block=cfg["group"],
-                    cluster=cfg["cluster"],
-                    ciphertexts_per_key_load=cfg["ciphertexts_per_key_load"],
+                    ciphertexts_per_key_load=cfg["group"],
                     chunk_rows=cfg["chunk_rows"], shared_bytes=cfg["shared_bytes"],
                     tables_resident=cfg["tables_resident"], registers=regs, spill_bytes=spill)
 
@@ -1357,6 +1357,7 @@ def main() -> int:
     print(f"test-vector rotate [{pbs_chunk}, {N}]: one broadcast vector "
           f"{tv_rot['broadcast']:.4f} ms, one per ciphertext "
           f"{tv_rot['per_ciphertext']:.4f} ms on {card}", flush=True)
+    print(f"kernel phase: {time.perf_counter() - t_kernels:.1f} s", flush=True)
 
     # ---- phase 4: the sign slice through the port's entry points
     rng = np.random.default_rng(1)

@@ -167,7 +167,7 @@ _ENTRIES = {
     "redsec_external_product": [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
     "redsec_cmux_round": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
     "redsec_blind_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _I, _I,
-                            _I, _P],
+                            _P],
     "redsec_blind_rotate_config": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
 }
 _loaded: list[Library] = []
@@ -444,12 +444,9 @@ def blind_rotate_plain(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
 
 
 def blind_rotate(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
-                 params: TfheParams, plan: ntt_mod.NttPlan,
-                 chunk_rows: int | None = None) -> torch.Tensor:
+                 params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
     """K4: see ``blind_rotate_plain``.  One launch runs all rounds, laid out
-    as ``k4_layout`` says; ``chunk_rows`` asks for that many digit rows a
-    chunk instead of the layout's (to time one against another: it must fit
-    shared memory, else the launch raises)."""
+    as ``k4_layout`` says."""
     if acc0.device.type == "cpu":
         return blind_rotate_plain(acc0, abar, bk, params, plan)
     bundle = key_bundle(bk, params)
@@ -467,7 +464,7 @@ def blind_rotate(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
     pr = tuple(plan.primes) + (0,) * (3 - len(plan.primes))
     _lib().launch("redsec_blind_rotate", "blind_rotate", dev, acc0.data_ptr(),
                   abar.data_ptr(), bk.data_ptr(), tabs.data_ptr(), out.data_ptr(), B, n, N,
-                  *_gadget_args(params), len(plan.primes), *pr, bundle, chunk_rows or 0)
+                  *_gadget_args(params), len(plan.primes), *pr, bundle)
     return out
 
 
@@ -483,16 +480,15 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
     if sm_count is None:
         sm_count = torch.cuda.get_device_properties(torch.cuda.current_device()) \
             .multi_processor_count
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 5)()
     code = _lib().fn["redsec_blind_rotate_config"](batch, params.N, params.l,
                                                    len(plan.primes), bundle, sm_count, out)
     if code != 0:
         raise ValueError(f"blind_rotate_kernel has no instance for N={params.N}, "
                          f"{len(plan.primes)} primes, bundle {bundle}")
     N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
-    return {"group": out[0], "cluster": 1, "chunk_rows": out[1], "shared_bytes": out[2],
-            "tables_resident": bool(out[3]), "accumulators_on_r2": bool(out[5]),
-            "ciphertexts_per_key_load": out[0], "instance": _k4_instance(N, out[0], P, D),
+    return {"group": out[0], "chunk_rows": out[1], "shared_bytes": out[2],
+            "tables_resident": bool(out[3]), "instance": _k4_instance(N, out[0], P, D),
             "shared_bytes_g2": out[4]}
 
 
@@ -502,33 +498,29 @@ K4_MAX_SHARED = 232448
 
 
 def k4_shared_bytes(N: int, group: int, primes: int, diffs: int, chunk: int,
-                    tables: int, on_r2: bool = False) -> int:
+                    tables: int) -> int:
     """Dynamic shared bytes of ``Smem<N, group, primes, diffs>`` with ``chunk``
     digit rows a chunk and the stage tables of ``tables`` primes: the tables
     (uint2 [tables][2][N]), the exchange buffers ([POLYS][2][N + N/16 padded]
     words, the key ring in the MAC), accumulators and differences ([group]
-    [1 + diffs][2][N] words; the accumulators' not counted where they live
-    on the last region, ``on_r2``), digit rows or MAC sums (uint16 [group *
+    [1 + diffs][2][N] words), digit rows or MAC sums (uint16 [group *
     max(chunk, 8)][N]) and the inverse transforms of all primes but the last
     (uint16 [primes - 1][group * 8][N])."""
     polys = 8 if N <= 1024 else 4
     xw = N + N // 16  # N + 16 * S words, S = N / 256
-    words = (diffs if on_r2 else 1 + diffs) * group * 2 * N
-    return (8 * tables * 2 * N + 4 * (polys * 2 * xw + words)
+    return (8 * tables * 2 * N + 4 * (polys * 2 * xw + (1 + diffs) * group * 2 * N)
             + 2 * (group * max(chunk, 8) * N + (primes - 1) * group * 8 * N))
 
 
-def _k4_tables(N: int, group: int, primes: int, diffs: int) -> tuple[int, bool]:
-    """Primes whose stage tables stay in shared memory, and whether the
-    accumulators live on r2 for it: every prime's where they fit beside the
-    smallest chunk (N <= 1024), if need be with the accumulators on r2;
-    else one prime's at a time."""
+def _k4_tables(N: int, group: int, primes: int, diffs: int) -> int:
+    """Primes whose stage tables stay in shared memory: every prime's where
+    they fit beside the smallest chunk (N <= 1024), else one prime's at a
+    time."""
     smallest = (8 if N <= 1024 else 4) // group
-    for on_r2 in (False, True):
-        if N <= 1024 and k4_shared_bytes(N, group, primes, diffs, smallest, primes,
-                                         on_r2) <= K4_MAX_SHARED:
-            return primes, on_r2
-    return 1, False
+    if N <= 1024 and k4_shared_bytes(N, group, primes, diffs, smallest,
+                                     primes) <= K4_MAX_SHARED:
+        return primes
+    return 1
 
 
 def _k4_chunk(N: int, group: int, primes: int, diffs: int, rows: int) -> int:
@@ -536,11 +528,11 @@ def _k4_chunk(N: int, group: int, primes: int, diffs: int, rows: int) -> int:
     block: all rows, else a multiple of POLYS / group; 0 where none fits
     (the instance is not built)."""
     step = (8 if N <= 1024 else 4) // group
-    tables, on_r2 = _k4_tables(N, group, primes, diffs)
-    if k4_shared_bytes(N, group, primes, diffs, step, tables, on_r2) > K4_MAX_SHARED:
+    tables = _k4_tables(N, group, primes, diffs)
+    if k4_shared_bytes(N, group, primes, diffs, step, tables) > K4_MAX_SHARED:
         return 0
     cr = rows
-    while k4_shared_bytes(N, group, primes, diffs, cr, tables, on_r2) > K4_MAX_SHARED:
+    while k4_shared_bytes(N, group, primes, diffs, cr, tables) > K4_MAX_SHARED:
         cr = (cr - 1) // step * step
     return cr
 
@@ -557,19 +549,15 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     the digit rows, the batch and the card's SM count only (132 on the H100
     SXM).  ``group``: ciphertexts a block, 2 when the batch exceeds the SM
     count and two fit shared memory at some chunk of digit rows, so that each
-    key row a block loads serves both; ``cluster``: blocks that share a key
-    load, 1 (a cluster of two blocks with one multicast bulk copy a key row,
-    where two ciphertexts do not fit a block, was slower than one a block:
-    PERF.md); ``ciphertexts_per_key_load``: group x cluster;
+    key row a block loads serves both (every block loads its own key rows:
+    a cluster of two blocks sharing one multicast copy a row, where two
+    ciphertexts do not fit a block, was slower than one a block, PERF.md);
     ``chunk_rows``: digit rows transformed and multiplied at a time (the
     largest chunk that fits); ``shared_bytes``: the block's dynamic shared
     memory; ``tables_resident``: every prime's stage tables stay in shared
     memory (else one prime's at a time, staged again for every prime of
-    every round); ``accumulators_on_r2``: the accumulators live on the
-    region of the inverse transforms, idle between rounds, each thread
-    carrying its own accumulator words through the round in registers (what
-    lets the tables stay where they would not fit beside the accumulators);
-    ``instance``: the kernel launched, as the compiler's report names it.
+    every round); ``instance``: the kernel launched, as the compiler's
+    report names it.
     Raises for a combination ``supported`` refuses."""
     plan = plan or bs.bootstrap_plan(params, bundle == 2)
     if plan is None or not supported(params, plan, bundle):
@@ -579,11 +567,10 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     cr2 = _k4_chunk(N, 2, P, D, rows)
     group = 2 if batch > sm_count and cr2 > 0 else 1
     cr = cr2 if group == 2 else _k4_chunk(N, 1, P, D, rows)
-    tables, on_r2 = _k4_tables(N, group, P, D)
-    return {"group": group, "cluster": 1, "chunk_rows": cr,
-            "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables, on_r2),
-            "tables_resident": tables == P, "accumulators_on_r2": on_r2,
-            "ciphertexts_per_key_load": group, "instance": _k4_instance(N, group, P, D)}
+    tables = _k4_tables(N, group, P, D)
+    return {"group": group, "chunk_rows": cr,
+            "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables),
+            "tables_resident": tables == P, "instance": _k4_instance(N, group, P, D)}
 
 
 # --------------------------------------------------------------------------- #

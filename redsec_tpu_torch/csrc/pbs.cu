@@ -105,8 +105,8 @@
 //                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
 //   small, three primes, 6 rows, G 2, one prime's tables at a time:
 //                                          16 + 68 + 32 + 32 + 64 KB = 217,088 B
-//   bundled small_v2_tpu, 36 rows in chunks of 8, G 2, accumulators on r2:
-//                                          32 + 68 + 48 + 32 + 32 KB = 217,088 B
+//   bundled small_v2_tpu, 36 rows in chunks of 8, G 2, one prime's tables at a time:
+//                                          16 + 68 + 64 + 32 + 32 KB = 217,088 B
 //   small_v2_n2048, N 2048, chunks of 12, G 1:
 //                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
 //   bundled small_v2_tpu2, 30 rows in chunks of 16, three primes, G 1:
@@ -550,12 +550,11 @@ __host__ __device__ constexpr int r1_rows(int cr) {
   return G * (cr > 8 ? cr : 8);
 }
 
-// Bytes of Smem<N, G, P, D> with the stage tables of tp primes and the
-// accumulators in their own words (alias false) or on r2 (true).
+// Bytes of Smem<N, G, P, D> with the stage tables of tp primes.
 template <int N, int G, int P, int D>
-__host__ __device__ constexpr size_t smem_bytes(int tp, int cr, bool alias) {
+__host__ __device__ constexpr size_t smem_bytes(int tp, int cr) {
   return sizeof(uint2) * tp * 2 * N +
-         sizeof(uint32_t) * (Geo<N>::POLYS * 2 * Geo<N>::XW + (alias ? D : 1 + D) * G * 2 * N) +
+         sizeof(uint32_t) * (Geo<N>::POLYS * 2 * Geo<N>::XW + (1 + D) * G * 2 * N) +
          sizeof(uint16_t) * (static_cast<size_t>(r1_rows<G>(cr)) * N +
                              static_cast<size_t>(P - 1) * G * 8 * N);
 }
@@ -565,33 +564,27 @@ struct Smem {
   using Ge = Geo<N>;
   static constexpr int SMALLEST = Ge::POLYS / G;  // the smallest chunk of digit rows
   // Every prime's stage tables stay where they fit beside the smallest chunk
-  // of digit rows, if need be with the accumulators on r2 (ALIAS: between
-  // rounds r2 is idle, and in a round each thread carries the accumulator
-  // words it adds to in registers once the differences are out); else one
-  // prime's at a time, staged again for every prime of every round (N =
-  // 2048; three primes at G = 2)
-  static constexpr bool FITS = smem_bytes<N, G, P, D>(P, SMALLEST, false) <= kMaxSmem;
+  // of digit rows; else one prime's at a time, staged again for every prime
+  // of every round (N = 2048; G = 2 at three primes or a bundled round)
   static constexpr bool RES =
-      Ge::RESIDENT && (FITS || smem_bytes<N, G, P, D>(P, SMALLEST, true) <= kMaxSmem);
-  static constexpr bool ALIAS = RES && !FITS;
+      Ge::RESIDENT && smem_bytes<N, G, P, D>(P, SMALLEST) <= kMaxSmem;
   static constexpr int TP = RES ? P : 1;  // primes whose tables stay
   uint2* stage;     // [TP][2: forward, inverse][N]
   uint32_t* ex;     // [POLYS][2][XW] exchange buffers, the BK ring in the MAC
-  uint32_t* acc;    // [G][2][N] accumulators (unused by external_product); on r2 if ALIAS
+  uint32_t* acc;    // [G][2][N] accumulators (unused by external_product)
   uint32_t* diff;   // [G][D][2][N] X^t acc - acc + gadget offset (likewise)
   uint16_t* r1;     // [G * max(cr, 8)][N]: digit rows in the NTT domain, then MAC sums
   uint16_t* r2;     // [P - 1][G * 8][N]: the inverse transforms of all primes but the last
   __host__ __device__ static constexpr size_t bytes(int cr) {
-    return smem_bytes<N, G, P, D>(TP, cr, ALIAS);
+    return smem_bytes<N, G, P, D>(TP, cr);
   }
   __device__ Smem(unsigned char* base, int cr) {
     stage = reinterpret_cast<uint2*>(base);
     ex = reinterpret_cast<uint32_t*>(stage + TP * 2 * N);
     acc = ex + Ge::POLYS * 2 * Ge::XW;
-    diff = ALIAS ? acc : acc + G * 2 * N;
+    diff = acc + G * 2 * N;
     r1 = reinterpret_cast<uint16_t*>(diff + D * G * 2 * N);
     r2 = r1 + static_cast<size_t>(r1_rows<G>(cr)) * N;
-    if (ALIAS) acc = reinterpret_cast<uint32_t*>(r2);  // r2 has (P - 1) * G * 32 N bytes
   }
 };
 
@@ -1024,17 +1017,6 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
   const GadgetDigits<N, D> dig{sm.diff, g};
 #pragma unroll 1
   for (int j = 0; j < rounds; ++j) {
-    // ALIAS: this thread's accumulator words, carried while the round
-    // overwrites r2 (the differences' reads of acc end at their barrier)
-    uint32_t own[G][2][E];
-    if constexpr (S::ALIAS) {
-#pragma unroll
-      for (int c = 0; c < G; ++c)
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int e = 0; e < E; ++e) own[c][u][e] = sm.acc[(c * 2 + u) * N + E * tid + e];
-    }
     if constexpr (D == 1) {
       int tt[G];
 #pragma unroll
@@ -1053,33 +1035,20 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
     // reads sm.diff, never sm.acc, and only r1 and r2 after its last barrier
     external_product_block<N, G, P, D>(dig, rows, cr, bk + j * round_stride, prime_stride, tabs,
                                        crt, sm, delta);
-    if constexpr (S::ALIAS) {
-      __syncthreads();  // every thread has read r2 for its CRT
 #pragma unroll
-      for (int c = 0; c < G; ++c)
+    for (int c = 0; c < G; ++c)
 #pragma unroll
-        for (int u = 0; u < 2; ++u)
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            sm.acc[(c * 2 + u) * N + E * tid + e] = own[c][u][e] + delta[c][u][e];
-    } else {
-#pragma unroll
-      for (int c = 0; c < G; ++c)
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          uint32_t* a = sm.acc + (c * 2 + u) * N + E * tid;
-          if constexpr (E == 2) {
-            const uint2 v = *reinterpret_cast<uint2*>(a);
-            *reinterpret_cast<uint2*>(a) =
-                make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
-          } else {
-            const uint4 v = *reinterpret_cast<uint4*>(a);
-            *reinterpret_cast<uint4*>(a) =
-                make_uint4(v.x + delta[c][u][0], v.y + delta[c][u][1], v.z + delta[c][u][2],
-                           v.w + delta[c][u][3]);
-          }
+      for (int u = 0; u < 2; ++u) {
+        uint32_t* a = sm.acc + (c * 2 + u) * N + E * tid;
+        if constexpr (E == 2) {
+          const uint2 v = *reinterpret_cast<uint2*>(a);
+          *reinterpret_cast<uint2*>(a) = make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
+        } else {
+          const uint4 v = *reinterpret_cast<uint4*>(a);
+          *reinterpret_cast<uint4*>(a) = make_uint4(v.x + delta[c][u][0], v.y + delta[c][u][1],
+                                                    v.z + delta[c][u][2], v.w + delta[c][u][3]);
         }
-    }
+      }
     __syncthreads();
   }
 #pragma unroll
@@ -1176,31 +1145,29 @@ int k4_chunk(int rows) {
 // batch and the card's SM count only.  Two ciphertexts a block, so that one
 // load of a key row serves both, when one a block would need more than one
 // wave of blocks and two fit shared memory at some chunk of digit rows (the
-// largest such chunk); else one.  `chunk` > 0 asks for that many rows a
-// chunk instead (for timing; it must fit).
+// largest such chunk); else one.
 struct K4Config {
   int G, cr;
   size_t bytes;
   bool resident;  // every prime's stage tables stay in shared memory
-  bool alias;     // the accumulators live on r2 (Smem::ALIAS)
 };
 
 template <int N, int G, int P, int D>
 K4Config k4_layout(int cr) {
   using S = Smem<N, G, P, D>;
-  return K4Config{G, cr, S::bytes(cr), S::RES, S::ALIAS};
+  return K4Config{G, cr, S::bytes(cr), S::RES};
 }
 
 template <int N, int P, int D>
-bool k4_config(int B, int rows, int sms, int chunk, K4Config* out) {
+bool k4_config(int B, int rows, int sms, K4Config* out) {
   const int cr2 = k4_chunk<N, 2, P, D>(rows), cr1 = k4_chunk<N, 1, P, D>(rows);
   if (B > sms && cr2 > 0)
-    *out = k4_layout<N, 2, P, D>(chunk > 0 ? chunk : cr2);
+    *out = k4_layout<N, 2, P, D>(cr2);
   else if (cr1 > 0)
-    *out = k4_layout<N, 1, P, D>(chunk > 0 ? chunk : cr1);
+    *out = k4_layout<N, 1, P, D>(cr1);
   else
     return false;
-  return chunk <= rows && out->bytes <= kMaxSmem;
+  return true;
 }
 
 template <int N, int G, int P, int D>
@@ -1219,10 +1186,10 @@ int launch_blind_rotate(const K4Config& cf, const int32_t* acc0, const int32_t* 
 
 template <int N, int P, int D>
 int dispatch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t* bk,
-                          const uint2* tabs, int32_t* out, int B, int n, int chunk, Gadget g,
-                          Crt crt, cudaStream_t stream) {
+                          const uint2* tabs, int32_t* out, int B, int n, Gadget g, Crt crt,
+                          cudaStream_t stream) {
   K4Config cf;
-  if (!k4_config<N, P, D>(B, D * 2 * g.l, sm_count(), chunk, &cf))
+  if (!k4_config<N, P, D>(B, D * 2 * g.l, sm_count(), &cf))
     return static_cast<int>(cudaErrorInvalidValue);
   return cf.G == 2
              ? launch_blind_rotate<N, 2, P, D>(cf, acc0, abar, bk, tabs, out, B, n, g, crt, stream)
@@ -1330,17 +1297,16 @@ int redsec_cmux_round(const int32_t* acc, const int32_t* t, const int16_t* bk,
 // where every prime's stage tables stay in shared memory (0: one prime's at
 // a time, staged again for every prime of every round), out[4] the shared
 // bytes two ciphertexts a block would take with all their digit rows and
-// every prime's tables (above what a block may have where they do not fit),
-// out[5] 1 where the accumulators live on r2 (Smem::ALIAS).  Returns
-// non-zero for a combination without an instance.
+// every prime's tables (above what a block may have where they do not fit).
+// Returns non-zero for a combination without an instance.
 int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, int* out) {
   const int D = bundle == 2 ? 3 : 1;
-  K4Config cf{0, 0, 0, false, false};
+  K4Config cf{0, 0, 0, false};
   size_t bytes2 = 0;
   bool ok = false;
   REDSEC_DISPATCH_K4(N, P, D, {
-    ok = k4_config<NN, PP, DD>(B, DD * 2 * l, sms, 0, &cf);
-    bytes2 = smem_bytes<NN, 2, PP, DD>(Geo<NN>::RESIDENT ? PP : 1, DD * 2 * l, false);
+    ok = k4_config<NN, PP, DD>(B, DD * 2 * l, sms, &cf);
+    bytes2 = smem_bytes<NN, 2, PP, DD>(Geo<NN>::RESIDENT ? PP : 1, DD * 2 * l);
     break;
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -1349,28 +1315,25 @@ int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, 
   out[2] = static_cast<int>(cf.bytes);
   out[3] = cf.resident;
   out[4] = static_cast<int>(bytes2);
-  out[5] = cf.alias;
   return 0;
 }
 
 // K4: all CMUX rounds; bk int16 [P][n][rows][8][N] (bundle 1) or
 // [P][n/2][3 * rows][8][N] (bundle 2), abar int32 [B][n]; primes p0 < p1 (< p2).
-// chunk 0: digit rows a chunk as k4_config chooses them; else that many (it
-// must fit).
 int redsec_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t* bk,
                         const uint2* tabs, int32_t* out, int B, int n, int N, int l, int bg_bit,
-                        uint32_t offset, int P, int p0, int p1, int p2, int bundle, int chunk,
+                        uint32_t offset, int P, int p0, int p1, int p2, int bundle,
                         cudaStream_t stream) {
   const int pr[3] = {p0, p1, p2};
   if (B <= 0 || n <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(P, pr) ||
-      (bundle != 1 && bundle != 2) || (bundle == 2 && n % 2) || chunk < 0)
+      (bundle != 1 && bundle != 2) || (bundle == 2 && n % 2))
     return static_cast<int>(cudaErrorInvalidValue);
   const Crt crt = make_crt(P, pr);
   const Gadget g = make_gadget(l, bg_bit, offset, pr[P - 1], N);
   const int D = bundle == 2 ? 3 : 1;
   int code = static_cast<int>(cudaErrorInvalidValue);
   REDSEC_DISPATCH_K4(N, P, D, code = dispatch_blind_rotate<NN, PP, DD>(acc0, abar, bk, tabs, out, B,
-                                                                       n, chunk, g, crt, stream);
+                                                                       n, g, crt, stream);
                      break);
   return code;
 }

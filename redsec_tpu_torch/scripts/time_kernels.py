@@ -4,7 +4,6 @@ one checkout on the card.
     python -m redsec_tpu_torch.scripts.time_kernels
     python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent
     python -m redsec_tpu_torch.scripts.time_kernels --sets small_v2_n2048,small,small_v2_tpu/2
-    python -m redsec_tpu_torch.scripts.time_kernels --sets small_v2,small_v2@8
 
 ``--root`` names the checkout whose ``redsec_tpu_torch`` is imported (default:
 the one this file lies in), so two checkouts can be timed one after the other
@@ -14,14 +13,12 @@ the wrappers' public signatures are used (the timer is this checkout's
 against its plain twin (exact equality), then timed with CUDA events: K1 at
 [6144, 1024], K2 and K3 on 64 ciphertexts, K4 at a full chunk of 512 and at 32
 at ``small_v2_tpu``, and at 512 at every other parameter set of ``--sets``
-(``name`` or ``name/2`` for a bundled key, ``@rows`` for that many digit rows
-a chunk in place of the layout's, where the checkout's ``blind_rotate`` takes
-``chunk_rows``; default ``small_v2``, the CLI's set), with the layout the
-checkout's ``blind_rotate_config`` reports; S1, where the checkout has it,
-at batch 512 at N 4096 and 8192 with 6 and 8 digit rows (the schoolbook
-sets) and at 196 (``medium_v2``'s first sign1024x1 chunk) and 4 (a gate),
-with its float64-FFT twin timed beside it at [512, 8, 4096].  One JSON line
-per run ends the output.
+(``name`` or ``name/2`` for a bundled key; default ``small_v2``, the CLI's
+set), with the layout the checkout's ``blind_rotate_config`` reports; S1,
+where the checkout has it, at batch 512 at N 4096 and 8192 with 6 and 8 digit
+rows (the schoolbook sets) and at 196 (``medium_v2``'s first sign1024x1
+chunk) and 4 (a gate), with its float64-FFT twin timed beside it at [512, 8,
+4096].  One JSON line per run ends the output.
 """
 
 from __future__ import annotations
@@ -51,8 +48,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--tag", default="change", help="name of this checkout in the output")
     ap.add_argument("--sets", default="small_v2",
                     help="comma-separated parameter sets (name, or name/2 for a bundled "
-                         "key; @rows: digit rows a chunk) whose K4 is timed at batch 512 "
-                         "besides small_v2_tpu")
+                         "key) whose K4 is timed at batch 512 besides small_v2_tpu")
     args = ap.parse_args(argv)
     spec = importlib.util.spec_from_file_location(
         "time_kernels_device", os.path.join(os.path.dirname(HERE), "device.py"))
@@ -108,40 +104,33 @@ def main(argv=None) -> dict:
     t = ri(0, 2 * N, (64,))
     same("cmux_round", K.cmux_round(acc, t, bk0, P, plan), K.cmux_round_plain(acc, t, bk0, P, plan))
     out["cmux_round_ms"] = ms(lambda: K.cmux_round(acc, t, bk0, P, plan), 50)
-    runs = [("small_v2_tpu", 1, B, None) for B in K4_BATCHES]
+    runs = [("small_v2_tpu", 1, B) for B in K4_BATCHES]
     for item in filter(None, args.sets.split(",")):
-        item, _, chunk = item.partition("@")
         name, _, bundle = item.partition("/")
-        runs.append((name, int(bundle or 1), 512, int(chunk) if chunk else None))
-    keys = {("small_v2_tpu", 1): dkey}
-    for name, bundle, B, chunk in runs:
+        runs.append((name, int(bundle or 1), 512))
+    for name, bundle, B in runs:
         Pk = get_params(name)
-        if (name, bundle) not in keys:
+        if (name, bundle) != ("small_v2_tpu", 1):
             _, cloud = kg.keygen(Pk, seed=0, bundle=bundle)
-            keys = {("small_v2_tpu", 1): dkey,
-                    (name, bundle): bs.prepare_cloud_key(cloud, device="cuda")}
-        dk = keys[(name, bundle)]
-        opt = {} if chunk is None else {"chunk_rows": chunk}
+            dk = bs.prepare_cloud_key(cloud, device="cuda")
+        else:
+            dk = dkey
         acc0, abar = ri(-2**31, 2**31, (B, 2, Pk.N)), ri(0, 2 * Pk.N, (B, Pk.n))
         # the twin on a prefix of the batch (it takes seconds a ciphertext at
         # the larger sets); every ciphertext of a block runs the same code
         m = B if (Pk.N, bundle, len(dk.plan.primes)) == (1024, 1, 2) else 64
-        got = K.blind_rotate(acc0, abar, dk.bk, Pk, dk.plan, **opt)
+        got = K.blind_rotate(acc0, abar, dk.bk, Pk, dk.plan)
         same(f"blind_rotate {name}/{bundle} batch {B}", got[:m],
              K.blind_rotate_plain(acc0[:m], abar[:m], dk.bk, Pk, dk.plan))
-        tag = (("" if name == "small_v2_tpu" else f"_{name}") + ("_bundle2" if bundle == 2 else "")
-               + ("" if chunk is None else f"_chunk{chunk}"))
+        tag = ("" if name == "small_v2_tpu" else f"_{name}") + ("_bundle2" if bundle == 2 else "")
         out[f"blind_rotate_ms{tag}_{B}"] = ms(
-            lambda: K.blind_rotate(acc0, abar, dk.bk, Pk, dk.plan, **opt), K4_REPS)
+            lambda: K.blind_rotate(acc0, abar, dk.bk, Pk, dk.plan), K4_REPS)
         cfg = K.blind_rotate_config(B, Pk, dk.plan, bundle)
-        if chunk is not None:
-            cfg["chunk_rows"] = chunk
         out[f"blind_rotate_layout{tag}_{B}"] = cfg
         print(f"{args.tag} K4 {name} bundle {bundle} batch {B}: "
               f"{out[f'blind_rotate_ms{tag}_{B}']:.4f} ms, {cfg}", flush=True)
         del dk, got
         torch.cuda.empty_cache()
-    del keys
     if hasattr(K, "schoolbook_product"):
         for line in K.build_library(K.SCHOOLBOOK_SOURCE).splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:

@@ -145,22 +145,6 @@ def test_blind_rotate_kernel_equals_twin_at_small_v2(key_small_v2, batch):
     assert (cfg["group"], cfg["chunk_rows"]) == ((2, 12) if batch > sms else (1, 20))
 
 
-@pytest.mark.parametrize("chunk", [4, 8, 12])
-def test_blind_rotate_chunk_rows_override_equals_twin(key_small_v2, chunk):
-    """Any chunk of digit rows that fits gives the same result (two
-    ciphertexts a block at 133)."""
-    params, dkey = key_small_v2
-    rng = np.random.default_rng(chunk)
-    acc0 = _ri(rng, -2**31, 2**31, (133, 2, params.N))
-    abar = _ri(rng, 0, 2 * params.N, (133, params.n))
-    got = K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan, chunk_rows=chunk)
-    assert torch.equal(got[:3], K.blind_rotate_plain(acc0[:3], abar[:3], dkey.bk, params,
-                                                     dkey.plan))
-    assert torch.equal(got, K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan))
-    with pytest.raises(RuntimeError):  # 20 rows of two ciphertexts do not fit
-        K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan, chunk_rows=20)
-
-
 NEW_SETS = [("small_v2_n2048", 1), ("small", 1), ("test_noiseless", 2), ("small_v2_tpu", 2),
             ("small_v2_tpu2", 2)]
 
@@ -179,7 +163,7 @@ def new_key(request):
 
 # the K4 instances of N = 2048, three primes and bundled rounds at their
 # layouts (kernels.k4_layout); 133 and 512 are above the SM count, 133 and 5
-# end on a ragged block or cluster
+# end on a ragged block
 @pytest.mark.parametrize("batch", [1, 3, 5, 133, 512])
 def test_blind_rotate_kernel_equals_twin_at_the_new_instances(new_key, batch):
     params, bundle, dkey = new_key

@@ -64,36 +64,31 @@ def test_every_layout_fits_a_block(N, P, bundle, batch):
             or lay["chunk_rows"] * lay["group"] % polys == 0)
     # one ciphertext a block up to one wave of blocks; beyond it two where
     # two fit a block at the smallest chunk
-    assert lay["cluster"] == 1
     two_fit = K.k4_shared_bytes(N, 2, P, 3 if bundle == 2 else 1, polys // 2, 1) <= MAX
     assert lay["group"] == (2 if batch > SMS and two_fit else 1)
-    assert lay["ciphertexts_per_key_load"] == lay["group"]
     # a larger chunk would not fit (the rule takes the largest)
     if lay["chunk_rows"] < rows:
         step = polys // lay["group"]
         tables = P if lay["tables_resident"] else 1
         assert K.k4_shared_bytes(N, lay["group"], P, 3 if bundle == 2 else 1,
-                                 lay["chunk_rows"] + step, tables,
-                                 lay["accumulators_on_r2"]) > MAX
-    # the accumulators move onto r2 only to keep every prime's tables
-    if lay["accumulators_on_r2"]:
-        assert lay["tables_resident"] and K.k4_shared_bytes(
-            N, lay["group"], P, 3 if bundle == 2 else 1, polys // lay["group"], P) > MAX
+                                 lay["chunk_rows"] + step, tables) > MAX
+    # every prime's tables stay unless they do not fit beside the smallest chunk
+    assert lay["tables_resident"] == (N <= 1024 and K.k4_shared_bytes(
+        N, lay["group"], P, 3 if bundle == 2 else 1, polys // lay["group"], P) <= MAX)
 
 
 SHIPPED = [("small_v2", 1), ("small_v2_n2048", 1), ("small", 1), ("small_v2_tpu", 2),
            ("small_v2_tpu2", 2), ("small_v2_tpu", 1)]
-# (group, chunk rows, shared bytes, every prime's tables stay, accumulators
-# on r2) at batch 512 on 132 SMs: bundled small_v2_tpu keeps its tables
-# (233,472 bytes with them and the accumulators in their own 16 KB, 217,088
-# with the accumulators on r2); small stages them a prime (233,472 even so)
+# (group, chunk rows, shared bytes, every prime's tables stay) at batch 512
+# on 132 SMs: small and bundled small_v2_tpu stage their tables a prime
+# (233,472 bytes with every prime's at the smallest chunk)
 WANT = {
-    ("small_v2", 1): (2, 12, 217088, True, False),
-    ("small_v2_n2048", 1): (1, 12, 217088, False, False),
-    ("small", 1): (2, 6, 217088, False, False),
-    ("small_v2_tpu", 2): (2, 8, 217088, True, True),
-    ("small_v2_tpu2", 2): (1, 16, 217088, True, False),
-    ("small_v2_tpu", 1): (2, 12, 217088, True, False),
+    ("small_v2", 1): (2, 12, 217088, True),
+    ("small_v2_n2048", 1): (1, 12, 217088, False),
+    ("small", 1): (2, 6, 217088, False),
+    ("small_v2_tpu", 2): (2, 8, 217088, False),
+    ("small_v2_tpu2", 2): (1, 16, 217088, True),
+    ("small_v2_tpu", 1): (2, 12, 217088, True),
 }
 # Where two ciphertexts do not fit a block even at the smallest chunk with
 # the stage tables staged a prime (299,008 and 249,856 bytes), a cluster of
@@ -114,9 +109,8 @@ def test_shipped_sets_share_every_key_load_at_a_full_chunk(name, bundle):
     plan = bs.bootstrap_plan(params, bundle == 2)
     lay = K.k4_layout(512, params, plan, bundle, SMS)
     want_shared = 1 if (name, bundle) in ONE_A_BLOCK else 2
-    assert lay["ciphertexts_per_key_load"] == want_shared
-    got = (lay["group"], lay["chunk_rows"], lay["shared_bytes"], lay["tables_resident"],
-           lay["accumulators_on_r2"])
+    assert lay["group"] == want_shared
+    got = (lay["group"], lay["chunk_rows"], lay["shared_bytes"], lay["tables_resident"])
     assert got == WANT[(name, bundle)]
     N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
     assert lay["instance"] == f"blind_rotate_kernelILi{N}ELi{want_shared}ELi{P}ELi{D}E"
@@ -125,7 +119,7 @@ def test_shipped_sets_share_every_key_load_at_a_full_chunk(name, bundle):
     # the forward's smallest chunk (batch 32) and one ciphertext: one a block
     for batch in (1, 32):
         small = K.k4_layout(batch, params, plan, bundle, SMS)
-        assert (small["group"], small["cluster"]) == (1, 1)
+        assert small["group"] == 1
         assert small["shared_bytes"] <= MAX
 
 
