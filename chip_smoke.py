@@ -168,6 +168,29 @@ Phases (any failure exits non-zero):
      chip's host: 64 PBS on the phase-4 key, bit-identical to K4's, its PBS/s
      and OpenMP threads beside K4's.
    - ``entry(device="cuda")``: the scores' shape.
+14. ``phase14``: the JAX package's batch runner and validation scripts, ported
+   (``redsec_tpu_torch/scripts/``).
+   - ``run_encrypted_mnist`` at full width: ``mnist/sign1024x1``, golden
+     weights, ``small_v2_tpu`` keys generated into ``build/smoke_runner``,
+     batches of 8 from a synthetic 24-row CSV in the reference's layout
+     (numpy seed 1).  16 images with a checkpoint; extended to 24 (exactly one
+     new batch: its K4 launches at the door, twice with the warm-up pass, the
+     old batches' predictions unchanged); batch 8 deleted from the file and
+     run again (equal); ``--eval-offset 8 --images 8`` (batch 8's
+     predictions); ``--input-gain`` against the file (refused: "different
+     configuration").  Path ``runner/sign1024x1``; seconds a batch and PBS/s.
+   - ``validate_noise_budget --quick --count 96 --seed 0``: every
+     experiment's sigma, mean, decode errors and verdict equal, to the printed
+     digits, the JAX run's table in ``results/noise_budget_validation.log``
+     (native engine, same count and seed); each experiment's 96 PBS one K4
+     launch at the door.  Paths ``noise/<experiment>``, counted with
+     ``small_v2``'s records (``small_v2_tpu``'s for ``tpu2/total``: the
+     same instance, two primes at N 1024).
+   - ``validate_full_geometry`` at full-n ``medium``, 32 PBS (seed 0): its
+     RESULT equals ``results/full_geometry_validation.log:26`` but for
+     ``boots_per_s``; 3,072 S1 launches of 32 at the door; 4 outputs through
+     the twin path on the card bit-identical.  Path ``fullgeo/medium``; host
+     keygen, key preparation and PBS times.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -906,6 +929,233 @@ def phase13(c: dict) -> None:
     print("phase 13 stages:\n" + timer.report(), flush=True)
 
 
+# phase 14: the runner's CSV rows and images a batch; the logs of the JAX
+# package's runs that those scripts must reproduce
+RUNNER_ROWS, RUNNER_BATCH = 24, 8
+NOISE_LOG = os.path.join(HERE, "results", "noise_budget_validation.log")
+FULLGEO_LOG, FULLGEO_LINE = os.path.join(HERE, "results", "full_geometry_validation.log"), 26
+NOISE_ROW = re.compile(r"^(\S+/\S+)\s+[\d.]+\s+([\d.]+)\s+[\d.]+\s+([+-][\d.]+)\s+(\d+)\s+"
+                       r"(PASS|FAIL)\b")
+
+
+def logged_noise_rows(path: str) -> dict:
+    """{experiment: (sigma, mean, decode errors, verdict)} of the table in a
+    log of the JAX package's ``validate_noise_budget``, as printed."""
+    with open(path) as f:
+        return {m[1]: (m[2], m[3], int(m[4]), m[5])
+                for m in map(NOISE_ROW.match, f) if m}
+
+
+def phase14(c: dict) -> None:
+    """Phase 14: the batch runner with its checkpoint, and the noise-budget
+    and full-geometry scripts, on the card.
+
+    ``c`` holds the card's line, the sign net's plan and weights (``mplan``,
+    ``weights``), the PBS chunk, a work directory (removed at the end) and the
+    ``by_path`` / ``slices`` records it adds to.  Every script runs in
+    process through its ``main`` or its function, with the blind rotation
+    (K4) and the schoolbook product (S1) wrapped at their doors; the runner's
+    keys are generated into the work directory."""
+    import ast
+
+    import numpy as np
+    import torch
+
+    from redsec_tpu_torch.crypto import kernels as K
+    from redsec_tpu_torch.crypto.params import MEDIUM, SMALL_V2
+    from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
+    from redsec_tpu_torch.device import launches
+    from redsec_tpu_torch.formats import keys as kio
+    from redsec_tpu_torch.scripts import run_encrypted_mnist as runner
+    from redsec_tpu_torch.scripts import validate_full_geometry as vfg
+    from redsec_tpu_torch.scripts import validate_noise_budget as vnb
+    from redsec_tpu_torch.utils.metrics import StageTimer, model_stats
+
+    card, pbs_chunk, by_path, slices = c["card"], c["pbs_chunk"], c["by_path"], c["slices"]
+    work = c["work"]
+    shutil.rmtree(work, ignore_errors=True)
+    keys = os.path.join(work, "keys")
+    os.makedirs(keys)
+    timer = StageTimer()
+    rec = {}
+    k4_door, s1_door = [], []
+
+    def door_k4(acc0, *rest, _real=K.blind_rotate):
+        k4_door.append(acc0.shape[0])
+        return _real(acc0, *rest)
+
+    def door_s1(digits, *rest, _real=K.schoolbook_product):
+        s1_door.append(digits.shape[0])
+        return _real(digits, *rest)
+
+    # -- a. the runner: mnist/sign1024x1 at small_v2_tpu on a synthetic
+    # 24-row CSV in the reference's layout (numpy seed 1), batches of 8
+    rng = np.random.default_rng(1)
+    raw = rng.integers(0, 256, size=(RUNNER_ROWS, 28 * 28))
+    labels = rng.integers(0, 10, size=RUNNER_ROWS)
+    os.makedirs(os.path.join(work, "nets", "mnist"))
+    with open(os.path.join(work, "nets", "mnist", "mnist_data.csv"), "w") as f:
+        f.writelines(f"{lb}," + ",".join(map(str, px)) + "\n" for lb, px in zip(labels, raw))
+    ck = os.path.join(work, "run.ckpt.json")
+    base = ["--model", c["mplan"].spec.name, "--varprep", c["weights"], "--params", P.name,
+            "--batch", RUNNER_BATCH, "--reference", work]
+    per_batch = sum(len(range(0, st.bootstraps * RUNNER_BATCH, pbs_chunk))
+                    for st in model_stats(c["mplan"]) if st.bootstraps)
+
+    def run(tag, *argv):
+        """The runner's ``main``; -> (its dict, its output, K4 launches at
+        the door).  Its lines go to chiprun_out/runner_<tag>.txt."""
+        k4_door.clear()
+        buf = io.StringIO()
+        with mock.patch.object(kio, "keyset_dir", lambda base=None: keys), \
+                mock.patch.object(K, "blind_rotate", door_k4), contextlib.redirect_stdout(buf):
+            res = runner.main([str(a) for a in (*base, *argv)])
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        with open(os.path.join(OUT_DIR, f"runner_{tag}.txt"), "w") as f:
+            f.write(text)
+        print(f"runner/{tag}: " + " | ".join(text.splitlines()[-2:]), flush=True)
+        if res["launches"]["blind_rotate"] != len(k4_door):
+            fail(f"runner/{tag}: the runner counts {res['launches']} K4 launches, the door "
+                 f"{len(k4_door)}")
+        return res, text, len(k4_door)
+
+    def batches():
+        with open(ck) as f:
+            return json.load(f)["batches"]
+
+    launches.reset()
+    res16, _, n16 = run("16", "--images", 16, "--checkpoint", ck)
+    b16 = batches()
+    if sorted(b16) != ["0", "8"] or n16 != 3 * per_batch:
+        fail(f"runner/16: batches {sorted(b16)}, {n16} K4 launches at the door; expected 0 "
+             f"and 8 in 3 x {per_batch} (the warm-up pass and two batches)")
+    res24, text, n24 = run("24", "--images", 24, "--checkpoint", ck)
+    b24 = batches()
+    if ("extended 16 -> 24 images" not in text or res24["batches_run"] != [16]
+            or n24 != 2 * per_batch or any(b24[k]["preds"] != b16[k]["preds"] for k in b16)):
+        fail(f"runner/24: ran batches {res24['batches_run']} in {n24} K4 launches at the door "
+             f"(expected [16] in 2 x {per_batch}, the old batches unchanged)")
+    with open(ck) as f:
+        state = json.load(f)
+    del state["batches"]["8"]
+    with open(ck, "w") as f:
+        json.dump(state, f)
+    resr, text, nr = run("resume", "--images", 24, "--checkpoint", ck)
+    b_r = batches()
+    if resr["batches_run"] != [8] or nr != 2 * per_batch or b_r["8"]["preds"] != b16["8"]["preds"]:
+        fail(f"runner/resume: batch 8 dropped and run again gives {b_r['8']['preds']} (was "
+             f"{b16['8']['preds']}), batches {resr['batches_run']} in {nr} K4 launches")
+    reso, text, no = run("offset", "--images", 8, "--eval-offset", 8, "--time-mode", "cold")
+    if (f"encrypted preds: {b16['8']['preds']}" not in text or no != per_batch
+            or reso["fingerprint"].get("eval_offset") != 8):
+        fail(f"runner/offset: --eval-offset 8 gives {reso['preds']} in {no} K4 launches; batch 8 "
+             f"of the checkpoint is {b16['8']['preds']} ({per_batch} launches)")
+    try:
+        run("refused", "--images", 24, "--checkpoint", ck, "--input-gain")
+        refusal = None
+    except SystemExit as exc:
+        refusal = str(exc.code)
+    if refusal is None or "different configuration" not in refusal or k4_door:
+        fail(f"runner/refused: --input-gain against the checkpoint exits with {refusal!r} after "
+             f"{len(k4_door)} K4 launches")
+    torch.cuda.synchronize()
+    by_path["runner/sign1024x1"] = (P.name, dict(launches.counts))
+    s_batch = res16["s_per_image"] * RUNNER_BATCH
+    print(f"runner/sign1024x1 at {P.name}: 16 images, resumed to 24, batch 8 dropped and run "
+          f"again, --eval-offset 8, --input-gain refused; {per_batch} K4 launches a batch at the "
+          f"door, twice with the warm-up pass; launches {dict(launches.counts)}; "
+          f"{s_batch:.3f} s a batch of {RUNNER_BATCH}, {res16['bootstraps_per_s']:.1f} PBS/s, "
+          f"oracle agreement {res16['oracle_agreement']:.3f} (informational) on {card}",
+          flush=True)
+    rec["runner/sign1024x1"] = {"params": P.name, "batch": RUNNER_BATCH,
+                                "s_per_batch": s_batch, "s_per_image": res16["s_per_image"],
+                                "pbs_per_s": res16["bootstraps_per_s"],
+                                "k4_launches_per_batch": per_batch,
+                                "oracle_agreement": res16["oracle_agreement"]}
+    timer.mark("runner")
+
+    # -- b. the noise-budget script, --quick --count 96 --seed 0, against the
+    # JAX run's table (native engine, same count and seed)
+    want = logged_noise_rows(NOISE_LOG)
+    per_exp = {}
+
+    def counted(p, n, *rest, _real=vnb.measure):
+        k4_door.clear()
+        launches.reset()
+        out = _real(p, n, *rest)
+        torch.cuda.synchronize()
+        per_exp[p.name] = (dict(launches.counts), list(k4_door))
+        return out
+
+    buf = io.StringIO()
+    with mock.patch.object(vnb, "measure", counted), \
+            mock.patch.object(K, "blind_rotate", door_k4), contextlib.redirect_stdout(buf):
+        nres = vnb.main(["--quick", "--count", "96", "--seed", "0"])
+    print(buf.getvalue(), end="", flush=True)
+    for row in nres["rows"]:
+        counts, door = per_exp[row["params"]]
+        got = (f"{row['sigma']:.4f}", f"{row['mean']:+.3f}", row["errors"],
+               "PASS" if row["ok"] else "FAIL")
+        if got != want.get(row["label"]):
+            fail(f"noise/{row['label']}: sigma, mean, errors, verdict {got} on the card; the "
+                 f"JAX run logged {want.get(row['label'])} ({os.path.relpath(NOISE_LOG, HERE)})")
+        if door != [row["count"]] or counts.get("blind_rotate") != 1:
+            fail(f"noise/{row['label']}: {door} ciphertexts at K4's door, counters {counts}; "
+                 f"expected one launch of {row['count']}")
+        pn = "small_v2_tpu2" if row["label"].startswith("tpu2") else SMALL_V2.name
+        by_path[f"noise/{row['label']}"] = (pn, counts)
+    if nres["result"]["experiments"] != len(want) or nres["result"]["fail"]:
+        fail(f"noise: {nres['result']} against the log's {len(want)} experiments")
+    rec["noise"] = {r["label"]: {k: r[k] for k in ("sigma", "mean", "errors", "pbs_s")}
+                    for r in nres["rows"]}
+    print(f"noise: {len(nres['rows'])} experiments equal the JAX run's sigma, mean and decode "
+          f"errors to the printed digits ({os.path.relpath(NOISE_LOG, HERE)}); each PBS of "
+          f"96 one K4 launch at the door", flush=True)
+    timer.mark("noise budget")
+
+    # -- c. full-n medium, 32 PBS through S1, against the JAX run's RESULT
+    with open(FULLGEO_LOG) as f:
+        line = f.read().splitlines()[FULLGEO_LINE - 1]
+    want = ast.literal_eval(line.split("RESULT ", 1)[1])
+    s1_door.clear()
+    launches.reset()
+    with mock.patch.object(K, "schoolbook_product", door_s1):
+        g = vfg.validate(MEDIUM, 32, 0, "cuda")
+    torch.cuda.synchronize()
+    counts = dict(launches.counts)
+    by_path["fullgeo/medium"] = (MEDIUM.name, counts)
+    got = {k: v for k, v in g["result"].items() if k != "boots_per_s"}
+    if got != {k: v for k, v in want.items() if k != "boots_per_s"}:
+        fail(f"fullgeo/medium: RESULT {g['result']} on the card; the JAX run logged {want} "
+             f"({os.path.relpath(FULLGEO_LOG, HERE)}:{FULLGEO_LINE})")
+    if s1_door != [32] * MEDIUM.n or counts.get("schoolbook_product") != MEDIUM.n:
+        fail(f"fullgeo/medium: {len(s1_door)} S1 launches at the door (batches "
+             f"{sorted(set(s1_door))}), counters {counts}; expected {MEDIUM.n} of 32")
+    arr = g["arrays"]
+    t0 = time.perf_counter()
+    with mock.patch.object(K, "schoolbook_product", K.schoolbook_product_plain):
+        twin = g["pbs"](arr["ct"][:4], arr["tv"])
+    t_twin = time.perf_counter() - t0
+    if not np.array_equal(twin, arr["out"][:4]):
+        fail("fullgeo/medium: 4 outputs through the twin path differ from S1's")
+    rec["fullgeo/medium"] = {**g["result"], "keygen_s": g["keygen_s"],
+                             "prepare_s": g["prepare_s"], "pbs_s": g["pbs_s"],
+                             "s1_launches": len(s1_door), "twin_check_s": t_twin}
+    print(f"fullgeo/medium: RESULT equals {os.path.relpath(FULLGEO_LOG, HERE)}:{FULLGEO_LINE} "
+          f"(boots_per_s aside); host keygen {g['keygen_s']:.1f} s, key preparation "
+          f"{g['prepare_s']:.1f} s, 32 PBS in {g['pbs_s']:.3f} s ({32 / g['pbs_s']:.2f} PBS/s, "
+          f"{len(s1_door)} S1 launches at the door) on {card}; 4 outputs through the twin path "
+          f"({MEDIUM.n} rounds, {t_twin:.1f} s) bit-identical", flush=True)
+    del g, twin
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    timer.mark("full geometry")
+    rec["stages_s"] = dict(timer.stages)
+    slices["phase14"] = rec
+    print("phase 14 stages:\n" + timer.report(), flush=True)
+
+
 # --------------------------------------------------------------------------- #
 
 
@@ -1111,7 +1361,8 @@ def main() -> int:
     # every set of the paths at N = 1024 (the bundled keys' too)
     report("ntt", [M1, N], err, ms, pms, 2 * M1 * N * 4, M1 * ntt_ops(N),
            "redsec_tpu/crypto/pallas_ntt.py:147",
-           params=(P.name, P2.name, PS.name, f"{P.name}/bundle2", "small_v2_tpu2/bundle2"),
+           params=(P.name, P2.name, PS.name, f"{P.name}/bundle2", "small_v2_tpu2/bundle2",
+                   "small_v2_tpu2"),
            primes=sorted(set(plan.primes) | set(plan_s.primes)), ms_prime40961=ms_w)
     print(f"kernel ntt [{M1}, {N}] at prime {plan_s.primes[2]}: {ms_w:.4f} ms", flush=True)
 
@@ -1190,7 +1441,8 @@ def main() -> int:
         build[f"shared_bytes_g{g}"] = k4_cfg[B4]["shared_bytes"]
     report("blind_rotate", k4_rec["shape"], k4_rec["err"], k4_ms[k4_timed[0]], k4_rec["pms"],
            k4_rec["bytes_"], k4_rec["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
-           params=P.name, **{f"ms_batch{k4_timed[1]}": k4_ms[k4_timed[1]]}, **build)
+           params=(P.name, "small_v2_tpu2"), **{f"ms_batch{k4_timed[1]}": k4_ms[k4_timed[1]]},
+           **build)
     print(f"kernel blind_rotate build: {build}", flush=True)
     del acc0, abar, got, want
 
@@ -2238,6 +2490,15 @@ def main() -> int:
              "pbs_chunk": pbs_chunk, "by_path": by_path, "slices": slices})
     slices["phase13_s"] = time.perf_counter() - t_phase
     print(f"phase 13: {slices['phase13_s']:.1f} s", flush=True)
+
+    # ---- phase 14: the batch runner with its checkpoint, the noise-budget
+    # and full-geometry scripts
+    t_phase = time.perf_counter()
+    phase14({"card": card, "mplan": mplan, "weights": weights, "pbs_chunk": pbs_chunk,
+             "by_path": by_path, "slices": slices,
+             "work": os.path.join(HERE, "build", "smoke_runner")})
+    slices["phase14_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {slices['phase14_s']:.1f} s", flush=True)
 
     # each kernel's launches on the paths of its parameter sets (the records
     # of one kernel's shapes share its counter; a bundled key's path is

@@ -42,6 +42,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import redsec_tpu_torch.compiler.train, redsec_tpu_torch.compiler.train_relu\n"
         "import redsec_tpu_torch.scripts.train_cifar_small, redsec_tpu_torch.scripts.train_relu_mnist\n"
         "import redsec_tpu_torch.native, redsec_tpu_torch.entry\n"
+        "import redsec_tpu_torch.scripts.run_encrypted_mnist\n"
+        "import redsec_tpu_torch.scripts.validate_noise_budget\n"
+        "import redsec_tpu_torch.scripts.validate_full_geometry\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'redsec_tpu' or m.startswith('redsec_tpu.'))\n"
         "print(','.join(bad))\n"
@@ -75,7 +78,10 @@ def test_trainers_and_entry_run_with_jax_and_optax_blocked():
         "fn, args = entry(device='cpu')\n"
         "print(len(raw), len(prep), rrep['logits_bit_exact'], tuple(fn(*args).shape))\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # two threads, as the port's test files run torch: a mini spec's small
+    # ops with one thread a core stall on their barriers when other test
+    # processes hold cores (14 s alone, over 300 s beside two such files)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env=env, cwd=REPO, timeout=300)
     assert res.returncode == 0, res.stderr
