@@ -28,13 +28,14 @@ Phases (any failure exits non-zero):
    at ``small``'s three primes (40961 above 2^15) and at N = 2048 (12289,
    40961: ``ntt_n2048``); the blind rotation at the instances of these keys,
    at batches 512, 133, 5 and 1, timed at 512: ``small_v2_n2048`` (N 2048),
-   ``small`` (three primes), bundled ``small_v2_tpu`` and ``small_v2_tpu2``
-   (``bundle=2``: n/2 rounds of 3 x 2l digit rows; three primes at tpu2).
+   ``small`` (three primes), bundled ``small_v2_tpu``, ``small_v2_tpu2`` and
+   ``small_v2_n2048`` (``bundle=2``: n/2 rounds of 3 x 2l digit rows; three
+   primes at tpu2; at N 2048 the accumulators on the inverse results' region).
    At every instance and batch the layout the library chooses must be
    ``kernels.k4_layout``'s; each record gives the ciphertexts a block and
    a key load serves (every block loads its own key rows), the chunk of
    digit rows, the shared bytes, registers and spills.  Every key
-   prepared on the card in this phase (``small_v2`` and the four above) must
+   prepared on the card in this phase (``small_v2`` and the five above) must
    equal, bit for bit, the same key prepared with the NTT twin in the
    kernel's place: that holds K1 at exactly the row counts each preparation
    launches it at.
@@ -89,8 +90,9 @@ Phases (any failure exits non-zero):
    the command line (keygen, encrypt-image, run-encrypted, decrypt-image)
    at ``small_v2_n2048`` and at ``small``, the score ciphertexts
    bit-identical to the library path's and the printed classes their
-   argmax; bundled ``small_v2_tpu`` and ``small_v2_tpu2`` keys through the
-   library path (launch counts exact, agreement with the oracle printed);
+   argmax; bundled ``small_v2_tpu``, ``small_v2_tpu2`` and ``small_v2_n2048``
+   keys through the library path (launch counts exact, agreement with the
+   oracle printed);
    escalation: ``calibrate --escalate 1 --majority-plan 0:3`` (layer 1's
    signs through a same-seed ``small_v2_n2048`` key, layer 0's voted at
    k = 3), ``run-encrypted`` refusing it without ``--eval2`` and running it
@@ -1479,12 +1481,14 @@ def main() -> int:
 
     # K1 at N = 2048 and K4 at the instances of these keys: N = 2048 (primes
     # 12289 and 40961), three primes (small), bundled rounds (small_v2_tpu:
-    # 36 digit rows; small_v2_tpu2: 30 rows, three primes); at batches 512,
-    # 133, 5 and 1, timed at 512
+    # 36 digit rows; small_v2_tpu2: 30 rows, three primes; small_v2_n2048: 60
+    # rows, the accumulators on r2); at batches 512, 133, 5 and 1, timed at
+    # 512.  K1 at N = 2048 is held at the plain key's rows here and at the
+    # bundled key's by its preparation (check_key)
     PN = get_params("small_v2_n2048")
     P3 = get_params("small_v2_tpu2")
     new_keys = {}  # (set name, bundle) -> (secret key, cloud key), seed 0
-    for Pn, bundle in ((PN, 1), (PS, 1), (P, 2), (P3, 2)):
+    for Pn, bundle in ((PN, 1), (PS, 1), (P, 2), (P3, 2), (PN, 2)):
         t0 = time.perf_counter()
         new_keys[(Pn.name, bundle)] = kg.keygen(Pn, seed=0, bundle=bundle)
         dkn = bs.prepare_cloud_key(new_keys[(Pn.name, bundle)][1], device="cuda")
@@ -1493,7 +1497,7 @@ def main() -> int:
         pn, Nn, Rn = dkn.plan, Pn.N, Pn.decomp_rows
         path = Pn.name if bundle == 1 else f"{Pn.name}/bundle2"
         check_key(path, new_keys[(Pn.name, bundle)][1], dkn)
-        if Nn == 2048:
+        if Nn == 2048 and bundle == 1:
             M1n = min(key_chunk, Pn.n) * Rn * 2 * bs.BK_LIMBS
             err = 0
             for pi, p in enumerate(pn.primes):
@@ -1506,7 +1510,8 @@ def main() -> int:
             ms = cuda_ms(lambda: K.ntt(x, pn, 1), 20)
             pms = cuda_ms(lambda: K.ntt_plain(x, pn, 1), 5)
             report("ntt_n2048", [M1n, Nn], err, ms, pms, 2 * M1n * Nn * 4, M1n * ntt_ops(Nn),
-                   "redsec_tpu/crypto/pallas_ntt.py:147", params=(Pn.name,), primes=pn.primes,
+                   "redsec_tpu/crypto/pallas_ntt.py:147", params=(Pn.name, f"{Pn.name}/bundle2"),
+                   primes=pn.primes,
                    counter="ntt", timed_prime=pn.primes[1])
             del x
         k4n = {}
@@ -2002,7 +2007,7 @@ def main() -> int:
 
     # bundled keys (keygen(..., bundle=2); the command line has no bundle
     # option, as the JAX package's has none) through the library path
-    for Pn in (P, P3):
+    for Pn in (P, P3, PN):
         tag = f"bundled/{Pn.name}"
         bsk, bcloud = new_keys[(Pn.name, 2)]
         launches.reset()

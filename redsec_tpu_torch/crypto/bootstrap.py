@@ -182,8 +182,7 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
     if dev.type == "cuda" and not matmul and not kernels.supported(p, plan, bundle):
         raise ValueError(
             f"{p.name}: primes {plan.primes} at N={p.N}, bundle {bundle}, are outside "
-            "what the CUDA kernels take (2 or 3 primes < 2^16, N in 256..2048, "
-            "bundled keys up to N = 1024)")
+            "what the CUDA kernels take (2 or 3 primes < 2^16, N in 256..2048)")
     N = p.N
     bk_host = cloud.bk
     if bundled:

@@ -27,7 +27,7 @@ order of ``ntt.ntt_device`` (flavour "radix2"), and BK residues are 16-bit
 patterns of int16 (``residues`` zero-extends them).
 
 ``ntt`` and ``blind_rotate`` take every NTT plan of the JAX package (two or
-three primes below 2^16, N = 256 .. 2048) and bundled keys up to N = 1024
+three primes below 2^16, N = 256 .. 2048), plain and bundled keys
 (``supported``); ``external_product`` and ``cmux_round``, which the model
 paths run only inside ``blind_rotate``, take two primes up to N = 1024, as
 the Pallas kernels they replace do.
@@ -82,13 +82,13 @@ def _plan_ok(plan: ntt_mod.NttPlan) -> bool:
 
 def supported(params: TfheParams, plan: ntt_mod.NttPlan, bundle: int = 1) -> bool:
     """Whether the CUDA kernels take this parameter set, NTT plan and key
-    bundling.  A bundled round's three differences do not fit shared memory
-    beside the N = 2048 transforms, so bundled keys stop at N = 1024.  How
-    K4 lays out each instance it takes (``group`` ciphertexts a block, so
-    that one load of a key row serves them all; digit rows in chunks) is
+    bundling (a bundled key pairs its n rounds, so n is even).  How K4 lays
+    out each instance it takes (``group`` ciphertexts a block, so that one
+    load of a key row serves them all; digit rows in chunks; at bundled
+    N = 2048 the accumulators on the inverse results' region) is
     ``k4_layout``."""
     return (_plan_ok(plan) and params.l * params.bg_bit <= 32 and params.N == plan.N
-            and (bundle == 1 or (bundle == 2 and params.n % 2 == 0 and plan.N < 2048)))
+            and (bundle == 1 or (bundle == 2 and params.n % 2 == 0)))
 
 
 def _nvcc() -> str:
@@ -480,7 +480,7 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
     if sm_count is None:
         sm_count = torch.cuda.get_device_properties(torch.cuda.current_device()) \
             .multi_processor_count
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     code = _lib().fn["redsec_blind_rotate_config"](batch, params.N, params.l,
                                                    len(plan.primes), bundle, sm_count, out)
     if code != 0:
@@ -488,8 +488,8 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
                          f"{len(plan.primes)} primes, bundle {bundle}")
     N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
     return {"group": out[0], "chunk_rows": out[1], "shared_bytes": out[2],
-            "tables_resident": bool(out[3]), "instance": _k4_instance(N, out[0], P, D),
-            "shared_bytes_g2": out[4]}
+            "tables_resident": bool(out[3]), "accumulators_on_r2": bool(out[5]),
+            "instance": _k4_instance(N, out[0], P, D), "shared_bytes_g2": out[4]}
 
 
 # K4's layout (csrc/pbs.cu: Geo, Smem, k4_chunk, k4_config), mirrored so that
@@ -498,17 +498,19 @@ K4_MAX_SHARED = 232448
 
 
 def k4_shared_bytes(N: int, group: int, primes: int, diffs: int, chunk: int,
-                    tables: int) -> int:
+                    tables: int, alias: bool = False) -> int:
     """Dynamic shared bytes of ``Smem<N, group, primes, diffs>`` with ``chunk``
     digit rows a chunk and the stage tables of ``tables`` primes: the tables
     (uint2 [tables][2][N]), the exchange buffers ([POLYS][2][N + N/16 padded]
     words, the key ring in the MAC), accumulators and differences ([group]
-    [1 + diffs][2][N] words), digit rows or MAC sums (uint16 [group *
-    max(chunk, 8)][N]) and the inverse transforms of all primes but the last
-    (uint16 [primes - 1][group * 8][N])."""
+    [1 + diffs][2][N] words; [group][diffs][2][N] with ``alias``, where the
+    accumulators lie on the last region), digit rows or MAC sums (uint16
+    [group * max(chunk, 8)][N]) and the inverse transforms of all primes but
+    the last (uint16 [primes - 1][group * 8][N])."""
     polys = 8 if N <= 1024 else 4
     xw = N + N // 16  # N + 16 * S words, S = N / 256
-    return (8 * tables * 2 * N + 4 * (polys * 2 * xw + (1 + diffs) * group * 2 * N)
+    accs = diffs if alias else 1 + diffs
+    return (8 * tables * 2 * N + 4 * (polys * 2 * xw + accs * group * 2 * N)
             + 2 * (group * max(chunk, 8) * N + (primes - 1) * group * 8 * N))
 
 
@@ -523,16 +525,29 @@ def _k4_tables(N: int, group: int, primes: int, diffs: int) -> int:
     return 1
 
 
+def _k4_alias(N: int, group: int, primes: int, diffs: int) -> bool:
+    """Whether the accumulators lie on the inverse results' region (r2, idle
+    between rounds, (primes - 1) * group * 8 * N * 2 bytes against their
+    group * 2 * N * 4): where the layout with them in their own words does
+    not fit at the smallest chunk and this one does.  Only the bundled
+    instance at N = 2048 takes it."""
+    smallest = (8 if N <= 1024 else 4) // group
+    tables = _k4_tables(N, group, primes, diffs)
+    return (k4_shared_bytes(N, group, primes, diffs, smallest, tables) > K4_MAX_SHARED
+            >= k4_shared_bytes(N, group, primes, diffs, smallest, tables, True))
+
+
 def _k4_chunk(N: int, group: int, primes: int, diffs: int, rows: int) -> int:
     """The largest chunk of digit rows that fits at ``group`` ciphertexts a
     block: all rows, else a multiple of POLYS / group; 0 where none fits
     (the instance is not built)."""
     step = (8 if N <= 1024 else 4) // group
     tables = _k4_tables(N, group, primes, diffs)
-    if k4_shared_bytes(N, group, primes, diffs, step, tables) > K4_MAX_SHARED:
+    alias = _k4_alias(N, group, primes, diffs)
+    if k4_shared_bytes(N, group, primes, diffs, step, tables, alias) > K4_MAX_SHARED:
         return 0
     cr = rows
-    while k4_shared_bytes(N, group, primes, diffs, cr, tables) > K4_MAX_SHARED:
+    while k4_shared_bytes(N, group, primes, diffs, cr, tables, alias) > K4_MAX_SHARED:
         cr = (cr - 1) // step * step
     return cr
 
@@ -556,8 +571,10 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     largest chunk that fits); ``shared_bytes``: the block's dynamic shared
     memory; ``tables_resident``: every prime's stage tables stay in shared
     memory (else one prime's at a time, staged again for every prime of
-    every round); ``instance``: the kernel launched, as the compiler's
-    report names it.
+    every round); ``accumulators_on_r2``: the accumulators lie on the
+    inverse results' region, carried in registers through each round (where
+    nothing else fits: bundled at N = 2048); ``instance``: the kernel
+    launched, as the compiler's report names it.
     Raises for a combination ``supported`` refuses."""
     plan = plan or bs.bootstrap_plan(params, bundle == 2)
     if plan is None or not supported(params, plan, bundle):
@@ -568,9 +585,11 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     group = 2 if batch > sm_count and cr2 > 0 else 1
     cr = cr2 if group == 2 else _k4_chunk(N, 1, P, D, rows)
     tables = _k4_tables(N, group, P, D)
+    alias = _k4_alias(N, group, P, D)
     return {"group": group, "chunk_rows": cr,
-            "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables),
-            "tables_resident": tables == P, "instance": _k4_instance(N, group, P, D)}
+            "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables, alias),
+            "tables_resident": tables == P, "accumulators_on_r2": alias,
+            "instance": _k4_instance(N, group, P, D)}
 
 
 # --------------------------------------------------------------------------- #

@@ -23,8 +23,8 @@
 // memory at some chunk of digit rows, else 1; a ragged last block computes
 // on a zero accumulator and stores nothing for the missing ciphertext).
 // Every NTT-plan branch of the JAX package has an instance: N = 256 .. 2048,
-// two or three primes below 2^16, plain rounds and 2-bit bundled ones
-// (blind_rotate_kernel<N, G, P, D>, D = 1 or 3 differences a round).
+// two or three primes below 2^16, plain rounds and 2-bit bundled ones at
+// every N (blind_rotate_kernel<N, G, P, D>, D = 1 or 3 differences a round).
 //
 // * Transforms run in registers.  N/16 threads share one polynomial, 16
 //   coefficients a thread, so a block transforms 8 polynomials at once (4 at
@@ -82,14 +82,16 @@
 //   BK) and uses it G times.
 // * Digit rows in chunks.  Where all rows' transforms do not fit shared
 //   memory beside the rest (20 rows at N = 2048 or of two ciphertexts, a
-//   bundled round's 30 rows at three primes or 36 of two ciphertexts), the
+//   bundled round's 30 rows at three primes, 36 of two ciphertexts or 60 at
+//   N = 2048), the
 //   rows are transformed and multiplied `cr` at a time (G * cr a multiple of
 //   the polynomials a block transforms: the largest such chunk that fits);
 //   the MAC's sums stay in registers across chunks.
 // * blind_rotate loops over all rounds inside the block (the TPU's
 //   sequential grid axis has no Hopper counterpart): the accumulators stay in
-//   shared memory; each round writes X^t acc - acc + gadget offset once into
-//   shared memory, and the forward transforms cut their digits out of it.
+//   shared memory (a bundled key at N = 2048: on r2, below); each round
+//   writes X^t acc - acc + gadget offset once into shared memory, and the
+//   forward transforms cut their digits out of it.
 //   A bundled round (the JAX package's bundle == 2 body) writes three
 //   differences: u = X^ti acc - acc, v = X^tj acc - acc and w = X^tj u - u,
 //   the last as X^(ti+tj) acc - X^ti acc - X^tj acc + acc, all from acc in
@@ -111,14 +113,22 @@
 //                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
 //   bundled small_v2_tpu2, 30 rows in chunks of 16, three primes, G 1:
 //                                          48 + 68 + 32 + 32 + 32 KB = 217,088 B
-// Two ciphertexts of the last two do not fit (299,008 and 249,856 B at the
-// smallest chunk with one prime's tables); a cluster of two blocks, one
-// ciphertext each, that loaded each key row once for both by a multicast
-// bulk copy was slower than one a block on the H100 (PERF.md), so they run
-// one a block.  Up to one wave of blocks every set runs one a block (small_v2
-// 176,128 B with all 20 rows, small 184,320, bundled small_v2_tpu 225,280).
-// A bundled round at N = 2048 (three differences of 16 KB) does not fit and
-// has no instance.  One block of 16 warps per SM (124-128 registers a thread).
+//   bundled small_v2_n2048, 60 rows in chunks of 8, G 1, the three
+//   differences only (the accumulators on r2):
+//                                          32 + 68 + 48 + 32 + 32 KB = 217,088 B
+// A bundled round at N = 2048 with the accumulators in their own words would
+// take 233,472 B at the smallest chunk, 1,024 over what a block may have; r2
+// is idle between rounds, so the accumulators lie there, and in a round each
+// thread carries the eight words it adds to in registers from before the
+// differences are written until after the CRT has read r2 (Smem::ALIAS; no
+// other instance takes it).  Two ciphertexts of the last three do not fit
+// (299,008 and 249,856 B at the smallest chunk with one prime's tables for
+// the first two); a cluster of two blocks, one ciphertext each, that loaded
+// each key row once for both by a multicast bulk copy was slower than one a
+// block on the H100 (PERF.md), so they run one a block.  Up to one wave of
+// blocks every set runs one a block (small_v2 176,128 B with all 20 rows,
+// small 184,320, bundled small_v2_tpu 225,280).  One block of 16 warps per
+// SM (124-128 registers a thread).
 //
 // Bound on this card: int32 instructions in the transforms, and in the MAC
 // the rate at which the ring brings key rows from L2 into shared memory.
@@ -550,11 +560,12 @@ __host__ __device__ constexpr int r1_rows(int cr) {
   return G * (cr > 8 ? cr : 8);
 }
 
-// Bytes of Smem<N, G, P, D> with the stage tables of tp primes.
+// Bytes of Smem<N, G, P, D> with the stage tables of tp primes and the
+// accumulators in their own words (alias false) or on r2 (true).
 template <int N, int G, int P, int D>
-__host__ __device__ constexpr size_t smem_bytes(int tp, int cr) {
+__host__ __device__ constexpr size_t smem_bytes(int tp, int cr, bool alias) {
   return sizeof(uint2) * tp * 2 * N +
-         sizeof(uint32_t) * (Geo<N>::POLYS * 2 * Geo<N>::XW + (1 + D) * G * 2 * N) +
+         sizeof(uint32_t) * (Geo<N>::POLYS * 2 * Geo<N>::XW + (alias ? D : 1 + D) * G * 2 * N) +
          sizeof(uint16_t) * (static_cast<size_t>(r1_rows<G>(cr)) * N +
                              static_cast<size_t>(P - 1) * G * 8 * N);
 }
@@ -567,24 +578,32 @@ struct Smem {
   // of digit rows; else one prime's at a time, staged again for every prime
   // of every round (N = 2048; G = 2 at three primes or a bundled round)
   static constexpr bool RES =
-      Ge::RESIDENT && smem_bytes<N, G, P, D>(P, SMALLEST) <= kMaxSmem;
+      Ge::RESIDENT && smem_bytes<N, G, P, D>(P, SMALLEST, false) <= kMaxSmem;
   static constexpr int TP = RES ? P : 1;  // primes whose tables stay
+  // Where even that does not fit at the smallest chunk, the accumulators lie
+  // on r2, which is idle between rounds: in a round each thread carries the
+  // accumulator words it adds to in registers from before the differences
+  // are written until the CRT has read r2 (a bundled round at N = 2048)
+  static constexpr bool ALIAS = smem_bytes<N, G, P, D>(TP, SMALLEST, false) > kMaxSmem &&
+                                smem_bytes<N, G, P, D>(TP, SMALLEST, true) <= kMaxSmem;
+  static_assert((P - 1) * G * 8 * N * 2 >= G * 2 * N * 4, "r2 holds the accumulators");
   uint2* stage;     // [TP][2: forward, inverse][N]
   uint32_t* ex;     // [POLYS][2][XW] exchange buffers, the BK ring in the MAC
-  uint32_t* acc;    // [G][2][N] accumulators (unused by external_product)
+  uint32_t* acc;    // [G][2][N] accumulators (unused by external_product); on r2 if ALIAS
   uint32_t* diff;   // [G][D][2][N] X^t acc - acc + gadget offset (likewise)
   uint16_t* r1;     // [G * max(cr, 8)][N]: digit rows in the NTT domain, then MAC sums
   uint16_t* r2;     // [P - 1][G * 8][N]: the inverse transforms of all primes but the last
   __host__ __device__ static constexpr size_t bytes(int cr) {
-    return smem_bytes<N, G, P, D>(TP, cr);
+    return smem_bytes<N, G, P, D>(TP, cr, ALIAS);
   }
   __device__ Smem(unsigned char* base, int cr) {
     stage = reinterpret_cast<uint2*>(base);
     ex = reinterpret_cast<uint32_t*>(stage + TP * 2 * N);
     acc = ex + Ge::POLYS * 2 * Ge::XW;
-    diff = acc + G * 2 * N;
+    diff = ALIAS ? acc : acc + G * 2 * N;
     r1 = reinterpret_cast<uint16_t*>(diff + D * G * 2 * N);
     r2 = r1 + static_cast<size_t>(r1_rows<G>(cr)) * N;
+    if (ALIAS) acc = reinterpret_cast<uint32_t*>(r2);
   }
 };
 
@@ -1017,6 +1036,17 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
   const GadgetDigits<N, D> dig{sm.diff, g};
 #pragma unroll 1
   for (int j = 0; j < rounds; ++j) {
+    // ALIAS: this thread's accumulator words, carried while the round
+    // overwrites r2 (the differences' reads of acc end at their barrier)
+    uint32_t own[G][2][E];
+    if constexpr (S::ALIAS) {
+#pragma unroll
+      for (int c = 0; c < G; ++c)
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < E; ++e) own[c][u][e] = sm.acc[(c * 2 + u) * N + E * tid + e];
+    }
     if constexpr (D == 1) {
       int tt[G];
 #pragma unroll
@@ -1035,20 +1065,33 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
     // reads sm.diff, never sm.acc, and only r1 and r2 after its last barrier
     external_product_block<N, G, P, D>(dig, rows, cr, bk + j * round_stride, prime_stride, tabs,
                                        crt, sm, delta);
+    if constexpr (S::ALIAS) {
+      __syncthreads();  // every thread has read r2 for its CRT
 #pragma unroll
-    for (int c = 0; c < G; ++c)
+      for (int c = 0; c < G; ++c)
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        uint32_t* a = sm.acc + (c * 2 + u) * N + E * tid;
-        if constexpr (E == 2) {
-          const uint2 v = *reinterpret_cast<uint2*>(a);
-          *reinterpret_cast<uint2*>(a) = make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
-        } else {
-          const uint4 v = *reinterpret_cast<uint4*>(a);
-          *reinterpret_cast<uint4*>(a) = make_uint4(v.x + delta[c][u][0], v.y + delta[c][u][1],
-                                                    v.z + delta[c][u][2], v.w + delta[c][u][3]);
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            sm.acc[(c * 2 + u) * N + E * tid + e] = own[c][u][e] + delta[c][u][e];
+    } else {
+#pragma unroll
+      for (int c = 0; c < G; ++c)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          uint32_t* a = sm.acc + (c * 2 + u) * N + E * tid;
+          if constexpr (E == 2) {
+            const uint2 v = *reinterpret_cast<uint2*>(a);
+            *reinterpret_cast<uint2*>(a) =
+                make_uint2(v.x + delta[c][u][0], v.y + delta[c][u][1]);
+          } else {
+            const uint4 v = *reinterpret_cast<uint4*>(a);
+            *reinterpret_cast<uint4*>(a) =
+                make_uint4(v.x + delta[c][u][0], v.y + delta[c][u][1], v.z + delta[c][u][2],
+                           v.w + delta[c][u][3]);
+          }
         }
-      }
+    }
     __syncthreads();
   }
 #pragma unroll
@@ -1150,12 +1193,13 @@ struct K4Config {
   int G, cr;
   size_t bytes;
   bool resident;  // every prime's stage tables stay in shared memory
+  bool alias;     // the accumulators lie on r2
 };
 
 template <int N, int G, int P, int D>
 K4Config k4_layout(int cr) {
   using S = Smem<N, G, P, D>;
-  return K4Config{G, cr, S::bytes(cr), S::RES};
+  return K4Config{G, cr, S::bytes(cr), S::RES, S::ALIAS};
 }
 
 template <int N, int P, int D>
@@ -1224,6 +1268,7 @@ int dispatch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_
       case 102423: { constexpr int NN = 1024, PP = 2, DD = 3; __VA_ARGS__; }         \
       case 102433: { constexpr int NN = 1024, PP = 3, DD = 3; __VA_ARGS__; }         \
       case 204821: { constexpr int NN = 2048, PP = 2, DD = 1; __VA_ARGS__; }         \
+      case 204823: { constexpr int NN = 2048, PP = 2, DD = 3; __VA_ARGS__; }         \
       default: break;                                                           \
     }                                                                           \
   } while (0)
@@ -1297,16 +1342,17 @@ int redsec_cmux_round(const int32_t* acc, const int32_t* t, const int16_t* bk,
 // where every prime's stage tables stay in shared memory (0: one prime's at
 // a time, staged again for every prime of every round), out[4] the shared
 // bytes two ciphertexts a block would take with all their digit rows and
-// every prime's tables (above what a block may have where they do not fit).
+// every prime's tables (above what a block may have where they do not fit),
+// out[5] 1 where the accumulators lie on r2 (Smem::ALIAS).
 // Returns non-zero for a combination without an instance.
 int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, int* out) {
   const int D = bundle == 2 ? 3 : 1;
-  K4Config cf{0, 0, 0, false};
+  K4Config cf{0, 0, 0, false, false};
   size_t bytes2 = 0;
   bool ok = false;
   REDSEC_DISPATCH_K4(N, P, D, {
     ok = k4_config<NN, PP, DD>(B, DD * 2 * l, sms, &cf);
-    bytes2 = smem_bytes<NN, 2, PP, DD>(Geo<NN>::RESIDENT ? PP : 1, DD * 2 * l);
+    bytes2 = smem_bytes<NN, 2, PP, DD>(Geo<NN>::RESIDENT ? PP : 1, DD * 2 * l, false);
     break;
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -1315,6 +1361,7 @@ int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, 
   out[2] = static_cast<int>(cf.bytes);
   out[3] = cf.resident;
   out[4] = static_cast<int>(bytes2);
+  out[5] = cf.alias;
   return 0;
 }
 

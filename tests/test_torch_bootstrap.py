@@ -124,8 +124,8 @@ def test_device_path_rejects_what_the_kernels_do_not_take():
     test_torch_pbs_branches.py holds them against JAX), and the schoolbook
     sets (tests/test_torch_schoolbook.py); what still raises: a schoolbook
     key marked bundled (the schoolbook path runs unbundled, as in JAX),
-    combinations outside the kernels' instances (bundled N = 2048, a prime at
-    or above 2^16), and a key in another NTT order."""
+    combinations outside the kernels' instances (a prime at or above 2^16),
+    and a key in another NTT order.  Bundled N = 2048 is taken."""
     P = get_params("test_noiseless")
     _, cloud = kg.keygen(dataclasses.replace(P, n=4), seed=0, bundle=2)
     assert bs.prepare_cloud_key(cloud, device="cpu").bundle == 2
@@ -138,7 +138,7 @@ def test_device_path_rejects_what_the_kernels_do_not_take():
     assert kernels.supported(get_params("small_v2_tpu"), bs.bootstrap_plan(get_params("small_v2_tpu")))
     n2048 = get_params("small_v2_n2048")
     assert kernels.supported(n2048, bs.bootstrap_plan(n2048))
-    assert not kernels.supported(n2048, bs.bootstrap_plan(n2048, True), bundle=2)
+    assert kernels.supported(n2048, bs.bootstrap_plan(n2048, True), bundle=2)
     assert not kernels.supported(get_params("small"),
                                  dataclasses.replace(small, primes=(12289, 18433, 65537)))
     _, _, _, dkey = _setup("test_noiseless", 0)

@@ -146,7 +146,7 @@ def test_blind_rotate_kernel_equals_twin_at_small_v2(key_small_v2, batch):
 
 
 NEW_SETS = [("small_v2_n2048", 1), ("small", 1), ("test_noiseless", 2), ("small_v2_tpu", 2),
-            ("small_v2_tpu2", 2)]
+            ("small_v2_tpu2", 2), ("small_v2_n2048", 2)]
 
 
 @pytest.fixture(scope="module", params=NEW_SETS, ids=[f"{n}-bundle{b}" for n, b in NEW_SETS])

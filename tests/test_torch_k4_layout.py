@@ -35,9 +35,9 @@ def _instance(N, primes, bundle):
 
 
 # every (N, primes, bundle) that kernels.supported takes: N = 2048 has two
-# primes and no bundled key
+# primes, plain and bundled
 INSTANCES = [(N, P, b) for N in (256, 512, 1024, 2048) for P in (2, 3) for b in (1, 2)
-             if N < 2048 or (P, b) == (2, 1)]
+             if N < 2048 or P == 2]
 
 
 def test_instances_are_what_supported_takes():
@@ -67,21 +67,26 @@ def test_every_layout_fits_a_block(N, P, bundle, batch):
     two_fit = K.k4_shared_bytes(N, 2, P, 3 if bundle == 2 else 1, polys // 2, 1) <= MAX
     assert lay["group"] == (2 if batch > SMS and two_fit else 1)
     # a larger chunk would not fit (the rule takes the largest)
+    D = 3 if bundle == 2 else 1
+    tables = P if lay["tables_resident"] else 1
     if lay["chunk_rows"] < rows:
         step = polys // lay["group"]
-        tables = P if lay["tables_resident"] else 1
-        assert K.k4_shared_bytes(N, lay["group"], P, 3 if bundle == 2 else 1,
-                                 lay["chunk_rows"] + step, tables) > MAX
+        assert K.k4_shared_bytes(N, lay["group"], P, D, lay["chunk_rows"] + step, tables,
+                                 lay["accumulators_on_r2"]) > MAX
+    # the accumulators lie on r2 only where their own words do not fit
+    assert lay["accumulators_on_r2"] == (K.k4_shared_bytes(
+        N, lay["group"], P, D, polys // lay["group"], tables) > MAX)
     # every prime's tables stay unless they do not fit beside the smallest chunk
     assert lay["tables_resident"] == (N <= 1024 and K.k4_shared_bytes(
         N, lay["group"], P, 3 if bundle == 2 else 1, polys // lay["group"], P) <= MAX)
 
 
 SHIPPED = [("small_v2", 1), ("small_v2_n2048", 1), ("small", 1), ("small_v2_tpu", 2),
-           ("small_v2_tpu2", 2), ("small_v2_tpu", 1)]
+           ("small_v2_tpu2", 2), ("small_v2_tpu", 1), ("small_v2_n2048", 2)]
 # (group, chunk rows, shared bytes, every prime's tables stay) at batch 512
 # on 132 SMs: small and bundled small_v2_tpu stage their tables a prime
-# (233,472 bytes with every prime's at the smallest chunk)
+# (233,472 bytes with every prime's at the smallest chunk); bundled
+# small_v2_n2048 takes 217,088 only with its accumulators on r2
 WANT = {
     ("small_v2", 1): (2, 12, 217088, True),
     ("small_v2_n2048", 1): (1, 12, 217088, False),
@@ -89,6 +94,7 @@ WANT = {
     ("small_v2_tpu", 2): (2, 8, 217088, False),
     ("small_v2_tpu2", 2): (1, 16, 217088, True),
     ("small_v2_tpu", 1): (2, 12, 217088, True),
+    ("small_v2_n2048", 2): (1, 8, 217088, False),
 }
 # Where two ciphertexts do not fit a block even at the smallest chunk with
 # the stage tables staged a prime (299,008 and 249,856 bytes), a cluster of
@@ -99,8 +105,9 @@ WANT = {
 # key row that both blocks must have read before the slot is refilled, moves
 # rows at 2.36e12 (N = 1024) and 4.41e12 B/s (N = 2048) into the pair's
 # shared memory against 5.38e12 and 8.55e12 for one block's own cp.async
-# ring (tools/l2_rate.py).  So they keep one a block.
-ONE_A_BLOCK = {("small_v2_n2048", 1), ("small_v2_tpu2", 2)}
+# ring (tools/l2_rate.py).  So they keep one a block.  Bundled small_v2_n2048
+# does not fit two a block even with its accumulators on r2.
+ONE_A_BLOCK = {("small_v2_n2048", 1), ("small_v2_tpu2", 2), ("small_v2_n2048", 2)}
 
 
 @pytest.mark.parametrize("name,bundle", SHIPPED)
@@ -116,6 +123,8 @@ def test_shipped_sets_share_every_key_load_at_a_full_chunk(name, bundle):
     assert lay["instance"] == f"blind_rotate_kernelILi{N}ELi{want_shared}ELi{P}ELi{D}E"
     tables_one = K.k4_shared_bytes(N, 2, P, D, (8 if N <= 1024 else 4) // 2, 1)
     assert (tables_one > MAX) == ((name, bundle) in ONE_A_BLOCK)
+    if (name, bundle) in ONE_A_BLOCK:  # nor with the accumulators on r2
+        assert K.k4_shared_bytes(N, 2, P, D, (8 if N <= 1024 else 4) // 2, 1, True) > MAX
     # the forward's smallest chunk (batch 32) and one ciphertext: one a block
     for batch in (1, 32):
         small = K.k4_layout(batch, params, plan, bundle, SMS)
@@ -162,5 +171,40 @@ def test_rule_reads_only_the_shape():
     assert first[0] == first[3]
     assert K.k4_layout(133, params, plan, 1, 144)["group"] == 1
     assert K.k4_layout(145, params, plan, 1, 144)["group"] == 2
+    # a bundled key at N = 2048 has a layout; one of an odd number of rounds
+    # cannot be paired
+    assert K.k4_layout(512, get_params("small_v2_n2048"), None, 2, SMS)["group"] == 1
     with pytest.raises(ValueError):
-        K.k4_layout(512, get_params("small_v2_n2048"), None, 2, SMS)  # a bundled key at 2048
+        K.k4_layout(512, dataclasses.replace(params, n=351), plan, 2, SMS)
+
+
+def test_bundled_n2048_fits_only_with_its_accumulators_on_r2():
+    """Bundled small_v2_n2048: 60 digit rows, one prime's stage tables at a
+    time.  With the accumulators in their own words the smallest chunk takes
+    233,472 B, 1,024 over what a block may have; on r2 (32 KB of inverse
+    results, idle between rounds, holding 16 KB of accumulators) rows run in
+    chunks of 8: 32 + 68 + 48 + 32 + 32 KB."""
+    params = get_params("small_v2_n2048")
+    plan = bs.bootstrap_plan(params, True)
+    assert plan.primes == (12289, 40961) and 3 * params.decomp_rows == 60
+    assert K.k4_shared_bytes(2048, 1, 2, 3, 4, 1) == 233472 == MAX + 1024
+    lay = K.k4_layout(512, params, plan, 2, SMS)
+    assert lay["accumulators_on_r2"] and lay["chunk_rows"] == 8
+    assert lay["shared_bytes"] == K.k4_shared_bytes(2048, 1, 2, 3, 8, 1, True) == 217088
+    assert 217088 == 32768 + 69632 + 49152 + 32768 + 32768
+    assert K.k4_shared_bytes(2048, 1, 2, 3, 12, 1, True) > MAX  # chunks of 12 do not fit
+    assert (2 - 1) * 8 * 2048 * 2 >= 2 * 2048 * 4  # r2 holds the accumulators
+
+
+@pytest.mark.parametrize("N,P,bundle", [i for i in INSTANCES if i != (2048, 2, 2)])
+def test_every_earlier_instance_keeps_its_bytes(N, P, bundle):
+    """Every instance built before the bundled N = 2048 one keeps its
+    accumulators in their own words, so its layout and bytes are unchanged."""
+    params, plan = _instance(N, P, bundle)
+    D = 3 if bundle == 2 else 1
+    for batch in (1, 5, 132, 133, 512):
+        lay = K.k4_layout(batch, params, plan, bundle, SMS)
+        tables = P if lay["tables_resident"] else 1
+        assert not lay["accumulators_on_r2"]
+        assert lay["shared_bytes"] == K.k4_shared_bytes(N, lay["group"], P, D,
+                                                        lay["chunk_rows"], tables)

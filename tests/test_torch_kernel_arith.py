@@ -261,8 +261,10 @@ def test_modelled_external_product_equals_plain_twin(P):
 
 
 # a bundled round: one contraction over 3 * rows (36 rows, two primes; 30
-# rows, three primes)
-@pytest.mark.parametrize("P", [SMALL_V2_TPU, SMALL_V2_TPU2], ids=lambda P: P.name)
+# rows, three primes; 60 rows at (12289, 40961), N = 2048, where the MAC
+# reduces every second product at 40961)
+@pytest.mark.parametrize("P", [SMALL_V2_TPU, SMALL_V2_TPU2, SMALL_V2_N2048],
+                         ids=lambda P: P.name)
 def test_modelled_bundled_contraction_equals_plain_twin(P):
     _modelled_equals_twin(P, bundled=True)
 
@@ -307,7 +309,7 @@ def test_bounds_at_40961_and_n2048():
     # every plan's accumulated product stays below P/2: the exact sign
     # decision agrees with the fp32 one of the JAX package
     for P, bundled in ((SMALL_V2_N2048, False), (SMALL, False), (SMALL_V2_TPU, True),
-                       (SMALL_V2_TPU2, True), (SMALL_V2, False)):
+                       (SMALL_V2_TPU2, True), (SMALL_V2, False), (SMALL_V2_N2048, True)):
         plan = bs.bootstrap_plan(P, bundled)
         bound = (3 if bundled else 1) * P.decomp_rows * P.N * P.half_bg * 128
         assert 2 * bound < int(np.prod([int(q) for q in plan.primes], dtype=object))

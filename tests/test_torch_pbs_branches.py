@@ -5,8 +5,9 @@ Every NTT-plan branch of the JAX package's ``make_bootstrap_impl``:
 - ``small_v2_n2048`` (N = 2048, primes 12289 and 40961; JAX takes its GEMM
   pointwise branch at 40961),
 - ``small`` (three primes, 12289, 18433 and 40961),
-- bundled keys (``bundle=2``) at ``test_noiseless``, ``small_v2_tpu`` and
-  ``small_v2_tpu2`` (three primes only when bundled).
+- bundled keys (``bundle=2``) at ``test_noiseless``, ``small_v2_tpu``,
+  ``small_v2_tpu2`` (three primes only when bundled) and ``small_v2_n2048``
+  (60 digit rows a round at primes 12289 and 40961).
 
 Depth is cut with ``dataclasses.replace`` on both sides (n = 16 or 8
 rounds); widths (N, Bg, l, primes) are the sets' own.  Keys come from the
@@ -40,6 +41,7 @@ CASES = [
     ("test_noiseless", 16, 2, (12289, 18433)),
     ("small_v2_tpu", 16, 2, (12289, 18433)),
     ("small_v2_tpu2", 8, 2, (12289, 18433, 40961)),
+    ("small_v2_n2048", 8, 2, (12289, 40961)),
 ]
 IDS = [f"{name}-n{n}-bundle{b}" for name, n, b, _ in CASES]
 
@@ -124,13 +126,13 @@ def test_bundled_round_twin_equals_two_plain_rounds_algebra():
 
 
 def test_what_still_raises_on_cuda():
-    """The schoolbook sets (N >= 4096) have no NTT plan; bundled N = 2048 and a
-    prime at or above 2^16 are outside the kernels' instances."""
+    """The schoolbook sets (N >= 4096) have no NTT plan; a prime at or above
+    2^16 is outside the kernels' instances.  Bundled N = 2048 is taken."""
     for name in ("medium", "large", "medium_v2", "large_v2"):
         assert bs.bootstrap_plan(get_params(name)) is None
     n2048 = get_params("small_v2_n2048")
     assert kernels.supported(n2048, bs.bootstrap_plan(n2048))
-    assert not kernels.supported(n2048, bs.bootstrap_plan(n2048, True), bundle=2)
+    assert kernels.supported(n2048, bs.bootstrap_plan(n2048, True), bundle=2)
     small = get_params("small")
     assert kernels.supported(small, bs.bootstrap_plan(small))
     plan = bs.bootstrap_plan(small)
