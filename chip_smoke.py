@@ -9,7 +9,8 @@ Phases (any failure exits non-zero):
 
 1. Print the card's name and power limit (``nvidia-smi``).
 2. Build the CUDA kernels of ``redsec_tpu_torch/csrc/pbs.cu``,
-   ``csrc/probes.cu`` and ``csrc/schoolbook.cu`` with ``nvcc`` for ``sm_90a``,
+   ``csrc/blind_mm.cu``, ``csrc/probes.cu`` and ``csrc/schoolbook.cu`` with
+   ``nvcc`` for ``sm_90a``,
    one compiler per source, all started together (a thread each); the compiler's
    register/shared-memory report goes to ``chiprun_out/ptxas.txt``.
 3. Kernel phase: each kernel against its plain PyTorch twin on the card, on
@@ -39,6 +40,15 @@ Phases (any failure exits non-zero):
    equal, bit for bit, the same key prepared with the NTT twin in the
    kernel's place: that holds K1 at exactly the row counts each preparation
    launches it at.
+   The four-step kernels of ``csrc/blind_mm.cu`` on "matmul" keys prepared
+   from the same raw keys (K2-mm and K3-mm on 64 ciphertexts; K4-mm at
+   ``small_v2_tpu`` at batches 512, 133, 5 and 1, its 512 output also equal
+   to K4's on the radix-2 key, and at ``small_v2`` and plain
+   ``small_v2_tpu2`` at 512 and 1; timed at 512 beside K4 in this process),
+   their layout the library's own rule held to ``kernels.k4mm_layout``; each
+   record's bound is the function's with the four-step formulation's beside
+   it (``bound_four_step_ms``: its int8 MACs at the tensor cores' rate plus
+   its int32 work).
    Tolerance: exact equality (every kernel is integer arithmetic mod p or
    mod 2^32).  Prints each kernel's and twin's time (CUDA events) at its
    path's largest shape (the blind rotation's also at the smallest batch of
@@ -150,7 +160,14 @@ Phases (any failure exits non-zero):
 
 12. ``phase12``: the calibration knobs through the command line, the
    agreement forecast beside a measured run, the "matmul" key flavour and the
-   dp/tp forwards and poly-sharded PBS in an NCCL group of one rank.
+   dp/tp forwards and poly-sharded PBS in an NCCL group of one rank.  The
+   "matmul" path: ``sign1024x1`` at ``small_v2_tpu``, batch 8, full width,
+   through K4-mm exactly as often as K4 runs on the radix-2 path (20
+   launches, counted at the kernel's door and by the counters) and K4
+   never, bit-identical to K4's forward; a 512-chunk PBS through K4-mm timed
+   beside K4's in the same process; one image through ``run-encrypted
+   --ntt-flavor matmul`` at ``small_v2``, whose score file must equal the
+   ``--ntt-flavor radix2`` run's, each run's launches exact at the door.
 13. ``phase13``: the BYON trainers and the native oracle.
    - The sign trainer at full ``cifar/binarynet`` on 100 synthetic images
      (numpy seed 1): one loss and gradient without noise on the card against
@@ -285,6 +302,38 @@ def cmux_ops(rows: int, N: int, primes: int = 2, bundle: int = 1) -> int:
     if bundle == 2:
         return 8 * N + 9 * rows * N + ext_product_ops(3 * rows, N, primes) + 2 * N
     return 2 * N + 3 * rows * N + ext_product_ops(rows, N, primes) + 2 * N
+
+
+def mm_transform_ops(N: int) -> int:
+    """The int32 operations of one four-step transform outside the tensor
+    cores (N = R x 128), counted as ``ntt_ops`` counts: the negacyclic
+    R-point NTT of each of the 128 columns (R/2 log2 R butterflies of one
+    multiply, one add and one subtract), the twiddle (N multiplies) and the
+    recombination of the three limb accumulators (two multiplies and two
+    adds an output)."""
+    R = N // 128
+    return 3 * (R // 2) * (R.bit_length() - 1) * 128 + N + 4 * N
+
+
+def mm_ext_product_ops(rows: int, N: int, primes: int = 2) -> int:
+    """``ext_product_ops`` with the four-step transform's int32 work."""
+    per_prime = (rows + 8) * mm_transform_ops(N) + 2 * rows * 8 * N
+    return primes * per_prime + 8 * N * (6 * (primes - 1) + 2)
+
+
+def mm_ext_product_macs(rows: int, N: int, primes: int = 2) -> int:
+    """int8 tensor-core MACs of one external product's C-steps: (rows + 8) R
+    rows of 128 against a [128, 128] table a prime, four limb products."""
+    return primes * (rows + 8) * N * 128 * 4
+
+
+def four_step_bound_ms(calls: int, rows: int, N: int, round_: bool) -> float:
+    """The least time of ``calls`` external products (CMUX rounds with
+    ``round_``) in the four-step formulation the kernels of csrc/blind_mm.cu
+    run: its int8 MACs at the tensor cores' rate plus its int32 operations
+    at the CUDA cores' (the two are taken as not overlapping)."""
+    ops = mm_ext_product_ops(rows, N) + (4 * N + 3 * rows * N if round_ else 0)
+    return calls * (mm_ext_product_macs(rows, N) / PEAK_INT8_MACS + ops / PEAK_INT32_OPS) * 1e3
 
 
 def schoolbook_ops(B: int, rows: int, N: int) -> int:
@@ -436,7 +485,7 @@ def phase12(c: dict) -> None:
     from redsec_tpu_torch.crypto import kernels as K
     from redsec_tpu_torch.device import launches
     from redsec_tpu_torch.formats import keys as kio
-    from redsec_tpu_torch.formats.image_io import pixel_transform_for
+    from redsec_tpu_torch.formats.image_io import pixel_transform_for, write_image_ptxt
     from redsec_tpu_torch.models.spec import prep_model
     from redsec_tpu_torch.models.zoo import get_model
     from redsec_tpu_torch.parallel import mesh as pm
@@ -570,10 +619,11 @@ def phase12(c: dict) -> None:
     del cfwd, cout
     timer.mark("forecast")
 
-    # -- the "matmul" key flavour: prepared from the same raw key; one
-    # sign1024x1 image through it, bit-identical to K4's forward, then one
-    # 512-chunk of PBS timed beside K4's, the outputs bit-identical
-    launches.reset()
+    # -- the "matmul" key flavour: prepared from the same raw key; sign1024x1
+    # at batch 8 through it, every PBS chunk through K4-mm (csrc/blind_mm.cu)
+    # exactly as often as K4 runs on the radix-2 path and K4 never, counted at
+    # the kernel's door and by the counters, bit-identical to K4's forward;
+    # then one 512-chunk of PBS timed beside K4's, the outputs bit-identical
     sync()
     t0 = time.perf_counter()
     mkey = bs.prepare_cloud_key(cloud, device=dev.type, ntt_flavor="matmul")
@@ -581,23 +631,40 @@ def phase12(c: dict) -> None:
     t_mprep = time.perf_counter() - t0
     mfwd = build_encrypted_forward(mplan, mkey)
     kfwd = build_encrypted_forward(mplan, dkey)
-    one = encrypt_images(sk, images[:1], P, np.random.default_rng(14), gain=mfwd.in_gain)
+    mct = encrypt_images(sk, images, P, np.random.default_rng(14), gain=mfwd.in_gain)
+    want_k4 = k4_launches([s.bootstraps * batch for s in model_stats(mplan)])
+    mdoor = [0]
+
+    def door_mm(*args, _real=K.blind_rotate_mm):
+        mdoor[0] += 1
+        return _real(*args)
+
+    kout = kfwd(mct)
+    launches.reset()
     sync()
     t0 = time.perf_counter()
-    mout = mfwd(one)
+    with mock.patch.object(K, "blind_rotate_mm", door_mm):
+        mout = mfwd(mct)
     sync()
     t_mfwd = time.perf_counter() - t0
     mcounts = dict(launches.counts)
     by_path["matmul/sign1024x1"] = (P.name, mcounts)
-    if mcounts:
-        fail(f"the 'matmul' key's path launched kernels: {mcounts}")
-    if not torch.equal(mout, kfwd(one)):
+    if dev.type == "cuda" and (mdoor[0], mcounts.get("blind_rotate_mm"),
+                               mcounts.get("blind_rotate", 0)) != (want_k4, want_k4, 0):
+        fail(f"matmul/sign1024x1: {mdoor[0]} K4-mm calls at the door, counters {mcounts}; "
+             f"expected {want_k4} of blind_rotate_mm (K4's count on the radix-2 path) and "
+             f"no blind_rotate")
+    if not torch.equal(mout, kout):
         fail("matmul/sign1024x1: the 'matmul' key's forward differs from K4's")
-    try:  # a 'matmul' key never reaches K4
+    print(f"matmul/sign1024x1 ({P.name}): {batch} images x "
+          f"{summarize(mplan)['total_bootstraps']} PBS in {t_mfwd:.3f} s through K4-mm, "
+          f"{mdoor[0]} launches at the door, counters {mcounts}; bit-identical to K4's "
+          f"forward on {card}", flush=True)
+    try:  # a 'matmul' key never reaches the radix-2 K4
         K.blind_rotate(torch.zeros((1, 2, P.N), dtype=torch.int32, device=dev),
                        torch.zeros((1, P.n), dtype=torch.int32, device=dev), mkey.bk, P,
                        mkey.plan)
-        fail("the blind-rotation kernel took a 'matmul' key")
+        fail("the radix-2 blind-rotation kernel took a 'matmul' key")
     except ValueError:
         pass
     crng = np.random.default_rng(15)
@@ -618,15 +685,67 @@ def phase12(c: dict) -> None:
     if not all(torch.equal(outs["k4"], o) for o in outs.values()):
         fail("matmul: the 'matmul' key's 512-chunk PBS differs from K4's")
     k4_ms, mm_ms = min(times["k4"], times["k4_2"]), min(times["matmul"], times["matmul2"])
-    print(f"matmul/{P.name}: key prepared on the card in {t_mprep:.3f} s (four-step NTT, "
-          f"no kernel); one sign1024x1 image ({summarize(mplan)['total_bootstraps']} PBS) "
-          f"in {t_mfwd:.3f} s, bit-identical to K4's forward; a {pbs_chunk}-chunk PBS "
-          f"{mm_ms:.1f} ms against K4's {k4_ms:.3f} ms in the same process "
-          f"({mm_ms / k4_ms:.1f}x), outputs bit-identical (host clock around a "
-          f"synchronize: {times}) on {card}", flush=True)
-    rec["matmul"] = {"prepare_s": t_mprep, "forward_1_image_s": t_mfwd,
-                     "pbs_512_ms": mm_ms, "k4_512_ms": k4_ms, "ms": times}
-    del mfwd, mout
+    print(f"matmul/{P.name}: key prepared on the card in {t_mprep:.3f} s (the four-step "
+          f"NTT in torch); a {pbs_chunk}-chunk PBS through K4-mm {mm_ms:.3f} ms against "
+          f"K4's {k4_ms:.3f} ms in the same process ({mm_ms / k4_ms:.3f}x), outputs "
+          f"bit-identical (host clock around a synchronize: {times}) on {card}", flush=True)
+    rec["matmul"] = {"prepare_s": t_mprep, f"forward_{batch}_images_s": t_mfwd,
+                     "k4mm_launches": mdoor[0], "pbs_512_ms": mm_ms, "k4_512_ms": k4_ms,
+                     "ms": times}
+    del mfwd, mout, kout, mct
+
+    # -- one image through the CLI at small_v2 (the CLI's default set), with
+    # --ntt-flavor radix2 and then matmul on the same key and ciphertext
+    # files: the score files equal; each run's launches exact at the door
+    cdir = os.path.join(work, "cli_matmul")
+    run_cli("keygen", "--params", "small_v2", "--seed", 0, "--out-dir", cdir)
+    write_image_ptxt(os.path.join(cdir, "image.ptxt"), 0, raw[0])
+    run_cli("encrypt-image", "--secret", os.path.join(cdir, "secret.key.npz"),
+            "--image-ptxt", os.path.join(cdir, "image.ptxt"),
+            "--out", os.path.join(cdir, "image.ctxt.npz"))
+    want1 = sum(len(range(0, s.bootstraps, pbs_chunk)) for s in model_stats(mplan)
+                if s.bootstraps)
+    cli_rec = {}
+    for flavor, counter, key in (("radix2", "blind_rotate", "k4_launches"),
+                                 ("matmul", "blind_rotate_mm", "k4mm_launches")):
+        door = {"blind_rotate": 0, "blind_rotate_mm": 0}
+
+        def at_door(name, real):
+            def call(*args):
+                door[name] += 1
+                return real(*args)
+            return call
+
+        launches.reset()
+        with mock.patch.object(K, "blind_rotate", at_door("blind_rotate", K.blind_rotate)), \
+                mock.patch.object(K, "blind_rotate_mm", at_door("blind_rotate_mm",
+                                                                 K.blind_rotate_mm)):
+            _, crec = run_cli("run-encrypted", "--model", "mnist/sign1024x1", "--weights",
+                              weights, "--eval", os.path.join(cdir, "eval.key.npz"),
+                              "--image", os.path.join(cdir, "image.ctxt.npz"),
+                              "--out", os.path.join(cdir, f"out_{flavor}.ctxt.npz"),
+                              "--ntt-flavor", flavor)
+        sync()
+        counts = dict(launches.counts)
+        by_path[f"cli_{flavor}/sign1024x1"] = ("small_v2", counts)
+        other = "blind_rotate" if flavor == "matmul" else "blind_rotate_mm"
+        if dev.type == "cuda" and (crec[key], door[counter], counts.get(counter), door[other],
+                                   counts.get(other, 0)) != (want1, want1, want1, 0, 0):
+            fail(f"cli_{flavor}/sign1024x1: run-encrypted reports {crec}, {door} calls at the "
+                 f"doors, counters {counts}; expected {want1} of {counter} and none of {other}")
+        cli_rec[flavor] = crec
+        print(f"cli_{flavor}/sign1024x1 (small_v2, --ntt-flavor {flavor}): {crec['pbs']} PBS "
+              f"in {crec['seconds']:.3f} s, {door[counter]} {counter} launches at the door, "
+              f"counters {counts} on {card}", flush=True)
+    a = np.load(os.path.join(cdir, "out_radix2.ctxt.npz"))
+    b = np.load(os.path.join(cdir, "out_matmul.ctxt.npz"))
+    if sorted(a.files) != sorted(b.files) or any(not np.array_equal(a[k], b[k])
+                                                 for k in a.files):
+        fail("cli_matmul/sign1024x1: the score file of --ntt-flavor matmul differs from "
+             "the radix2 run's")
+    print("cli_matmul/sign1024x1: --ntt-flavor matmul wrote the radix2 run's score file, "
+          "bit for bit", flush=True)
+    rec["cli_matmul"] = cli_rec
     timer.mark("matmul")
 
     # -- torch.distributed at world size 1 on this device's backend (NCCL on
@@ -1220,7 +1339,7 @@ def main() -> int:
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    sources = [K.SOURCE, PK.SOURCE, K.SCHOOLBOOK_SOURCE]
+    sources = [K.SOURCE, K.MM_SOURCE, PK.SOURCE, K.SCHOOLBOOK_SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         ptxas = "".join(pool.map(lambda src: K.build_library(src, force=True), sources))
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
@@ -1542,6 +1661,104 @@ def main() -> int:
                digit_rows=Rn * D, rounds=Pn.n // bundle, **k4_layout_fields(k4n["cfg"]))
         del acc0, abar, got, want, dkn
         torch.cuda.empty_cache()
+
+    # K2-mm, K3-mm, K4-mm: the four-step kernels (csrc/blind_mm.cu) on
+    # "matmul" keys prepared from the same raw keys as the radix-2 ones; the
+    # round kernels on 64 ciphertexts with round 0's slice; K4-mm at
+    # small_v2_tpu at batches 512, 133, 5 and 1 (its 512 output also equal
+    # to K4's on the radix-2 key), at small_v2 and plain small_v2_tpu2 at 512
+    # and 1; timed at 512, beside K4 at small_v2_tpu (k4_ms, this process).
+    # Each record's bound is the function's (K2's, K3's, K4's) with the
+    # four-step formulation's beside it (int8 MACs plus its int32 work)
+    mkey = bs.prepare_cloud_key(cloud, device="cuda", ntt_flavor="matmul")
+
+    def mm_layout_held(params, plan_):
+        lay, built = K.k4mm_layout(params, plan_), K.mm_layout(params)
+        if any(built[k] != lay[k] for k in built):
+            fail(f"the four-step kernels at {params.name}: the library's layout {built} is "
+                 f"not kernels.k4mm_layout's {lay}")
+        return lay
+
+    def mm_fields(lay, kernel):
+        instance = f"{kernel}ILi{N}E"
+        regs, spill = ptxas_usage(ptxas, instance)
+        return dict(instance=instance, ciphertexts_per_block=1, shared_bytes=lay["shared_bytes"],
+                    rows_padded=lay["rows_padded"], registers=regs, spill_bytes=spill)
+
+    mlay = mm_layout_held(P, mkey.plan)
+    mbk0 = mkey.bk[:, 0].contiguous()
+    digits = ri(-P.half_bg, P.half_bg, (M, rows, N))
+    err = same("external_product_mm", K.external_product_mm(digits, mbk0, plan),
+               K.external_product_mm_plain(digits, mbk0, plan))
+    ms = cuda_ms(lambda: K.external_product_mm(digits, mbk0, plan), 20)
+    pms = cuda_ms(lambda: K.external_product_mm_plain(digits, mbk0, plan), 3)
+    report("external_product_mm", [M, rows, N], err, ms, pms,
+           digits.numel() * 4 + mbk0.numel() * 2 + M * 2 * N * 4,
+           M * ext_product_ops(rows, N), "redsec_tpu/crypto/pallas_round.py:98", "blind_mm.cu",
+           bound_four_step_ms=four_step_bound_ms(M, rows, N, False),
+           **mm_fields(mlay, "external_product_mm_kernel"))
+    err = same("cmux_round_mm", K.cmux_round_mm(acc, t, mbk0, P, plan),
+               K.cmux_round_mm_plain(acc, t, mbk0, P, plan))
+    ms = cuda_ms(lambda: K.cmux_round_mm(acc, t, mbk0, P, plan), 20)
+    pms = cuda_ms(lambda: K.cmux_round_mm_plain(acc, t, mbk0, P, plan), 3)
+    report("cmux_round_mm", [M, 2, N], err, ms, pms,
+           2 * acc.numel() * 4 + M * 4 + mbk0.numel() * 2, M * cmux_ops(rows, N),
+           "redsec_tpu/crypto/pallas_round.py:254", "blind_mm.cu",
+           bound_four_step_ms=four_step_bound_ms(M, rows, N, True),
+           **mm_fields(mlay, "cmux_round_mm_kernel"))
+    del mbk0
+    _, cloud3 = kg.keygen(P3, seed=0)  # plain small_v2_tpu2 (10 digit rows)
+    mm_ms = {}
+    for Pm, clm, batches in ((P, None, (pbs_chunk, 133, 5, 1)), (P2, cloud2, (pbs_chunk, 1)),
+                             (P3, cloud3, (pbs_chunk, 1))):
+        mk = mkey if clm is None else bs.prepare_cloud_key(clm, device="cuda",
+                                                            ntt_flavor="matmul")
+        lay = mm_layout_held(Pm, mk.plan)
+        for B4 in batches:
+            acc0 = ri(-2**31, 2**31, (B4, 2, N))
+            abar = ri(0, 2 * N, (B4, Pm.n))
+            got = K.blind_rotate_mm(acc0, abar, mk.bk, Pm, mk.plan)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = K.blind_rotate_mm_plain(acc0, abar, mk.bk, Pm, mk.plan)
+            torch.cuda.synchronize()
+            pms = (time.perf_counter() - t0) * 1e3
+            err = same(f"blind_rotate_mm {Pm.name} batch {B4}", got, want)
+            if Pm is P and B4 == pbs_chunk:
+                same("blind_rotate_mm against blind_rotate on the same raw key", got,
+                     K.blind_rotate(acc0, abar, dkey.bk, P, plan))
+            if B4 == pbs_chunk:
+                mm_ms[Pm.name] = dict(
+                    err=err, pms=pms, lay=lay,
+                    ms=cuda_ms(lambda: K.blind_rotate_mm(acc0, abar, mk.bk, Pm, mk.plan), 3),
+                    bytes_=mk.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
+                    ops=B4 * Pm.n * cmux_ops(Pm.decomp_rows, N),
+                    four=four_step_bound_ms(B4 * Pm.n, Pm.decomp_rows, N, True))
+            print(f"kernel blind_rotate_mm {Pm.name} [{B4}, 2, {N}], {Pm.decomp_rows} digit "
+                  f"rows: bit-identical to twin ({pms:.0f} ms)"
+                  + (", and to blind_rotate on the radix-2 key of the same raw key"
+                     if Pm is P and B4 == pbs_chunk else "")
+                  + (f", {mm_ms[Pm.name]['ms']:.4f} ms, layout {lay}"
+                     if B4 == pbs_chunk else ""), flush=True)
+        del mk, acc0, abar, got, want
+    m1, m3 = mm_ms[P.name], mm_ms[P3.name]
+    report("blind_rotate_mm", [pbs_chunk, 2, N], m1["err"], m1["ms"], m1["pms"], m1["bytes_"],
+           m1["ops"], "redsec_tpu/crypto/pallas_blind.py:60", "blind_mm.cu",
+           params=(P.name, P3.name), counter="blind_rotate_mm",
+           bound_four_step_ms=m1["four"], k4_ms_same_process=k4_ms[pbs_chunk],
+           ms_small_v2_tpu2=m3["ms"], plain_ms_small_v2_tpu2=m3["pms"],
+           bound_four_step_ms_small_v2_tpu2=m3["four"],
+           **mm_fields(m1["lay"], "blind_rotate_mm_kernel"))
+    print(f"kernel blind_rotate_mm {P.name} 512: {m1['ms']:.4f} ms against blind_rotate's "
+          f"{k4_ms[pbs_chunk]:.4f} ms in this process ({m1['ms'] / k4_ms[pbs_chunk]:.3f}x)",
+          flush=True)
+    m2 = mm_ms[P2.name]
+    report("blind_rotate_mm_small_v2", [pbs_chunk, 2, N], m2["err"], m2["ms"], m2["pms"],
+           m2["bytes_"], m2["ops"], "redsec_tpu/crypto/pallas_blind.py:60", "blind_mm.cu",
+           params=P2.name, counter="blind_rotate_mm", digit_rows=P2.decomp_rows,
+           bound_four_step_ms=m2["four"], **mm_fields(m2["lay"], "blind_rotate_mm_kernel"))
+    del mkey, cloud3
+    torch.cuda.empty_cache()
 
     # K5, K6: the rotation probes at the bench script's shape and at a batch
     # of 64; K6 at both tiles the script runs, where the tile divides the batch
@@ -2514,9 +2731,9 @@ def main() -> int:
         r["launches_by_path"] = {k: c[counter] for k, (pn, c) in by_path.items()
                                  if c.get(counter) and (params is None or pn in sets)}
         r["launches"] = sum(r["launches_by_path"].values())
-    never = [name for name, r in rec.items()
-             if r["launches"] == 0 and name not in ("external_product", "cmux_round")]
-    if never:  # the two round kernels are the body of blind_rotate on every path
+    never = [name for name, r in rec.items() if r["launches"] == 0 and name not in (
+        "external_product", "cmux_round", "external_product_mm", "cmux_round_mm")]
+    if never:  # the round kernels are the body of blind_rotate(_mm) on every path
         fail(f"kernels never launched on any driven path: {never}")
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -171,10 +171,12 @@ def cmd_encrypt_image(args):
 def cmd_run_encrypted(args):
     """Cloud side.  Besides the JAX package's lines it prints one JSON line:
     the forward's mode, images, bootstraps (``pbs``), blind-rotation kernel
-    launches (``k4_launches``) and schoolbook-product kernel launches
-    (``s1_launches``, one a round at the sets without NTT primes; both 0 on
-    the CPU), ``seconds`` and ``pbs_per_s``; the same dict is returned to an
-    in-process caller."""
+    launches (``k4_launches``; ``k4mm_launches`` for the four-step kernel
+    that a ``--ntt-flavor matmul`` key runs) and schoolbook-product kernel
+    launches (``s1_launches``, one a round at the sets without NTT primes; all
+    0 on the CPU), ``seconds`` and ``pbs_per_s``; the same dict is returned to
+    an in-process caller.  ``--ntt-flavor`` is the JAX package's
+    ``REDSEC_NTT``: the NTT-domain order both keys are prepared in."""
     import torch
 
     from .crypto import bootstrap as bs
@@ -186,7 +188,7 @@ def cmd_run_encrypted(args):
     dev = resolve_device(args.device)
     cloud = kio.load_cloud_key(args.eval)
     t0 = time.time()
-    dkey = bs.prepare_cloud_key(cloud, device=dev)
+    dkey = bs.prepare_cloud_key(cloud, device=dev, ntt_flavor=args.ntt_flavor)
     print(f"evaluation key prepared in {time.time()-t0:.1f}s")
     plan = prep_model(_resolve_model(args.model), args.weights)
     opts = {}
@@ -207,7 +209,8 @@ def cmd_run_encrypted(args):
                     f"calibration escalates layers {sorted(esc_layers)} to "
                     f"{esc_name}: pass --eval2 <eval key at {esc_name} "
                     f"geometry, same-seed keygen>")
-            dkey2 = bs.prepare_cloud_key(kio.load_cloud_key(args.eval2), device=dev)
+            dkey2 = bs.prepare_cloud_key(kio.load_cloud_key(args.eval2), device=dev,
+                                         ntt_flavor=args.ntt_flavor)
             opts["escalate"] = (esc_layers, dkey2)
     ct, params, label, _, _ = kio.load_ciphertexts(args.image)
     d = plan.in_dim
@@ -215,12 +218,14 @@ def cmd_run_encrypted(args):
     fwd = build_encrypted_forward(plan, dkey, **opts)
     x = torch.as_tensor(ct, device=dev)
     k4_before, s1_before = launches.get("blind_rotate"), launches.get("schoolbook_product")
+    mm_before = launches.get("blind_rotate_mm")
     t0 = time.time()
     scores = fwd(x).cpu().numpy()
     dt = time.time() - t0
     record = {"mode": fwd.mode, "images": int(ct.shape[0]),
               "pbs": fwd.pbs_per_image * int(ct.shape[0]),
               "k4_launches": launches.get("blind_rotate") - k4_before,
+              "k4mm_launches": launches.get("blind_rotate_mm") - mm_before,
               "s1_launches": launches.get("schoolbook_product") - s1_before, "seconds": dt}
     record["pbs_per_s"] = record["pbs"] / dt
     kio.save_ciphertexts(args.out, scores, params, label=label, out_gain=fwd.out_gain,
@@ -361,6 +366,10 @@ def main(argv=None):
                                    "enables the production accuracy "
                                    "mechanism (gains/centers/tie-breaks)")
     p.add_argument("--out", default="network_output.ctxt.npz")
+    p.add_argument("--ntt-flavor", choices=["radix2", "matmul"], default="radix2",
+                   help="NTT-domain order of the prepared keys (the JAX package's REDSEC_NTT): "
+                        "radix2 runs the radix-2 blind-rotation kernel, matmul the four-step "
+                        "one where it takes the set (else the four-step loop in torch)")
     device_arg(p)
     p.set_defaults(fn=cmd_run_encrypted)
 

@@ -24,13 +24,18 @@ Bg/2 = 128 (``medium_v2``, ``large_v2``), where the two differ.
 All arithmetic is exact, so the output is bit-identical to the JAX package's
 ``make_batched_bootstrap`` for the same key and ciphertexts, whatever the
 NTT-domain order.  The port prepares its BK in the radix-2 bit-reversed order
-of ``ntt.ntt_device`` (flavour ``"radix2"``) unless the caller asks for the
-four-step order of ``ntt_matmul`` (flavour ``"matmul"``, the JAX package's
-``REDSEC_NTT=matmul``, the layout its Pallas blind-rotation kernel and
-``parallel/ntt_shard.py`` take).  The kernels use the radix-2 butterflies; a
-"matmul" key runs the JAX package's XLA loop in torch instead (n rounds of
-rotate, decompose, four-step transforms per prime, the exact MAC, inverse,
-CRT) and never reaches the blind-rotation kernel.
+of ``ntt.ntt_device`` (flavour ``"radix2"``, the main path) unless the caller
+asks for the four-step order of ``ntt_matmul`` (flavour ``"matmul"``, the JAX
+package's ``REDSEC_NTT=matmul``, the layout its Pallas round and
+blind-rotation kernels and ``parallel/ntt_shard.py`` take).  A "matmul" key
+runs the four-step blind-rotation kernel (``kernels.blind_rotate_mm``,
+csrc/blind_mm.cu: one launch, its 128-point stages on the int8 tensor cores)
+where ``kernels.supported_mm`` takes its shape: exactly where the JAX package
+runs its Pallas kernel (two primes below 2^15, N = 256 or 1024,
+unbundled).  The other "matmul" keys (bundled ones, N = 2048, three
+primes), where the JAX package runs its XLA loop, run that loop in torch
+(``kernels.blind_rotate_mm_plain``: n rounds of rotate, decompose, four-step
+transforms per prime, the exact MAC, inverse, CRT).
 
 A numpy oracle of the whole pipeline (``bootstrap_host``) is kept for tests.
 """
@@ -75,7 +80,8 @@ class DeviceCloudKey:
     its int8 convolution).  Flavour ``"matmul"``: the same residues in the
     four-step [k1, k2] order of ``ntt_matmul``, held as int16
     [P, n', R, 2*limbs, R4, C4] (N = R4 * C4): a shape the radix-2 kernels
-    refuse.  ``ksk``: int32 [N*t, n+1] multiply-form key-switching key."""
+    refuse and the four-step ones (``kernels.*_mm``) take.  ``ksk``: int32
+    [N*t, n+1] multiply-form key-switching key."""
 
     params: TfheParams
     plan: Optional[ntt_mod.NttPlan]
@@ -160,8 +166,9 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
 
     ``ntt_flavor="matmul"`` (the JAX package's ``REDSEC_NTT=matmul``)
     transforms the limbs with the four-step ``ntt_matmul`` pair on the device
-    instead of the NTT kernel, and the key's PBS runs the torch loop of that
-    flavour; N must be one ``ntt_matmul.supported`` takes."""
+    instead of the NTT kernel, and the key's PBS runs the four-step kernels
+    (or, outside ``kernels.supported_mm``, the torch loop of that flavour); N
+    must be one ``ntt_matmul.supported`` takes."""
     if ntt_flavor not in NTT_FLAVORS:
         raise ValueError(f"ntt_flavor must be one of {NTT_FLAVORS}, got {ntt_flavor!r}")
     dev = resolve_device(device)
@@ -322,25 +329,14 @@ def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
     return tv.reshape(-1, N).expand(B, N)
 
 
-def blind_rotate_matmul(acc: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
-                        params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """The blind rotation of a "matmul" key: the JAX package's XLA loop on
-    its matmul branch, in torch on the key's device.  Each of the n rounds
-    (n/2 bundled) rotates and decomposes, transforms the digits per prime
-    with ``ntt_matmul.ntt_device_mm``, runs the exact lazy MAC against the
-    round's four-step BK slice, and transforms back and recombines
-    (``kernels.external_product_plain`` with the four-step pair).  Plain
-    torch: the JAX package computes it outside any Pallas kernel."""
-    return kernels.blind_rotate_plain(acc, abar, bk.flatten(-2), params, plan,
-                                      (ntt_matmul.ntt_device_mm, ntt_matmul.intt_device_mm))
-
-
 def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
                         ntt_flavor: str = "radix2"):
     """``impl(dkey, ct [B, n+1], testvect [N]|[B, N]) -> [B, n+1]``.  With an
     NTT plan the blind rotation is ``kernels.blind_rotate`` (the CUDA kernel
     on a CUDA tensor, its plain twin on a CPU tensor), plain or bundled as the
-    key is, or ``blind_rotate_matmul`` for ``ntt_flavor="matmul"``.  Without
+    key is; for ``ntt_flavor="matmul"`` it is ``kernels.blind_rotate_mm``
+    where ``kernels.supported_mm`` takes the set and the key's bundling, else
+    the torch loop ``kernels.blind_rotate_mm_plain``.  Without
     one (``plan`` None) it is the JAX package's schoolbook body: n rounds of
     rotate, difference and decompose around ``kernels.schoolbook_product`` on
     the raw BK's round slice.  The impl checks every key it is given against
@@ -367,7 +363,14 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
         if plan is None:
             acc = blind_rotate_schoolbook(acc, abar, dkey.bk)
         elif ntt_flavor == "matmul":
-            acc = blind_rotate_matmul(acc, abar, dkey.bk, p, plan)
+            # the shape rule: the four-step kernel takes what the JAX package's
+            # Pallas kernel takes (two primes < 2^15, N = 256 or 1024, bundle
+            # 1); bundled keys, N = 2048 and three primes run the loop in
+            # torch, as the JAX package runs its XLA loop there
+            if kernels.supported_mm(p, plan, dkey.bundle):
+                acc = kernels.blind_rotate_mm(acc, abar, dkey.bk, p, plan)
+            else:
+                acc = kernels.blind_rotate_mm_plain(acc, abar, dkey.bk, p, plan)
         else:
             acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
         a_n, b_n = ops.sample_extract(acc)

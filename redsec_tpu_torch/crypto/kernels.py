@@ -32,7 +32,21 @@ three primes below 2^16, N = 256 .. 2048), plain and bundled keys
 paths run only inside ``blind_rotate``, take two primes up to N = 1024, as
 the Pallas kernels they replace do.
 
-A fifth kernel, ``schoolbook_product`` (S1, ``csrc/schoolbook.cu``), is the
+Three more, in ``csrc/blind_mm.cu`` (a library of its own), take four-step
+("matmul") keys in the JAX package's [k1, k2] order, as its Pallas kernels do:
+
+============================  ==============================================
+``external_product_mm``       ``crypto/pallas_round.py::make_round_kernel``
+``cmux_round_mm``             ``crypto/pallas_round.py::make_full_round_kernel``
+``blind_rotate_mm``           ``crypto/pallas_blind.py::make_blind_rotate_kernel``
+============================  ==============================================
+
+with the twins ``*_mm_plain`` (the radix-2 twins with the four-step
+``ntt_matmul`` pair), the envelope ``supported_mm`` (the JAX package's
+``pallas_blind.supported``, unbundled) and the layout mirror
+``k4mm_layout``; a radix-2 key raises in them by its shape.
+
+A further kernel, ``schoolbook_product`` (S1, ``csrc/schoolbook.cu``), is the
 external product of the parameter sets without NTT primes (N >= 4096), and
 of any set prepared with ``schoolbook=True``: the JAX package computes it as
 an XLA int8 convolution (``redsec_tpu/crypto/bootstrap.py:517-556``), not in
@@ -53,6 +67,7 @@ import torch
 from ..device import launches
 from . import bootstrap as bs
 from . import ntt as ntt_mod
+from . import ntt_matmul
 from .params import TfheParams
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -738,4 +753,215 @@ def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor,
             raise ValueError(f"{name} must start on a 16-byte boundary")
     _sb_lib().launch("redsec_schoolbook_product", "schoolbook_product", dev, digits.data_ptr(),
                      bk_round.data_ptr(), out.data_ptr(), B, rows, N, half_bg, flush_rows)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# K2-K4 on four-step ("matmul") keys (csrc/blind_mm.cu)                       #
+# --------------------------------------------------------------------------- #
+
+MM_SOURCE = os.path.join(_PKG, "csrc", "blind_mm.cu")
+MM_KERNEL_N = (256, 1024)  # N = R * 128 the four-step kernels are instantiated for
+MATMUL = (ntt_matmul.ntt_device_mm, ntt_matmul.intt_device_mm)  # the twins' transform pair
+_MM_ENTRIES = {
+    "redsec_mm_layout": [_I, _I, ctypes.POINTER(_I)],
+    "redsec_external_product_mm": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "redsec_cmux_round_mm": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
+    "redsec_blind_rotate_mm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],
+}
+_mm_loaded: list[Library] = []
+
+
+def _mm_lib() -> Library:
+    if not _mm_loaded:
+        _mm_loaded.append(Library(MM_SOURCE, _MM_ENTRIES))
+    return _mm_loaded[0]
+
+
+# The layout rule of csrc/blind_mm.cu (mm_mrows, mm_u_bytes, mm_smem_bytes),
+# mirrored: padded row bytes of a u8 limb matrix, padded row halves of the
+# 16-bit results, key rows in the ring.
+MM_WS, MM_ZS, MM_RING = 144, 136, 2
+
+
+def _mm_rows(N: int, rows: int) -> int:
+    """Mr: rows of the C-steps' operands and results, the larger of rows * R
+    and 8R rounded up to a whole m16 tile."""
+    R = N // ntt_matmul.MM_C
+    return -(-max(rows * R, 8 * R) // 16) * 16
+
+
+def _mm_u_bytes(N: int, rows: int) -> int:
+    """U: the C-steps' u8 left operand [2][Mr][144] or the key ring
+    [2][8][N] u16, the larger."""
+    return max(2 * _mm_rows(N, rows) * MM_WS, MM_RING * 8 * N * 2)
+
+
+def k4mm_shared_bytes(N: int, rows: int) -> int:
+    """Dynamic shared bytes of the four-step kernels at N and ``rows`` digit
+    rows: WC's limbs of both primes (uint8 [2][2][128][144]), accumulators
+    and differences (uint32 [2][2][N]), U, Z (16-bit C-step results
+    [Mr][136]) and the two primes' inverse transforms (uint16 [2][8][N])."""
+    return (2 * 2 * 128 * MM_WS + 4 * 2 * 2 * N + _mm_u_bytes(N, rows)
+            + 2 * _mm_rows(N, rows) * MM_ZS + 2 * 2 * 8 * N)
+
+
+def _mm_shape_ok(plan: ntt_mod.NttPlan, N: int, rows: int) -> bool:
+    """The JAX package's ``pallas_blind.supported`` (two primes below 2^15,
+    the (R, 128) split) on an N the four-step kernels are built for, primes
+    ascending, and ``rows`` digit rows fitting a block."""
+    pr = plan.primes
+    return (len(pr) == 2 and all(p < (1 << 15) for p in pr)
+            and ntt_matmul.supported(N) and ntt_matmul._split_rc(N)[1] == 128
+            and N == plan.N and N in MM_KERNEL_N and 256 < pr[0] < pr[1]
+            and 0 < rows and k4mm_shared_bytes(N, rows) <= K4_MAX_SHARED)
+
+
+def supported_mm(params: TfheParams, plan: ntt_mod.NttPlan, bundle: int = 1) -> bool:
+    """Whether the four-step kernels take this set, plan and bundling: the
+    JAX package's ``pallas_blind.supported`` with bundle 1 (its
+    blind-rotation kernel runs only unbundled keys), on the N they are built
+    for, with the digit rows fitting a block (``k4mm_shared_bytes``).  Every
+    parameter set's answer is JAX's."""
+    return (bundle == 1 and params.l * params.bg_bit <= 32
+            and _mm_shape_ok(plan, params.N, params.decomp_rows))
+
+
+def k4mm_layout(params: TfheParams, plan: ntt_mod.NttPlan | None = None) -> dict:
+    """How the four-step kernels lay out a block, a function of N and the
+    digit rows only: one ciphertext a block of N/2 threads (``threads``),
+    ``rows_padded`` rows of the C-steps' operands (Mr), ``u_bytes`` of U,
+    ``shared_bytes`` of dynamic shared memory, and the ``instance`` launched
+    as the compiler's report names it.  Raises for what ``supported_mm``
+    refuses."""
+    plan = plan or bs.bootstrap_plan(params)
+    if plan is None or not supported_mm(params, plan):
+        raise ValueError(f"{params.name}: not a blind_rotate_mm_kernel instance")
+    N, rows = params.N, params.decomp_rows
+    return {"threads": N // 2, "rows_padded": _mm_rows(N, rows), "u_bytes": _mm_u_bytes(N, rows),
+            "shared_bytes": k4mm_shared_bytes(N, rows),
+            "instance": f"blind_rotate_mm_kernelILi{N}E"}
+
+
+def mm_layout(params: TfheParams) -> dict:
+    """The built library's own answer for ``k4mm_layout``'s numbers (its C
+    entry ``redsec_mm_layout``)."""
+    out = (ctypes.c_int * 4)()
+    if _mm_lib().fn["redsec_mm_layout"](params.N, params.decomp_rows, out) != 0:
+        raise ValueError(f"{params.name}: no four-step kernel instance")
+    return {"shared_bytes": out[0], "rows_padded": out[1], "u_bytes": out[2], "threads": out[3]}
+
+
+def _require_mm_key(bk: torch.Tensor, ndim: int, N: int) -> None:
+    """A four-step key (tensor) is [..., R, C] with N = R * C; a radix-2 one
+    ([..., N]) is refused by its shape."""
+    rc = ntt_matmul._split_rc(N)
+    if bk.ndim != ndim or tuple(bk.shape[-2:]) != rc:
+        want = "[P, n, rows, 8, R, C]" if ndim == 6 else "[P, rows, 8, R, C]"
+        raise ValueError(f"BK of shape {tuple(bk.shape)} is not a four-step ('matmul') key "
+                         f"{want} with (R, C) = {rc}: the four-step kernels and their twins "
+                         "take 'matmul' keys only")
+
+
+def external_product_mm_plain(digits: torch.Tensor, bk_round: torch.Tensor,
+                              plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """``external_product_plain`` with the four-step pair, on a "matmul"
+    key's round slice int16 [P, rows, 8, R, C]."""
+    _require_mm_key(bk_round, 5, digits.shape[-1])
+    return external_product_plain(digits, bk_round.flatten(-2), plan, *MATMUL)
+
+
+def cmux_round_mm_plain(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
+                        params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """``cmux_round_plain`` with the four-step pair, on a "matmul" key's round
+    slice int16 [P, rows, 8, R, C]."""
+    _require_mm_key(bk_round, 5, params.N)
+    return cmux_round_plain(acc, t, bk_round.flatten(-2), params, plan, MATMUL)
+
+
+def blind_rotate_mm_plain(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
+                          params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """The blind rotation of a "matmul" key int16 [P, n', rows', 8, R, C]: the
+    JAX package's XLA loop on its matmul branch, in torch (n rounds, or n/2
+    bundled ones, of rotate, decompose, ``ntt_matmul.ntt_device_mm`` per
+    prime, the exact lazy MAC, the inverse and the CRT:
+    ``blind_rotate_plain`` with the four-step pair)."""
+    _require_mm_key(bk, 6, params.N)
+    return blind_rotate_plain(acc0, abar, bk.flatten(-2), params, plan, MATMUL)
+
+
+def _require_mm_shape(plan: ntt_mod.NttPlan, N: int, rows: int, what: str,
+                      params: TfheParams | None = None) -> None:
+    if not _mm_shape_ok(plan, N, rows) or (params is not None and not supported_mm(params, plan)):
+        raise ValueError(f"primes {plan.primes} at N={N}, {rows} digit rows: outside what "
+                         f"{what} is built for (two ascending primes < 2^15, N in "
+                         f"{MM_KERNEL_N}, rows fitting {K4_MAX_SHARED} B, l * bg_bit <= 32)")
+
+
+def external_product_mm(digits: torch.Tensor, bk_round: torch.Tensor,
+                        plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """K2-mm: see ``external_product_mm_plain``."""
+    _require_mm_key(bk_round, 5, digits.shape[-1])
+    if digits.device.type == "cpu":
+        return external_product_mm_plain(digits, bk_round, plan)
+    M, rows, N = digits.shape
+    _require_mm_shape(plan, N, rows, "external_product_mm_kernel")
+    dev = digits.device
+    R, C = ntt_matmul._split_rc(N)
+    _require(digits, "digits", torch.int32, (M, rows, N), dev)
+    _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C), dev)
+    if digits.data_ptr() % 16:
+        raise ValueError("digits must start on a 16-byte boundary")
+    tabs = ntt_matmul.kernel_tables_mm(plan, dev)
+    delta = torch.empty((M, 2, N), dtype=torch.int32, device=dev)
+    _mm_lib().launch("redsec_external_product_mm", "external_product_mm", dev, digits.data_ptr(),
+                     bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs["tw"].data_ptr(),
+                     tabs["wc"].data_ptr(), delta.data_ptr(), M, N, rows, plan.primes[0],
+                     plan.primes[1])
+    return delta
+
+
+def cmux_round_mm(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
+                  params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """K3-mm: see ``cmux_round_mm_plain``."""
+    _require_mm_key(bk_round, 5, params.N)
+    if acc.device.type == "cpu":
+        return cmux_round_mm_plain(acc, t, bk_round, params, plan)
+    M, N, rows = acc.shape[0], params.N, params.decomp_rows
+    _require_mm_shape(plan, N, rows, "cmux_round_mm_kernel", params)
+    dev = acc.device
+    R, C = ntt_matmul._split_rc(N)
+    _require(acc, "acc", torch.int32, (M, 2, N), dev)
+    _require(t, "t", torch.int32, (M,), dev)
+    _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C), dev)
+    tabs = ntt_matmul.kernel_tables_mm(plan, dev)
+    out = torch.empty_like(acc)
+    _mm_lib().launch("redsec_cmux_round_mm", "cmux_round_mm", dev, acc.data_ptr(), t.data_ptr(),
+                     bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs["tw"].data_ptr(),
+                     tabs["wc"].data_ptr(), out.data_ptr(), M, N, *_gadget_args(params),
+                     plan.primes[0], plan.primes[1])
+    return out
+
+
+def blind_rotate_mm(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
+                    params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
+    """K4-mm: see ``blind_rotate_mm_plain``.  One launch runs all n rounds,
+    one ciphertext a block (``k4mm_layout``); a bundled "matmul" key is
+    outside ``supported_mm`` and raises here on CUDA."""
+    _require_mm_key(bk, 6, params.N)
+    if acc0.device.type == "cpu":
+        return blind_rotate_mm_plain(acc0, abar, bk, params, plan)
+    B, N, n, rows = acc0.shape[0], params.N, params.n, params.decomp_rows
+    _require_mm_shape(plan, N, rows, "blind_rotate_mm_kernel", params)
+    dev = acc0.device
+    R, C = ntt_matmul._split_rc(N)
+    _require(acc0, "acc0", torch.int32, (B, 2, N), dev)
+    _require(abar, "abar", torch.int32, (B, n), dev)
+    _require(bk, "bk", torch.int16, (2, n, rows, 2 * bs.BK_LIMBS, R, C), dev)
+    tabs = ntt_matmul.kernel_tables_mm(plan, dev)
+    out = torch.empty_like(acc0)
+    _mm_lib().launch("redsec_blind_rotate_mm", "blind_rotate_mm", dev, acc0.data_ptr(),
+                     abar.data_ptr(), bk.data_ptr(), tabs["tw"].data_ptr(), tabs["wc"].data_ptr(),
+                     out.data_ptr(), B, n, N, *_gadget_args(params), plan.primes[0],
+                     plan.primes[1])
     return out

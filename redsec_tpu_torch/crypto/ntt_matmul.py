@@ -166,3 +166,73 @@ def intt_device_mm(y: torch.Tensor, plan: NttPlan, pi: int) -> torch.Tensor:
     b = _mulmod_device(b, t["TWi"][None], p)
     x = _matmul_left(b, t["WRi"], p)  # sum over k1 -> [B, j1, j2]
     return _mulmod_device(x, t["untwist"][None], p).reshape(y.shape)
+
+
+# --------------------------------------------------------------------------- #
+# Tables of the four-step blind-rotation kernels (csrc/blind_mm.cu)           #
+# --------------------------------------------------------------------------- #
+
+MM_C = 128  # the kernels' column count (the split of every N they take)
+
+
+def _brv(k: int, bits: int) -> int:
+    """k with its low ``bits`` bits reversed."""
+    return int(format(k, f"0{bits}b")[::-1], 2) if bits else 0
+
+
+def _shoup(w: np.ndarray, p: int) -> np.ndarray:
+    """uint32 [..., 2] pairs (w, floor(w * 2^32 / p)) for residues w."""
+    w = np.asarray(w, np.uint64) % np.uint64(p)
+    return np.stack([w, (w << np.uint64(32)) // np.uint64(p)], axis=-1).astype(np.uint32)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables_mm_host(N: int, p: int, psi: int) -> dict:
+    """The tables ``csrc/blind_mm.cu`` reads for one prime, in numpy, built
+    from ``_mm_tables`` (JAX's ``_round_tables`` without bf16, with the folds
+    the kernel makes):
+
+    ``"wc"``: uint8 [2, C, C], WC's low 8 bits and high 7 bits (WC is
+    symmetric; the inverse multiplies by WC too, on its input columns
+    reversed, since WCi[k2] = WC[-k2 mod C]).
+    ``"tw"``: uint32 [2 R C + 2 R, 2] Shoup pairs: TWf = TW psi^j2 [R, C], then
+    TWi' = TWi psi^-j2 / N [R, C], then the forward R-point negacyclic NTT's
+    twiddles psi_R^brv(k) and the inverse's psi_R^-brv(k), k < R (entry 0 of
+    each 0), psi_R = psi^C: the pre-twist psi^(C j1) and the [R, R] DFT of
+    the JAX formulation are that R-point NTT, the rest of the twist and the
+    untwist ride on the twiddles."""
+    t = _mm_tables(N, p, psi)
+    R, C = t["R"], t["C"]
+    assert C == MM_C, "the kernels take the (R, 128) split"
+    lg = R.bit_length() - 1
+    pj = np.array([pow(psi, j, p) for j in range(C)], np.int64)
+    pji = np.array([pow(psi, 2 * N - j, p) for j in range(C)], np.int64)
+    twf = t["TW"] * pj[None] % p
+    twi = t["TWi"] * pji[None] % p * pow(N, p - 2, p) % p
+    psi_r = pow(psi, C, p)
+    psi_ri = pow(psi_r, p - 2, p)
+    psf = [0] + [pow(psi_r, _brv(k, lg), p) for k in range(1, R)]
+    psv = [0] + [pow(psi_ri, _brv(k, lg), p) for k in range(1, R)]
+    tw = np.concatenate([twf.reshape(-1), twi.reshape(-1), psf, psv]).astype(np.int64)
+    pairs = _shoup(tw, p)
+    pairs[2 * R * C] = pairs[2 * R * C + R] = 0
+    wc = t["WC"].astype(np.int64)
+    return {"R": R, "wc": np.stack([wc & 255, wc >> 8]).astype(np.uint8), "tw": pairs}
+
+
+_KERNEL_TABLES: dict = {}
+
+
+def kernel_tables_mm(plan: NttPlan, device) -> dict:
+    """``kernel_tables_mm_host`` of every prime of ``plan`` on ``device``:
+    ``"tw"`` int32 [P, 2 R C + 2 R, 2] (bit patterns of the uint32 pairs) and
+    ``"wc"`` uint8 [P, 2, C, C]; built once per plan and device."""
+    key = (plan.N, plan.primes, str(device))
+    if key not in _KERNEL_TABLES:
+        host = [kernel_tables_mm_host(plan.N, p, int(plan.twist[pi][1]))
+                for pi, p in enumerate(plan.primes)]
+        _KERNEL_TABLES[key] = {
+            "tw": torch.as_tensor(np.stack([h["tw"] for h in host]).view(np.int32), device=device),
+            "wc": torch.as_tensor(np.stack([h["wc"] for h in host]), device=device),
+        }
+    return _KERNEL_TABLES[key]

@@ -412,8 +412,9 @@ def test_wgmma_layouts_hold_on_the_card(card, n, kc, ng):
 
 
 # --------------------------------------------------------------------------- #
-# The four-step NTT and the "matmul" key flavour on the card (no kernel: fp32 #
-# limb matmuls with TF32 off, exact while every partial stays below 2^24)     #
+# The four-step NTT and the "matmul" key flavour on the card (the key's       #
+# preparation: fp32 limb matmuls with TF32 off, exact while every partial     #
+# stays below 2^24; its PBS: the four-step kernel K4-mm)                      #
 # --------------------------------------------------------------------------- #
 
 
@@ -442,10 +443,112 @@ def test_matmul_key_pbs_on_the_card_equals_k4(key):
     ct = lwe.encrypt_integers(sk.lwe_key, rng.integers(-300, 300, size=9), P, rng)
     tv = bs.const_test_vector(P, 1, P.msg_space)
     before = K.launches.get("blind_rotate")
+    before_mm = K.launches.get("blind_rotate_mm")
     got = bs.make_batched_bootstrap(mkey)(ct, tv)
     assert K.launches.get("blind_rotate") == before  # the 'matmul' path never reaches K4
+    assert K.launches.get("blind_rotate_mm") == before_mm + 1  # but K4-mm
     assert torch.equal(got, bs.make_batched_bootstrap(dkey)(ct, tv))
     with pytest.raises(ValueError, match="radix-2"):
         K.blind_rotate(torch.zeros((1, 2, P.N), dtype=torch.int32, device="cuda"),
                        torch.zeros((1, P.n), dtype=torch.int32, device="cuda"), mkey.bk, P,
                        mkey.plan)
+
+
+# --------------------------------------------------------------------------- #
+# The four-step kernels K2-mm, K3-mm, K4-mm (csrc/blind_mm.cu)                #
+# --------------------------------------------------------------------------- #
+
+MM_SETS = ("test_noiseless", "small_v2_tpu", "small_v2", "small_v2_tpu2")
+
+
+@pytest.fixture(scope="module")
+def mm_keys():
+    """A "matmul" key at each set the four-step kernels take (n cut to 16:
+    the kernels take n at run time), and the radix-2 key of small_v2_tpu's
+    raw key."""
+    import dataclasses
+
+    from redsec_tpu_torch.crypto.params import get_params
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    out = {}
+    for name in MM_SETS:
+        Pm = dataclasses.replace(get_params(name), n=16)
+        _, cloud = kg.keygen(Pm, seed=3)
+        out[name] = (Pm, bs.prepare_cloud_key(cloud, device="cuda", ntt_flavor="matmul"))
+        if name == "small_v2_tpu":
+            out["radix2"] = bs.prepare_cloud_key(cloud, device="cuda")
+    return out
+
+
+@pytest.mark.parametrize("name", MM_SETS)
+@pytest.mark.parametrize("batch", [1, 5, 133, 512])
+def test_blind_rotate_mm_equals_twin(mm_keys, name, batch):
+    Pm, mk = mm_keys[name]
+    lay = K.k4mm_layout(Pm, mk.plan)
+    assert {k: lay[k] for k in K.mm_layout(Pm)} == K.mm_layout(Pm)  # the library's own rule
+    rng = np.random.default_rng(batch)
+    acc = _ri(rng, -2**31, 2**31, (batch, 2, Pm.N))
+    abar = _ri(rng, 0, 2 * Pm.N, (batch, Pm.n))
+    before = K.launches.get("blind_rotate_mm")
+    got = K.blind_rotate_mm(acc, abar, mk.bk, Pm, mk.plan)
+    assert K.launches.get("blind_rotate_mm") == before + 1
+    assert torch.equal(got, K.blind_rotate_mm_plain(acc, abar, mk.bk, Pm, mk.plan))
+
+
+@pytest.mark.parametrize("name", MM_SETS)
+@pytest.mark.parametrize("M", [1, 64])
+def test_round_mm_kernels_equal_twins(mm_keys, name, M):
+    Pm, mk = mm_keys[name]
+    rng = np.random.default_rng(M)
+    bk = mk.bk[:, 5].contiguous()
+    digits = _ri(rng, -Pm.half_bg, Pm.half_bg, (M, Pm.decomp_rows, Pm.N))
+    digits[0, :, :3] = -Pm.half_bg
+    assert torch.equal(K.external_product_mm(digits, bk, mk.plan),
+                       K.external_product_mm_plain(digits, bk, mk.plan))
+    acc = _ri(rng, -2**31, 2**31, (M, 2, Pm.N))
+    t = _ri(rng, 0, 2 * Pm.N, (M,))
+    assert torch.equal(K.cmux_round_mm(acc, t, bk, Pm, mk.plan),
+                       K.cmux_round_mm_plain(acc, t, bk, Pm, mk.plan))
+
+
+def test_blind_rotate_mm_equals_k4_on_one_raw_key(mm_keys):
+    Pm, mk = mm_keys["small_v2_tpu"]
+    rk = mm_keys["radix2"]
+    rng = np.random.default_rng(11)
+    acc = _ri(rng, -2**31, 2**31, (512, 2, Pm.N))
+    abar = _ri(rng, 0, 2 * Pm.N, (512, Pm.n))
+    assert torch.equal(K.blind_rotate_mm(acc, abar, mk.bk, Pm, mk.plan),
+                       K.blind_rotate(acc, abar, rk.bk, Pm, rk.plan))
+
+
+def test_mm_wrappers_reject_what_the_kernels_do_not_take(mm_keys):
+    import dataclasses
+
+    from redsec_tpu_torch.crypto.params import SMALL_V2_N2048
+
+    Pm, mk = mm_keys["small_v2_tpu"]
+    rk = mm_keys["radix2"]
+    acc = torch.zeros((2, 2, Pm.N), dtype=torch.int32, device="cuda")
+    abar = torch.zeros((2, Pm.n), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="four-step"):  # a radix-2 key, by its shape
+        K.blind_rotate_mm(acc, abar, rk.bk, Pm, rk.plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.blind_rotate_mm(acc, abar.t().contiguous().t(), mk.bk, Pm, mk.plan)
+    # N = 2048 (40961 > 2^15) and bundled keys are outside the kernels' envelope
+    Pn = dataclasses.replace(SMALL_V2_N2048, n=4)
+    _, cn = kg.keygen(Pn, seed=1)
+    nk = bs.prepare_cloud_key(cn, device="cuda", ntt_flavor="matmul")
+    with pytest.raises(ValueError, match="outside"):
+        K.blind_rotate_mm(torch.zeros((1, 2, Pn.N), dtype=torch.int32, device="cuda"),
+                          torch.zeros((1, Pn.n), dtype=torch.int32, device="cuda"), nk.bk, Pn,
+                          nk.plan)
+    Pb = dataclasses.replace(P, n=4)
+    _, cb = kg.keygen(Pb, seed=1, bundle=2)
+    bkey = bs.prepare_cloud_key(cb, device="cuda", ntt_flavor="matmul")
+    assert not K.supported_mm(Pb, bkey.plan, bkey.bundle)
+    before = K.launches.get("blind_rotate_mm")
+    ct = torch.zeros((3, Pb.n + 1), dtype=torch.int32, device="cuda")
+    bs.make_batched_bootstrap(bkey)(ct, bs.const_test_vector(Pb, 1, Pb.msg_space))
+    assert K.launches.get("blind_rotate_mm") == before  # the bundled key keeps the torch loop
