@@ -45,7 +45,9 @@ Phases (any failure exits non-zero):
    ``small_v2_tpu`` at batches 512, 133, 5 and 1, its 512 output also equal
    to K4's on the radix-2 key, and at ``small_v2`` and plain
    ``small_v2_tpu2`` at 512 and 1; timed at 512 beside K4 in this process),
-   their layout the library's own rule held to ``kernels.k4mm_layout``; each
+   their layout the library's own rule held to ``kernels.k4mm_layout`` (the
+   records name the key ring: ``ring_rows``, ``ring_aliased``, ``ring_copy``,
+   ``ring_bytes_in_flight`` a block); each
    record's bound is the function's with the four-step formulation's beside
    it (``bound_four_step_ms``: its int8 MACs at the tensor cores' rate plus
    its int32 work).
@@ -383,7 +385,7 @@ def ptxas_usage(ptxas: str, entry: str) -> tuple[int, int]:
     fail(f"the compiler's report has no entry for {entry}")
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> tuple[float, int]:
+def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 5) -> tuple[float, int]:
     """Mean device time, per call of ``fn``, of the CUDA kernels whose name
     contains ``kernel`` over ``reps`` calls (torch.profiler): what the card
     spends, where CUDA events around a small kernel time the host's enqueue.
@@ -391,10 +393,11 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> tuple[f
     step early: a warm-up step of one call, whose events the profiler drops,
     then the ``reps`` calls it records.  A named kernel runs once a call and
     must be seen exactly ``reps`` times.  The tracer has also been seen to
-    drop one launch in the middle of a trace: a trace short by exactly one
-    launch, and only that, is taken again, ``tries`` traces in all.  Returns
-    (ms, the traces taken again), the second for the kernel's record.  ``""``
-    sums every kernel of a PyTorch call."""
+    drop launches in the middle of a trace (one, and once two, of 20): a
+    trace that saw some launches but fewer than ``reps`` is taken again,
+    ``tries`` traces in all; one that saw more, or none, fails at once.
+    Returns (ms, the traces taken again), the second for the kernel's
+    record.  ``""`` sums every kernel of a PyTorch call."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -416,7 +419,7 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 3) -> tuple[f
         seen = sum(e.count for e in evs)
         if seen and (not kernel or seen == reps):
             return sum(e.self_device_time_total for e in evs) / reps / 1e3, retries
-        if not kernel or seen != reps - 1:
+        if not kernel or not 0 < seen < reps:
             break
         print(f"the profiler saw {seen} launches of {kernel} in {reps} calls; tracing again",
               flush=True)
@@ -1680,10 +1683,14 @@ def main() -> int:
         return lay
 
     def mm_fields(lay, kernel):
+        # the key ring: its rows, whether it lies on the C-steps' operand
+        # region, how a row is copied, and the key bytes a block has in flight
         instance = f"{kernel}ILi{N}E"
         regs, spill = ptxas_usage(ptxas, instance)
         return dict(instance=instance, ciphertexts_per_block=1, shared_bytes=lay["shared_bytes"],
-                    rows_padded=lay["rows_padded"], registers=regs, spill_bytes=spill)
+                    rows_padded=lay["rows_padded"], registers=regs, spill_bytes=spill,
+                    ring_rows=lay["ring_rows"], ring_aliased=lay["ring_aliased"],
+                    ring_copy=lay["ring_copy"], ring_bytes_in_flight=lay["ring_bytes"])
 
     mlay = mm_layout_held(P, mkey.plan)
     mbk0 = mkey.bk[:, 0].contiguous()

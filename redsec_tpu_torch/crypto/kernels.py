@@ -778,10 +778,12 @@ def _mm_lib() -> Library:
     return _mm_loaded[0]
 
 
-# The layout rule of csrc/blind_mm.cu (mm_mrows, mm_u_bytes, mm_smem_bytes),
-# mirrored: padded row bytes of a u8 limb matrix, padded row halves of the
-# 16-bit results, key rows in the ring.
-MM_WS, MM_ZS, MM_RING = 144, 136, 2
+# The layout rule of csrc/blind_mm.cu (mm_mrows, mm_ring_own, mm_u_bytes,
+# mm_smem_bytes), mirrored: padded row bytes of a u8 limb matrix, padded row
+# halves of the 16-bit results; the most and the fewest key rows of a ring of
+# its own, and the rows of the ring that lies on U where that does not fit.
+MM_WS, MM_ZS = 144, 136
+MM_RING_MAX, MM_RING_MIN, MM_RING_ALIASED = 4, 2, 2
 
 
 def _mm_rows(N: int, rows: int) -> int:
@@ -791,19 +793,41 @@ def _mm_rows(N: int, rows: int) -> int:
     return -(-max(rows * R, 8 * R) // 16) * 16
 
 
+def _mm_base_bytes(N: int, rows: int) -> int:
+    """WC's limbs of both primes (uint8 [2][2][128][144]), accumulators and
+    differences (uint32 [2][2][N]), the C-steps' u8 left operand
+    [2][Mr][144], Z (16-bit C-step results [Mr][136]) and the two primes'
+    inverse transforms (uint16 [2][8][N]): all but the key ring."""
+    return (2 * 2 * 128 * MM_WS + 4 * 2 * 2 * N + 2 * _mm_rows(N, rows) * MM_WS
+            + 2 * _mm_rows(N, rows) * MM_ZS + 2 * 2 * 8 * N)
+
+
+def k4mm_ring(N: int, rows: int) -> tuple[int, bool]:
+    """The key ring's rows (8 x N int16 each) and whether it lies on U: a
+    ring of its own, as deep as fits (at most ``MM_RING_MAX`` rows and the
+    digit rows), or, where fewer than ``MM_RING_MIN`` rows (or the digit
+    rows) fit, ``MM_RING_ALIASED`` rows on U."""
+    for depth in range(min(MM_RING_MAX, rows), min(MM_RING_MIN, rows) - 1, -1):
+        if _mm_base_bytes(N, rows) + depth * 16 * N <= K4_MAX_SHARED:
+            return depth, False
+    return MM_RING_ALIASED, True
+
+
 def _mm_u_bytes(N: int, rows: int) -> int:
-    """U: the C-steps' u8 left operand [2][Mr][144] or the key ring
-    [2][8][N] u16, the larger."""
-    return max(2 * _mm_rows(N, rows) * MM_WS, MM_RING * 8 * N * 2)
+    """U: the C-steps' u8 left operand, or with the ring on it the larger of
+    that and the ring."""
+    depth, aliased = k4mm_ring(N, rows)
+    ops = 2 * _mm_rows(N, rows) * MM_WS
+    return max(ops, depth * 16 * N) if aliased else ops
 
 
 def k4mm_shared_bytes(N: int, rows: int) -> int:
     """Dynamic shared bytes of the four-step kernels at N and ``rows`` digit
-    rows: WC's limbs of both primes (uint8 [2][2][128][144]), accumulators
-    and differences (uint32 [2][2][N]), U, Z (16-bit C-step results
-    [Mr][136]) and the two primes' inverse transforms (uint16 [2][8][N])."""
-    return (2 * 2 * 128 * MM_WS + 4 * 2 * 2 * N + _mm_u_bytes(N, rows)
-            + 2 * _mm_rows(N, rows) * MM_ZS + 2 * 2 * 8 * N)
+    rows: ``_mm_base_bytes`` with U as ``_mm_u_bytes``, and the ring where it
+    has its own region."""
+    depth, aliased = k4mm_ring(N, rows)
+    return (_mm_base_bytes(N, rows) - 2 * _mm_rows(N, rows) * MM_WS + _mm_u_bytes(N, rows)
+            + (0 if aliased else depth * 16 * N))
 
 
 def _mm_shape_ok(plan: ntt_mod.NttPlan, N: int, rows: int) -> bool:
@@ -831,25 +855,31 @@ def k4mm_layout(params: TfheParams, plan: ntt_mod.NttPlan | None = None) -> dict
     """How the four-step kernels lay out a block, a function of N and the
     digit rows only: one ciphertext a block of N/2 threads (``threads``),
     ``rows_padded`` rows of the C-steps' operands (Mr), ``u_bytes`` of U,
-    ``shared_bytes`` of dynamic shared memory, and the ``instance`` launched
-    as the compiler's report names it.  Raises for what ``supported_mm``
-    refuses."""
+    ``shared_bytes`` of dynamic shared memory, the key ring's rows
+    (``ring_rows``), whether it lies on U (``ring_aliased``) and the key
+    bytes it holds in flight (``ring_bytes``), each warp copying its own
+    words 16 bytes a ``cp.async`` (``ring_copy``), and the ``instance``
+    launched as the compiler's report names it.  Raises for what
+    ``supported_mm`` refuses."""
     plan = plan or bs.bootstrap_plan(params)
     if plan is None or not supported_mm(params, plan):
         raise ValueError(f"{params.name}: not a blind_rotate_mm_kernel instance")
     N, rows = params.N, params.decomp_rows
+    depth, aliased = k4mm_ring(N, rows)
     return {"threads": N // 2, "rows_padded": _mm_rows(N, rows), "u_bytes": _mm_u_bytes(N, rows),
-            "shared_bytes": k4mm_shared_bytes(N, rows),
+            "shared_bytes": k4mm_shared_bytes(N, rows), "ring_rows": depth,
+            "ring_aliased": aliased, "ring_bytes": depth * 16 * N, "ring_copy": "async",
             "instance": f"blind_rotate_mm_kernelILi{N}E"}
 
 
 def mm_layout(params: TfheParams) -> dict:
     """The built library's own answer for ``k4mm_layout``'s numbers (its C
     entry ``redsec_mm_layout``)."""
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 6)()
     if _mm_lib().fn["redsec_mm_layout"](params.N, params.decomp_rows, out) != 0:
         raise ValueError(f"{params.name}: no four-step kernel instance")
-    return {"shared_bytes": out[0], "rows_padded": out[1], "u_bytes": out[2], "threads": out[3]}
+    return {"shared_bytes": out[0], "rows_padded": out[1], "u_bytes": out[2], "threads": out[3],
+            "ring_rows": out[4], "ring_aliased": bool(out[5])}
 
 
 def _require_mm_key(bk: torch.Tensor, ndim: int, N: int) -> None:

@@ -57,31 +57,43 @@
 //   while they fit a uint32 beside a carried value below 2p (28 products at
 //   12289, 12 at 18433).
 // * One ciphertext a block (N/2 threads), all rounds in one launch with the
-//   accumulator in shared memory, as K4.  The BK streams through a cp.async
-//   ring of two key rows (each thread copies the words it reads itself, so no
-//   barrier), on the region that holds the forward product's u8 limbs, idle
-//   during the MAC.
+//   accumulator in shared memory, as K4.  The BK streams from L2 as one
+//   sequence of key rows (round, prime, row: 8 x N int16 each, contiguous in
+//   the prepared BK and in the word order the MAC reads) through a ring of
+//   its own (KeyStream): each warp copies, 16 bytes a cp.async, the words
+//   its own threads read, `depth` rows ahead, and meets only at __syncwarp
+//   around them.  So the stream never stops at a block barrier: the first
+//   rows of the next prime and round land while the inverse transforms, the
+//   CRT and the next forward transforms run, and the MAC finds them there.
+//   (A ring filled by one thread with one cp.async.bulk a row under full
+//   and empty mbarriers was 4-10% slower: its refills wait for the slowest
+//   warp at every row.)  Where a dedicated ring of kRingMin rows does not
+//   fit beside the rest (17 or more digit rows at N = 1024), the ring lies
+//   on U, idle during the MAC, and streams only inside it (kRingAliased
+//   rows).
 //
 // Shared memory (dynamic; kernels.k4mm_layout mirrors SmemMM):
 //   WC limbs of both primes [2][2][128][144] u8 = 73,728 B (staged once a block)
 //   accumulators and differences [2][2][N] u32
 //   U: the u8 limbs of the C-steps' left operand [2][Mr][144] (Mr = the
-//      larger of rows * R and 8R, rounded up to 16), or the key ring
-//      [2][8][N] u16, the larger
+//      larger of rows * R and 8R, rounded up to 16); with the ring on it, the
+//      larger of that and the ring [kRingAliased][8][N] u16
 //   Z: 16-bit C-step results [Mr][136] (digits in the NTT domain, then the
 //      inverse C-step's output)
 //   r1, r2: the inverse transforms of primes 1 and 0, [8][N] u16 each
-//   small_v2_tpu (N 1024, 12 rows): 73,728 + 16,384 + 32,768 + 26,112 + 32,768 = 181,760 B
-//   small_v2 (20 rows): 73,728 + 16,384 + 46,080 + 43,520 + 32,768 = 212,480 B
+//   the ring [depth][8][N] u16, where it has its own region
+//   small_v2_tpu (N 1024, 12 rows, 3 rows of ring):
+//     73,728 + 16,384 + 27,648 + 26,112 + 32,768 + 49,152 = 225,792 B
+//   plain small_v2_tpu2 (10 rows, 3 rows): 216,832 B
+//   small_v2 (20 rows, 2 rows on U): 73,728 + 16,384 + 46,080 + 43,520 +
+//     32,768 = 212,480 B
 //
 // Bound on this card: per round and ciphertext at small_v2_tpu the C-steps
 // are (96 + 64) rows x 2 primes x 128 x 128 x 4 limb products = 21.0e6 int8
 // MACs, 3.8 ms a 512-batch at the int8 peak; the rest is int32 work on the
 // CUDA cores and key rows from L2 into the ring (70 GB a 512-batch at one
 // ciphertext a block).  PERF.md has the measured times and the int32 floor
-// read from the SASS (scripts/sass_count.py): the work outside the tensor
-// cores alone is about radix-2 K4's whole floor, and the MAC waits on the
-// two-row ring.
+// read from the SASS (scripts/sass_count.py).
 //
 // Each extern "C" entry returns cudaGetLastError() after its launch; the
 // Python wrapper raises if it is not 0.
@@ -96,7 +108,9 @@ constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 constexpr int kC = 128;           // columns of the four-step split
 constexpr int kWS = kC + 16;      // bytes of a padded row of a u8 limb matrix
 constexpr int kZS = kC + 8;       // halves of a padded row of 16-bit results
-constexpr int kRing = 2;          // key rows in flight in the MAC
+constexpr int kRingMax = 4;       // key rows a dedicated ring holds at most
+constexpr int kRingMin = 2;       // fewest rows a dedicated ring is given; else it lies on U
+constexpr int kRingAliased = 2;   // key rows of the ring on U
 constexpr int kPrimes = 2;
 
 constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
@@ -127,14 +141,13 @@ __device__ __forceinline__ uint32_t shoup(uint32_t x, uint2 tw, uint32_t p) {
   return x * tw.x - __umulhi(x, tw.y) * p;
 }
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async(uint32_t smem_addr, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr), "l"(gmem),
-               "n"(BYTES)
-               : "memory");
-}
 __device__ __forceinline__ uint32_t shared_address(const void* smem) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t smem_addr, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr), "l"(gmem)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
@@ -185,14 +198,38 @@ __host__ __device__ constexpr int mm_mrows(int R, int rows) {
 // The layout, once (kernels.k4mm_layout mirrors it).  Offsets are multiples
 // of 16 bytes.
 __host__ __device__ constexpr size_t mm_wc_bytes() { return size_t(kPrimes) * 2 * kC * kWS; }
+__host__ __device__ constexpr size_t mm_row_bytes(int N) { return size_t(8) * N * 2; }
+__host__ __device__ constexpr size_t mm_ops_bytes(int N, int rows) {
+  return size_t(2) * mm_mrows(N / kC, rows) * kWS;
+}
+// Everything but the ring, with U the operands alone.
+__host__ __device__ constexpr size_t mm_base_bytes(int N, int rows) {
+  return mm_wc_bytes() + size_t(4) * 2 * 2 * N + mm_ops_bytes(N, rows) +
+         size_t(2) * mm_mrows(N / kC, rows) * kZS + size_t(2) * 2 * 8 * N;
+}
+// Rows of a dedicated ring: the most, up to kRingMax and the digit rows
+// (so a refill crosses into the next prime at most), that fit beside the
+// rest; 0 if fewer than kRingMin (or the digit rows) do.
+__host__ __device__ constexpr int mm_ring_own(int N, int rows) {
+  const int least = rows < kRingMin ? rows : kRingMin;
+  int d = rows < kRingMax ? rows : kRingMax;
+  while (d >= least && mm_base_bytes(N, rows) + d * mm_row_bytes(N) > kMaxSmem) --d;
+  return d >= least ? d : 0;
+}
+__host__ __device__ constexpr bool mm_ring_aliased(int N, int rows) {
+  return mm_ring_own(N, rows) == 0;
+}
+__host__ __device__ constexpr int mm_ring_rows(int N, int rows) {
+  return mm_ring_aliased(N, rows) ? kRingAliased : mm_ring_own(N, rows);
+}
 __host__ __device__ constexpr size_t mm_u_bytes(int N, int rows) {
-  return size_t(2) * mm_mrows(N / kC, rows) * kWS > size_t(kRing) * 8 * N * 2
-             ? size_t(2) * mm_mrows(N / kC, rows) * kWS
-             : size_t(kRing) * 8 * N * 2;
+  return mm_ring_aliased(N, rows) && kRingAliased * mm_row_bytes(N) > mm_ops_bytes(N, rows)
+             ? kRingAliased * mm_row_bytes(N)
+             : mm_ops_bytes(N, rows);
 }
 __host__ __device__ constexpr size_t mm_smem_bytes(int N, int rows) {
-  return mm_wc_bytes() + size_t(4) * 2 * 2 * N + mm_u_bytes(N, rows) +
-         size_t(2) * mm_mrows(N / kC, rows) * kZS + size_t(2) * 2 * 8 * N;
+  return mm_base_bytes(N, rows) - mm_ops_bytes(N, rows) + mm_u_bytes(N, rows) +
+         (mm_ring_aliased(N, rows) ? 0 : mm_ring_rows(N, rows) * mm_row_bytes(N));
 }
 
 template <int N>
@@ -202,21 +239,22 @@ struct SmemMM {
   uint32_t* diff;   // [2][N] X^t acc - acc + gadget offset
   uint8_t* ulo;     // [Mr][kWS] lo limbs of the C-steps' left operand
   uint8_t* uhi;     // [Mr][kWS] hi limbs
-  uint32_t* ring;   // [kRing][8][N/2] words of key residues, on ulo/uhi in the MAC
   uint16_t* z;      // [Mr][kZS] C-step results
   uint16_t* r1;     // [8][N] inverse transforms of prime 1
   uint16_t* r2;     // [8][N] inverse transforms of prime 0
+  uint32_t* ring;   // [depth][8][N/2] words of key residues (on ulo/uhi if aliased)
   __device__ SmemMM(unsigned char* base, int rows) {
     constexpr int R = GeoMM<N>::R;
+    const bool aliased = mm_ring_aliased(N, rows);
     wc = base;
     acc = reinterpret_cast<uint32_t*>(base + mm_wc_bytes());
     diff = acc + 2 * N;
     ulo = reinterpret_cast<uint8_t*>(diff + 2 * N);
     uhi = ulo + static_cast<size_t>(mm_mrows(R, rows)) * kWS;
-    ring = reinterpret_cast<uint32_t*>(ulo);
     z = reinterpret_cast<uint16_t*>(ulo + mm_u_bytes(N, rows));
     r1 = z + static_cast<size_t>(mm_mrows(R, rows)) * kZS;
     r2 = r1 + 8 * N;
+    ring = reinterpret_cast<uint32_t*>(aliased ? ulo : reinterpret_cast<uint8_t*>(r2 + 8 * N));
   }
 };
 
@@ -441,18 +479,95 @@ __device__ __forceinline__ uint32_t crt2(uint32_t c0, uint32_t c1, const ConstsM
   return v;
 }
 
+// Where a thread stands in the key stream: the next row to read (v) and
+// its slot.
+struct StreamPos {
+  int v = 0, slot = 0;
+};
+
+// The BK's rows as the MACs read them, round by round, prime 0 then prime
+// 1, digit row by digit row (row v sits in slot v % depth; depth <= rows),
+// each a run of 8 x N int16 in the prepared BK.  total: the rows of the
+// launch (rounds x 2 x rows).  Each warp copies the words its threads read,
+// with two 16-byte cp.async a thread and one commit group a row (lanes
+// 8q .. 8q + 7 one 128-byte line of limb polynomials q and q + 4), and meets
+// at __syncwarp around them: no barrier between warps, so the stream runs
+// on through the block barriers of the transforms.
+template <int N>
+struct KeyStream {
+  static constexpr uint32_t kRowBytes = static_cast<uint32_t>(mm_row_bytes(N));
+  const int16_t* bk;        // round 0, prime 0
+  long long round_stride;   // elements
+  long long prime_stride;   // elements
+  int rows, total, depth;
+  bool aliased;             // the ring lies on U: rows stream only inside a MAC
+  uint32_t ring;            // shared address
+  uint32_t off;             // this thread's first 16 bytes in a row
+
+  __device__ KeyStream(const SmemMM<N>& sm, const int16_t* bk_, long long round_stride_,
+                       long long prime_stride_, int rows_, int rounds)
+      : bk(bk_), round_stride(round_stride_), prime_stride(prime_stride_), rows(rows_),
+        total(2 * rows_ * rounds), depth(mm_ring_rows(N, rows_)),
+        aliased(mm_ring_aliased(N, rows_)), ring(shared_address(sm.ring)),
+        off(4u * (((threadIdx.x & 31) >> 3) * (N / 2) + (threadIdx.x >> 5) * 32 +
+                  4 * (threadIdx.x & 7))) {}
+
+  // The rows of round `round`, prime `pi`.
+  __device__ const int16_t* rows_of(int round, int pi) const {
+    return bk + round * round_stride + pi * prime_stride;
+  }
+  // This thread's part of the row at src into `slot`.
+  __device__ void fill(const int16_t* src, int slot) const {
+    const uint8_t* from = reinterpret_cast<const uint8_t*>(src) + off;
+    const uint32_t to = ring + slot * kRowBytes + off;
+    cp_async16(to, from);
+    cp_async16(to + 8 * N, from + 8 * N);  // polynomials 4 .. 7
+  }
+  // A dedicated ring's first rows, at the launch's start.
+  __device__ void start() const {
+    if (!aliased) open(StreamPos{}, bk);
+  }
+  // The first `depth` rows of a prime (rows at cur) from at on: a dedicated
+  // ring's at the launch's start, a ring on U's at each MAC's.
+  __device__ void open(const StreamPos& at, const int16_t* cur) const {
+    for (int k = 0, slot = at.slot; k < depth; ++k, slot = slot + 1 == depth ? 0 : slot + 1) {
+      fill(cur + k * 8 * N, slot);
+      cp_async_commit();
+    }
+  }
+  // Row at.v is in its slot, for this warp: at most depth - 1 later rows'
+  // groups are still in flight.
+  __device__ void wait() const {
+    switch (depth) {
+      case 1: cp_async_wait<0>(); break;
+      case 2: cp_async_wait<1>(); break;
+      case 3: cp_async_wait<2>(); break;
+      default: cp_async_wait<3>(); break;
+    }
+    __syncwarp();
+  }
+  // This warp has read row at.v: its slot takes row at.v + depth (at src)
+  // if that is below `last`; advance.
+  __device__ void release(StreamPos& at, int last, const int16_t* src) const {
+    __syncwarp();
+    if (at.v + depth < last) fill(src, at.slot);
+    cp_async_commit();  // an empty group past `last`: the waits stay depth - 1
+    ++at.v;
+    if (++at.slot == depth) at.slot = 0;
+  }
+};
+
 // TGSW external product of this block's ciphertext in the four-step domain:
 //   delta[u] = sum_rows digit_row (x) BK[row][u]  (mod 2^32, u = 0, 1)
-// digit4 as in forward_pre; bk points at the round slice of prime 0, int16
-// [rows][8][N] residues in [k1, k2] order, prime 1's prime_stride elements
-// further; tabs the two primes' TabMM tables.  On return delta[u][e] holds
-// coefficient E*tid + e.  The caller puts a barrier between its own
-// shared-memory writes and this call, and one after it before anything
-// writes r1 or r2.
+// digit4 as in forward_pre; ks the key stream, at round `round`'s first row
+// (`at`, advanced past the round's 2 x rows); tabs the two primes' TabMM
+// tables.  On return delta[u][e] holds coefficient E*tid + e.  The caller
+// puts a barrier between its own shared-memory writes and this call, and
+// one after it before anything writes r1 or r2.
 template <int N, class Digit4>
 __device__ __forceinline__ void external_product_mm(const Digit4& digit4, int rows,
-                                                    const int16_t* __restrict__ bk,
-                                                    long long prime_stride,
+                                                    const KeyStream<N>& ks, int round,
+                                                    StreamPos& at,
                                                     const uint2* __restrict__ tabs,
                                                     const ConstsMM& cs, const SmemMM<N>& sm,
                                                     uint32_t (&delta)[2][GeoMM<N>::E]) {
@@ -477,59 +592,49 @@ __device__ __forceinline__ void external_product_mm(const Digit4& digit4, int ro
     mma_mod<N>(sm.ulo, sm.uhi, M, wlo, whi, sm.z, md, c8, c16);
     __syncthreads();
 
-    // MAC: this thread's coefficients pos, pos + 1 of all 8 outputs; the
-    // key rows come through the ring on U, a thread copying the words it
-    // reads itself, one row ahead of the row it multiplies
+    // MAC: this thread's coefficients pos, pos + 1 of all 8 outputs, the
+    // key rows from the ring; a dedicated ring holds this prime's first
+    // rows already, one on U gets them now
     uint32_t a[8][E];
 #pragma unroll
     for (int o = 0; o < 8; ++o)
 #pragma unroll
       for (int e = 0; e < E; ++e) a[o][e] = 0u;
     const int lazy = lazy_of(cs, pi);
+    const int last = ks.aliased ? at.v + rows : ks.total;  // rows the ring may take
+    const int16_t* cur = ks.rows_of(round, pi);  // this prime's rows, then the next prime's
+    const int16_t* nxt = pi == 0 ? ks.rows_of(round, 1) : ks.rows_of(round + 1, 0);
+    if (ks.aliased) ks.open(at, cur);
+    // the row a release refills its slot with: row j + depth of this prime,
+    // or past its last row, row j + depth - rows of the next
+    const int16_t* src = ks.depth < rows ? cur + ks.depth * 8 * N : nxt;
     int pending = 0;
-    const uint32_t* bkw = reinterpret_cast<const uint32_t*>(bk + pi * prime_stride) + tid;
-    const uint32_t ring_addr = shared_address(sm.ring + tid);
-    const auto fetch = [&](int row, int slot) {
+#pragma unroll 2  // the math of one row overlaps the next row's wait and loads
+    for (int j = 0; j < rows; ++j) {
+      ks.wait();
+      if (pending == lazy) {
 #pragma unroll
-      for (int o = 0; o < 8; ++o)
-        cp_async<4>(ring_addr + 4u * ((slot * 8 + o) * (N / 2)), bkw + (row * 8 + o) * (N / 2));
-      cp_async_commit();
-    };
+        for (int o = 0; o < 8; ++o)
 #pragma unroll
-    for (int r = 0; r < kRing; ++r)
-      if (r < rows) fetch(r, r);
-#pragma unroll 1
-    for (int j0 = 0; j0 < rows; j0 += kRing) {
-#pragma unroll
-      for (int jj = 0; jj < kRing; ++jj) {
-        const int j = j0 + jj;
-        if (j < rows) {
-          if (j + kRing - 1 < rows)
-            cp_async_wait<kRing - 1>();
-          else
-            cp_async_wait<0>();
-          if (pending == lazy) {
-#pragma unroll
-            for (int o = 0; o < 8; ++o)
-#pragma unroll
-              for (int e = 0; e < E; ++e) a[o][e] = reduce_2p(a[o][e], md);
-            pending = 0;
-          }
-          ++pending;
-          const uint32_t dz = *reinterpret_cast<const uint32_t*>(sm.z + (j * R + k1) * kZS + k2);
-          const uint32_t d0 = dz & 0xffffu, d1 = dz >> 16;
-#pragma unroll
-          for (int o = 0; o < 8; ++o) {
-            const uint32_t w = sm.ring[(jj * 8 + o) * (N / 2) + tid];
-            a[o][0] += d0 * (w & 0xffffu);
-            a[o][1] += d1 * (w >> 16);
-          }
-          // refill the slot just read (these words are this thread's own)
-          if (j + kRing < rows) fetch(j + kRing, jj);
-        }
+          for (int e = 0; e < E; ++e) a[o][e] = reduce_2p(a[o][e], md);
+        pending = 0;
       }
+      ++pending;
+      const uint32_t dz = *reinterpret_cast<const uint32_t*>(sm.z + (j * R + k1) * kZS + k2);
+      const uint32_t d0 = dz & 0xffffu, d1 = dz >> 16;
+      const uint32_t* w = sm.ring + at.slot * (8 * N / 2) + tid;
+#pragma unroll
+      for (int o = 0; o < 8; ++o) {
+        const uint32_t x = w[o * (N / 2)];
+        a[o][0] += d0 * (x & 0xffffu);
+        a[o][1] += d1 * (x >> 16);
+      }
+      ks.release(at, last, src);
+      src = j + 1 + ks.depth == rows ? nxt : src + 8 * N;
     }
-    __syncthreads();  // the ring's words are free: U takes the inverse's limbs
+    // U was last read by the forward C-step, before the barrier above; a
+    // ring on U is read to its end only after this one
+    if (ks.aliased) __syncthreads();
     // the sums, in [0, p), as the inverse C-step's left operand: row
     // o * R + k1, column -k2 mod C (WCi's rows are WC's reversed)
 #pragma unroll
@@ -637,11 +742,14 @@ __global__ void __launch_bounds__(GeoMM<N>::T, 1) external_product_mm_kernel(
   extern __shared__ uint4 smem_raw[];
   const SmemMM<N> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
   const long long m = blockIdx.x;
+  const KeyStream<N> ks(sm, bk, 0, prime_stride, rows, 1);
+  ks.start();
   stage_wc<N>(sm.wc, wc);
   __syncthreads();
   const RowDigits4<N> dig{digits + m * rows * N};
   uint32_t delta[2][GeoMM<N>::E];
-  external_product_mm<N>(dig, rows, bk, prime_stride, tabs, cs, sm, delta);
+  StreamPos at;
+  external_product_mm<N>(dig, rows, ks, 0, at, tabs, cs, sm, delta);
 #pragma unroll
   for (int u = 0; u < 2; ++u)
     *reinterpret_cast<int2*>(out + (m * 2 + u) * N + 2 * threadIdx.x) =
@@ -658,6 +766,8 @@ __global__ void __launch_bounds__(GeoMM<N>::T, 1) cmux_round_mm_kernel(
   const int rows = 2 * g.l;
   const SmemMM<N> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
   const long long m = blockIdx.x;
+  const KeyStream<N> ks(sm, bk, 0, prime_stride, rows, 1);
+  ks.start();
   for (int k = threadIdx.x; k < 2 * N; k += GeoMM<N>::T)
     sm.acc[k] = static_cast<uint32_t>(acc_in[m * 2 * N + k]);
   stage_wc<N>(sm.wc, wc);
@@ -665,7 +775,8 @@ __global__ void __launch_bounds__(GeoMM<N>::T, 1) cmux_round_mm_kernel(
   rotate_diff<N>(sm, t[m], g.offset);
   const GadgetDigits4<N> dig{sm.diff, g};
   uint32_t delta[2][GeoMM<N>::E];
-  external_product_mm<N>(dig, rows, bk, prime_stride, tabs, cs, sm, delta);
+  StreamPos at;
+  external_product_mm<N>(dig, rows, ks, 0, at, tabs, cs, sm, delta);
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     const int k = u * N + 2 * threadIdx.x;
@@ -686,17 +797,19 @@ __global__ void __launch_bounds__(GeoMM<N>::T, 1) blind_rotate_mm_kernel(
   const SmemMM<N> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
   const long long b = blockIdx.x;
   const long long round_stride = static_cast<long long>(rows) * 8 * N;
-  const long long prime_stride = round_stride * n;
+  const KeyStream<N> ks(sm, bk, round_stride, round_stride * n, rows, n);
+  ks.start();  // the first rows land while WC is staged
   for (int k = threadIdx.x; k < 2 * N; k += GeoMM<N>::T)
     sm.acc[k] = static_cast<uint32_t>(acc0[b * 2 * N + k]);
   stage_wc<N>(sm.wc, wc);
   __syncthreads();
   const GadgetDigits4<N> dig{sm.diff, g};
+  StreamPos at;
 #pragma unroll 1
   for (int j = 0; j < n; ++j) {
     rotate_diff<N>(sm, abar[b * n + j], g.offset);
     uint32_t delta[2][GeoMM<N>::E];
-    external_product_mm<N>(dig, rows, bk + j * round_stride, prime_stride, tabs, cs, sm, delta);
+    external_product_mm<N>(dig, rows, ks, j, at, tabs, cs, sm, delta);
     add_delta<N>(sm, delta);
   }
   for (int k = threadIdx.x; k < 2 * N; k += GeoMM<N>::T)
@@ -749,6 +862,9 @@ bool allow_smem(Kernel kernel, size_t bytes) {
 
 bool n_ok(int N) { return N == 256 || N == 1024; }
 bool rows_ok(int N, int rows) { return rows > 0 && mm_smem_bytes(N, rows) <= kMaxSmem; }
+// The key's rows are copied 16 bytes a cp.async, which takes 16-byte
+// aligned addresses.
+bool bk_ok(const int16_t* bk) { return reinterpret_cast<uintptr_t>(bk) % 16 == 0; }
 
 }  // namespace
 
@@ -767,8 +883,9 @@ const char* redsec_error_string(int code) {
 
 // The layout of a launch at N and `rows` digit rows: out[0] dynamic shared
 // bytes, out[1] rows of the C-steps' operands and results (Mr), out[2]
-// bytes of U, out[3] threads a block.  Non-zero for N without an
-// instance or rows that do not fit a block.
+// bytes of U, out[3] threads a block, out[4] key rows in the ring, out[5] 1
+// if the ring lies on U.  Non-zero for N without an instance or rows that do
+// not fit a block.
 int redsec_mm_layout(int N, int rows, int* out) {
   if (!n_ok(N) || !rows_ok(N, rows))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -776,6 +893,8 @@ int redsec_mm_layout(int N, int rows, int* out) {
   out[1] = mm_mrows(N / kC, rows);
   out[2] = static_cast<int>(mm_u_bytes(N, rows));
   out[3] = N / 2;
+  out[4] = mm_ring_rows(N, rows);
+  out[5] = mm_ring_aliased(N, rows) ? 1 : 0;
   return 0;
 }
 
@@ -785,7 +904,7 @@ int redsec_mm_layout(int N, int rows, int* out) {
 int redsec_external_product_mm(const int32_t* digits, const int16_t* bk, long long prime_stride,
                                const uint2* tabs, const uint8_t* wc, int32_t* delta, int M,
                                int N, int rows, int p0, int p1, cudaStream_t stream) {
-  if (M <= 0 || !primes_ok(p0, p1) || !n_ok(N) || !rows_ok(N, rows))
+  if (M <= 0 || !primes_ok(p0, p1) || !n_ok(N) || !rows_ok(N, rows) || !bk_ok(bk))
     return static_cast<int>(cudaErrorInvalidValue);
   const ConstsMM cs = make_consts(p0, p1);
   const size_t bytes = mm_smem_bytes(N, rows);
@@ -804,7 +923,7 @@ int redsec_cmux_round_mm(const int32_t* acc, const int32_t* t, const int16_t* bk
                          int32_t* out, int M, int N, int l, int bg_bit, uint32_t offset, int p0,
                          int p1, cudaStream_t stream) {
   if (M <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(p0, p1) ||
-      !n_ok(N) || !rows_ok(N, 2 * l))
+      !n_ok(N) || !rows_ok(N, 2 * l) || !bk_ok(bk))
     return static_cast<int>(cudaErrorInvalidValue);
   const ConstsMM cs = make_consts(p0, p1);
   const Gadget g{l, bg_bit, offset};
@@ -825,7 +944,7 @@ int redsec_blind_rotate_mm(const int32_t* acc0, const int32_t* abar, const int16
                            int N, int l, int bg_bit, uint32_t offset, int p0, int p1,
                            cudaStream_t stream) {
   if (B <= 0 || n <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(p0, p1) ||
-      !n_ok(N) || !rows_ok(N, 2 * l))
+      !n_ok(N) || !rows_ok(N, 2 * l) || !bk_ok(bk))
     return static_cast<int>(cudaErrorInvalidValue);
   const ConstsMM cs = make_consts(p0, p1);
   const Gadget g{l, bg_bit, offset};

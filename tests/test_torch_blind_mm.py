@@ -460,15 +460,49 @@ def test_supported_mm_is_jax_pallas_blind_supported(name, bundle):
 
 
 def test_k4mm_layout_bytes():
-    """The byte counts blind_mm.cu's header states, and the digit rows
-    beyond which a block has no room."""
-    assert K.k4mm_layout(SMALL_V2_TPU)["shared_bytes"] == 181760
+    """The byte counts blind_mm.cu's header states, the key ring at each
+    set, and the digit rows beyond which a block has no room."""
+    assert K.k4mm_layout(SMALL_V2_TPU)["shared_bytes"] == 225792
     assert K.k4mm_layout(SMALL_V2)["shared_bytes"] == 212480
-    assert K.k4mm_layout(SMALL_V2_TPU2)["shared_bytes"] == 177408
-    assert K.k4mm_layout(TEST_NOISELESS)["shared_bytes"] == 112896
+    assert K.k4mm_layout(SMALL_V2_TPU2)["shared_bytes"] == 216832
+    assert K.k4mm_layout(TEST_NOISELESS)["shared_bytes"] == 129280
+    rings = {P.name: (K.k4mm_layout(P)["ring_rows"], K.k4mm_layout(P)["ring_aliased"])
+             for P in (SMALL_V2_TPU, SMALL_V2, SMALL_V2_TPU2, TEST_NOISELESS)}
+    assert rings == {"small_v2_tpu": (3, False), "small_v2": (2, True),
+                     "small_v2_tpu2": (3, False), "test_noiseless": (4, False)}
     assert K.k4mm_shared_bytes(1024, 24) <= 232448 < K.k4mm_shared_bytes(1024, 25)
     big = dataclasses.replace(SMALL_V2, l=13, bg_bit=2)  # 26 digit rows
     assert not K.supported_mm(big, bs.bootstrap_plan(SMALL_V2))
+
+
+def _shared_bytes_two_row_ring_on_u(N: int, rows: int) -> int:
+    """The four-step kernels' shared bytes before the ring had a region of
+    its own: U the larger of the C-steps' operands and two key rows."""
+    mr = -(-max(rows * N // 128, 8 * N // 128) // 16) * 16
+    return 73728 + 16 * N + max(2 * mr * 144, 2 * 16 * N) + 2 * mr * 136 + 32 * N
+
+
+@pytest.mark.parametrize("N,rows", [(1024, r) for r in range(1, 27)]
+                         + [(256, r) for r in (1, 2, 10, 20, 32, 64)])
+def test_k4mm_ring_keeps_the_envelope(N, rows):
+    """Every digit-row count that fitted a block with the two-row ring on U
+    still fits (with a ring of its own where one fits, else the ring on U),
+    and no other does; where rows is even, supported_mm takes the set
+    exactly then."""
+    before = _shared_bytes_two_row_ring_on_u(N, rows) <= K.K4_MAX_SHARED
+    now = K.k4mm_shared_bytes(N, rows)
+    assert (now <= K.K4_MAX_SHARED) == before
+    depth, aliased = K.k4mm_ring(N, rows)
+    assert 1 <= depth <= min(K.MM_RING_MAX, rows)  # the stream's rows cross one prime at most
+    if aliased:
+        assert depth == K.MM_RING_ALIASED and now == _shared_bytes_two_row_ring_on_u(N, rows)
+    else:
+        assert depth >= min(K.MM_RING_MIN, rows)
+        assert now >= K._mm_base_bytes(N, rows) + depth * 16 * N
+    if rows % 2 == 0:
+        base = SMALL_V2_TPU if N == 1024 else TEST_NOISELESS
+        P = dataclasses.replace(base, l=rows // 2, bg_bit=1)
+        assert K.supported_mm(P, bs.bootstrap_plan(base)) == before
 
 
 # --------------------------------------------------------------------------- #
