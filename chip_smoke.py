@@ -1530,7 +1530,8 @@ def main() -> int:
         return dict(instance=cfg["instance"], ciphertexts_per_block=cfg["group"],
                     ciphertexts_per_key_load=cfg["group"],
                     chunk_rows=cfg["chunk_rows"], shared_bytes=cfg["shared_bytes"],
-                    tables_resident=cfg["tables_resident"], registers=regs, spill_bytes=spill)
+                    tables_resident=cfg["tables_resident"],
+                    tables_refilled=cfg["tables_refilled"], registers=regs, spill_bytes=spill)
 
     # K4 over all n rounds, at every batch the forward gives it and at batches
     # that take the one-ciphertext-a-block path (1, 5) or end on a ragged

@@ -495,7 +495,7 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
     if sm_count is None:
         sm_count = torch.cuda.get_device_properties(torch.cuda.current_device()) \
             .multi_processor_count
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     code = _lib().fn["redsec_blind_rotate_config"](batch, params.N, params.l,
                                                    len(plan.primes), bundle, sm_count, out)
     if code != 0:
@@ -504,7 +504,8 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
     N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
     return {"group": out[0], "chunk_rows": out[1], "shared_bytes": out[2],
             "tables_resident": bool(out[3]), "accumulators_on_r2": bool(out[5]),
-            "instance": _k4_instance(N, out[0], P, D), "shared_bytes_g2": out[4]}
+            "tables_refilled": bool(out[6]), "instance": _k4_instance(N, out[0], P, D),
+            "shared_bytes_g2": out[4]}
 
 
 # K4's layout (csrc/pbs.cu: Geo, Smem, k4_chunk, k4_config), mirrored so that
@@ -585,8 +586,19 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     ``chunk_rows``: digit rows transformed and multiplied at a time (the
     largest chunk that fits); ``shared_bytes``: the block's dynamic shared
     memory; ``tables_resident``: every prime's stage tables stay in shared
-    memory (else one prime's at a time, staged again for every prime of
-    every round); ``accumulators_on_r2``: the accumulators lie on the
+    memory (else one prime's at a time); ``tables_refilled``: at N = 2048
+    that one prime's region is refilled half by half with the next prime's
+    tables by ``cp.async`` as soon as each half is dead (the forward half
+    riding with the second key row of the prime's last chunk, the inverse
+    half issued as the prime starts), so the launch stages tables once and
+    no block waits for them; elsewhere (``small``, bundled ``small_v2_tpu``
+    at two ciphertexts a block) they are staged again for every prime of
+    every round behind a barrier.  At N = 2048 the key ring's two slots lie
+    on the exchange buffers' x0 and x1 halves, so a chunk's first key row
+    starts during the last pass of its last forward transforms, and each
+    thread copies the words it multiplies 16 bytes a ``cp.async.cg`` (past
+    L1);
+    ``accumulators_on_r2``: the accumulators lie on the
     inverse results' region, carried in registers through each round (where
     nothing else fits: bundled at N = 2048); ``instance``: the kernel
     launched, as the compiler's report names it.
@@ -604,6 +616,7 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     return {"group": group, "chunk_rows": cr,
             "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables, alias),
             "tables_resident": tables == P, "accumulators_on_r2": alias,
+            "tables_refilled": tables < P and N > 1024,
             "instance": _k4_instance(N, group, P, D)}
 
 

@@ -67,7 +67,17 @@
 //   (w, w'), 16 KB a prime at N = 1024) are staged in shared memory once a
 //   block; where they do not fit beside the rest (N = 2048, and two
 //   ciphertexts a block at three primes) they hold one prime's at a time
-//   (32 or 16 KB), loaded again for every prime of every round.  Twist and
+//   (32 or 16 KB).  At N = 1024 that prime's are loaded again for every
+//   prime of every round, behind a barrier.  At N = 2048 the
+//   launch stages prime 0's forward table once, and each 16 KB half is then
+//   refilled with the next prime's by cp.async as soon as what it holds is
+//   dead, in a commit group of the key ring, so the ring's own waits and
+//   barriers cover the copies: the inverse half as a prime starts (the last
+//   prime's inverse transforms ended at the barrier before), the forward
+//   half with the second key row of the prime's last chunk (no transform
+//   reads it after the barrier that ends the chunk's forward transforms;
+//   the next round's first prime after the last).  No block waits for a
+//   table.  Twist and
 //   untwist (one coalesced load a coefficient) come through the read-only
 //   cache.  Table layout per prime, uint2 [4][N]: twist, forward stage
 //   tables (the stage of half-span h at offset N - 2h), untwist (psi^-j /
@@ -79,7 +89,17 @@
 //   N = 2048); each thread copies the words it will itself read (cp.async,
 //   no barrier) ahead of the row it multiplies, reads each residue back with
 //   a 16-bit load (zero-extended: 40961 is a 16-bit pattern of the int16
-//   BK) and uses it G times.
+//   BK) and uses it G times.  At N = 2048 the two slots lie on the x0 and
+//   x1 halves of the four polynomials' exchange buffers (Geo::ring), and
+//   pass C of a transform reads only x1: a chunk's first row is issued into
+//   slot 0 right after the second barrier of its last forward batch, and
+//   flies during pass C and the barrier after it, instead of after them.
+//   There a thread owns in the MAC eight consecutive coefficients of four of
+//   the eight limb polynomials, so its words of a row are four runs of 16
+//   bytes, each copied by one cp.async.cg, which keeps the rows out of L1,
+//   where the transforms read their twists (the same 16-byte copies through
+//   L1, cp.async.ca, were 9-11% slower, and .cg takes no smaller size;
+//   PERF.md).
 // * Digit rows in chunks.  Where all rows' transforms do not fit shared
 //   memory beside the rest (20 rows at N = 2048 or of two ciphertexts, a
 //   bundled round's 30 rows at three primes, 36 of two ciphertexts or 60 at
@@ -109,13 +129,22 @@
 //                                          16 + 68 + 32 + 32 + 64 KB = 217,088 B
 //   bundled small_v2_tpu, 36 rows in chunks of 8, G 2, one prime's tables at a time:
 //                                          16 + 68 + 64 + 32 + 32 KB = 217,088 B
-//   small_v2_n2048, N 2048, chunks of 12, G 1:
+//   small_v2_n2048, N 2048, chunks of 12, G 1, one prime's tables refilled:
 //                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
 //   bundled small_v2_tpu2, 30 rows in chunks of 16, three primes, G 1:
 //                                          48 + 68 + 32 + 32 + 32 KB = 217,088 B
-//   bundled small_v2_n2048, 60 rows in chunks of 8, G 1, the three
-//   differences only (the accumulators on r2):
+//   bundled small_v2_n2048, 60 rows in chunks of 8, G 1, one prime's tables
+//   refilled, the three differences only (the accumulators on r2):
 //                                          32 + 68 + 48 + 32 + 32 KB = 217,088 B
+// At N = 2048 the words change hands within a prime as follows: the table
+// region's forward half is read by the forward transforms and refilled
+// during the last chunk's MAC, its inverse half read by the inverse
+// transforms and refilled from the next prime's start; the exchange buffers
+// are the transforms' x0/x1 and the ring's two slots (slot 0 on x0 from the
+// last forward batch's pass C, slot 1 on x1 after the barrier that ends it,
+// both free again at the chunk's last barrier); r1 holds the chunk's digit
+// rows, then the MAC sums; r2 the first prime's inverse results (bundled:
+// the accumulators between rounds).
 // A bundled round at N = 2048 with the accumulators in their own words would
 // take 233,472 B at the smallest chunk, 1,024 over what a block may have; r2
 // is idle between rounds, so the accumulators lie there, and in a round each
@@ -138,9 +167,11 @@
 // every key row of every round from L2, and the ring moves them at 5.4e12
 // B/s with 4-byte copies (8.5e12 with 8-byte ones at N = 2048;
 // tools/l2_rate.py), which is why a key row loaded once for two ciphertexts
-// pays.  PERF.md has the instruction count read from the SASS
-// (scripts/sass_count.py), the floor it gives at 64 int32 lanes an SM, and
-// the measured times.
+// pays.  At N = 2048, with the rows copied past L1 in 16-byte runs, the MAC
+// runs at its own instruction floor and the whole kernel at 93-95% of its
+// int32 floor (tools/k4_spans.py times each phase of a block).  PERF.md has
+// the instruction count read from the SASS (scripts/sass_count.py), the
+// floor it gives at 64 int32 lanes an SM, and the measured times.
 //
 // Each extern "C" entry returns cudaGetLastError() after its launch; the
 // Python wrapper raises if it is not 0.
@@ -190,14 +221,18 @@ __device__ __forceinline__ uint32_t shoup(uint32_t x, uint2 tw, uint32_t p) {
   return x * tw.x - __umulhi(x, tw.y) * p;
 }
 
-// Asynchronous 4- or 8-byte copy from global to shared memory (LDGSTS): the
-// data goes past the registers, and the thread waits for it only where it
-// needs it.  smem_addr is an address in the shared window (shared_address).
+// Asynchronous 4-, 8- or 16-byte copy from global to shared memory (LDGSTS):
+// the data goes past the registers, and the thread waits for it only where
+// it needs it.  smem_addr is an address in the shared window (shared_address).
 template <int BYTES>
 __device__ __forceinline__ void cp_async(uint32_t smem_addr, const void* gmem) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr), "l"(gmem),
-               "n"(BYTES)
-               : "memory");
+  if constexpr (BYTES == 16)  // cached in L2 only: key rows and tables pass L1 by
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr), "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr), "l"(gmem),
+                 "n"(BYTES)
+                 : "memory");
 }
 __device__ __forceinline__ uint32_t shared_address(const void* smem) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(smem));
@@ -217,8 +252,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // coefficients.  A block transforms POLYS polynomials at once with T threads;
 // outside the transforms a thread owns E consecutive coefficients of every
 // polynomial.  At N = 2048 a block has 4 polynomials (8 would need 1,024
-// threads and twice the registers an SM has), a ring of 2 BK rows, and the
-// stage tables of one prime at a time.
+// threads and twice the registers an SM has), a ring of 2 BK rows on the x0
+// and x1 halves (ring()), and the stage tables of one prime at a time,
+// refilled half by half off the block's path (refill_half).
 template <int N>
 struct Geo {
   static constexpr int L = N / kPer;    // threads a polynomial (64 at N = 1024)
@@ -235,6 +271,15 @@ struct Geo {
   static_assert(RING * 8 * N * 2 <= POLYS * 2 * XW * 4, "the BK ring fits the exchange buffers");
   // exchange address of coefficient `pos`: S words of padding every L
   __device__ static __forceinline__ int addr(int pos) { return pos + ((pos >> LOG_L) << LOG_S); }
+  // First word of limb polynomial o (0..7) of ring slot s, N/2 words of
+  // residue pairs.  At N = 2048 slot s lies on the x_s halves of the four
+  // polynomials' exchange buffers, two limb polynomials each (2 * N/2 <= XW
+  // words), so slot 0 is free as soon as pass B has read x0; elsewhere the
+  // slots follow one another.
+  __host__ __device__ static constexpr int ring(int s, int o) {
+    return N == 2048 ? (o >> 1) * 2 * XW + s * XW + (o & 1) * (N / 2) : (s * 8 + o) * (N / 2);
+  }
+  static_assert(N != 2048 || (RING == 2 && POLYS == 4 && N <= XW), "two slots on x0 and x1");
 };
 
 // Four forward (decimation in frequency) stages on v[16]: pairs k, k + D for
@@ -288,10 +333,16 @@ __device__ __forceinline__ void inv_stages(uint32_t (&v)[kPer], const uint2* tab
 // `stage` the forward stage table in shared memory, x0 and x1 this
 // polynomial's exchange buffers.  Every thread of the block calls this
 // (two __syncthreads() inside); `active` is uniform over the L threads.
-template <int N, class Load, class Store4>
+// after_b() runs in every thread after the second barrier, where no thread
+// reads any polynomial's x0 again (K4 at N = 2048 starts a key row there).
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+template <int N, class Load, class Store4, class AfterB = NoHook>
 __device__ __forceinline__ void ntt_fwd(const Load& load, const Store4& store4, bool active,
                                         const uint2* __restrict__ twist, const uint2* stage,
-                                        uint32_t* x0, uint32_t* x1, Mod md, uint32_t B0) {
+                                        uint32_t* x0, uint32_t* x1, Mod md, uint32_t B0,
+                                        const AfterB& after_b = AfterB()) {
   using G = Geo<N>;
   const int t = threadIdx.x & (G::L - 1);
   const uint32_t p = md.p;
@@ -317,6 +368,7 @@ __device__ __forceinline__ void ntt_fwd(const Load& load, const Store4& store4, 
     for (int k = 0; k < kPer; ++k) x1[rb + G::S * k] = v[k];
   }
   __syncthreads();
+  after_b();
   if (active) {
     if constexpr (G::S == 8) {
       // stages 8..10 on two runs of eight; the first twiddle of every stage
@@ -620,6 +672,23 @@ __device__ __forceinline__ void stage_tables(uint2* stage, const uint2* __restri
   __syncthreads();
 }
 
+// Half `dir` (0 forward, 1 inverse) of a one-prime stage region takes prime
+// pi's table, N uint2 in 16-byte cp.async, each thread its own N/T of them;
+// not committed: the caller's next cp_async_commit() puts the copies in a
+// group of the key ring, so the ring's waits cover them and no barrier is
+// added.
+template <int N>
+__device__ __forceinline__ void refill_half(uint2* stage, const uint2* __restrict__ tabs, int pi,
+                                            int dir) {
+  constexpr int PER = N / Geo<N>::T;  // uint2 a thread
+  static_assert(PER % 2 == 0, "whole 16-byte copies");
+  const int i = threadIdx.x * PER;
+  const uint2* src = tabs + (pi * 4 + 1 + 2 * dir) * N + i;
+  const uint32_t dst = shared_address(stage + dir * N + i);
+#pragma unroll
+  for (int k = 0; k < PER / 2; ++k) cp_async<16>(dst + 16u * k, src + 2 * k);
+}
+
 // TGSW external products of this block's G ciphertexts:
 //   delta[g][u] = sum_rows digit_row (x) BK[row][u]  (mod 2^32, u = 0, 1)
 // over `rows` digit rows (3 * 2l for a bundled round), `cr` of them
@@ -638,6 +707,7 @@ __device__ __forceinline__ void external_product_block(
     long long prime_stride, const uint2* __restrict__ tabs, const Crt& crt,
     const Smem<N, G, P, D>& sm, uint32_t (&delta)[G][2][Geo<N>::E]) {
   using Ge = Geo<N>;
+  using S = Smem<N, G, P, D>;
   constexpr int E = Ge::E, RING = Ge::RING;
   const int tid = threadIdx.x;
   const int grp = tid / Ge::L;
@@ -648,8 +718,16 @@ __device__ __forceinline__ void external_product_block(
     const Mod md = crt_mod(crt, pi);
     const uint32_t p = md.p;
     const uint2* tab = tabs + pi * 4 * N;
-    const uint2* stage = sm.stage + (Smem<N, G, P, D>::RES ? pi * 2 * N : 0);
-    if (!Smem<N, G, P, D>::RES) stage_tables<N>(sm.stage, tabs, pi, 1);
+    const uint2* stage = sm.stage + (S::RES ? pi * 2 * N : 0);
+    if constexpr (N == 2048) {
+      // the inverse half holds the last prime's table, dead since the
+      // barrier that ended its inverse transforms: this prime's lands during
+      // the forward transforms, and the MAC's first wait covers it
+      refill_half<N>(sm.stage, tabs, pi, 1);
+      cp_async_commit();
+    } else if (!S::RES) {
+      stage_tables<N>(sm.stage, tabs, pi, 1);
+    }
     const uint32_t bias = digit.small_bias(p);
     // MAC accumulators: this thread's coefficients E*tid .. E*tid + E - 1 of
     // all 8 outputs and G ciphertexts, each BK residue fetched once for all
@@ -666,19 +744,33 @@ __device__ __forceinline__ void external_product_block(
     const int lazy = crt_lazy(crt, pi);
     int pending = 0;
     // The exchange buffers are idle in the MAC and serve as a ring of RING
-    // rows of BK: a thread copies the words it will itself read (so no
-    // barrier), asynchronously and RING - 1 rows ahead of the row it
-    // multiplies, which keeps the L2 latency out of the loop.
-    const uint32_t* bkw =
-        reinterpret_cast<const uint32_t*>(bk + pi * prime_stride) + tid * (E / 2);
-    uint32_t* ring = sm.ex + tid * (E / 2);  // [RING][8][N/2] words, a pair of residues each
+    // rows of BK (slot s, limb polynomial o at word Ge::ring(s, o)): a
+    // thread copies the words it will itself read (so no barrier),
+    // asynchronously and RING - 1 rows ahead of the row it multiplies, which
+    // keeps the L2 latency out of the loop.  At N = 2048 a
+    // thread owns in the MAC coefficients cb .. cb + 7 of the four limb
+    // polynomials o = 2q + h (h: the half of its warp), so its words of a
+    // limb polynomial are 16 contiguous bytes, copied by one cp.async.cg
+    // (past L1); a[0][2q + e / 4][e % 4] sums coefficient cb + e of o.
+    // Elsewhere it owns E*tid .. E*tid + E - 1 of all eight.
+    const int h = (tid & 31) >> 4;
+    const int cb = N == 2048 ? 2 * ((tid >> 5) * 64 + 4 * (tid & 15)) : E * tid;
+    const int own = N == 2048 ? cb / 2 + h * (N / 2) : tid * (E / 2);  // first ring word
+    const uint32_t* bkw = reinterpret_cast<const uint32_t*>(bk + pi * prime_stride) + own;
+    uint32_t* ring = sm.ex + own;
     const uint16_t* ringh = reinterpret_cast<const uint16_t*>(ring);
     const uint32_t ring_addr = shared_address(ring);
     const auto fetch = [&](int row, int slot) {  // slot is a constant where this is called
       const uint32_t* src = bkw + row * 8 * (N / 2);
+      if constexpr (N == 2048) {
+        static_assert(G == 1 && E == 4 && Ge::T == 512, "512 threads, 8 coefficients of 4 polynomials");
 #pragma unroll
-      for (int o = 0; o < 8; ++o)
-        cp_async<2 * E>(ring_addr + 4u * ((slot * 8 + o) * (N / 2)), src + o * (N / 2));
+        for (int q = 0; q < 4; ++q) cp_async<16>(ring_addr + 4u * Ge::ring(slot, 2 * q), src + q * N);
+      } else {
+#pragma unroll
+        for (int o = 0; o < 8; ++o)
+          cp_async<2 * E>(ring_addr + 4u * Ge::ring(slot, o), src + o * (N / 2));
+      }
       cp_async_commit();
     };
 
@@ -692,6 +784,12 @@ __device__ __forceinline__ void external_product_block(
         const int q = q0 + grp;
         const int g = q / cn, j = c0 + q - g * cn;
         uint16_t* slot = sm.r1 + static_cast<size_t>(q) * N;
+        // at N = 2048 the chunk's first key row flies into ring slot 0 (the
+        // x0 halves) during pass C of the chunk's last forward batch
+        const bool last_batch = N == 2048 && q0 + Ge::POLYS >= G * cn;
+        const auto start_row = [&] {
+          if (last_batch) fetch(c0, 0);
+        };
         const auto store = [&](int pos, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
           *reinterpret_cast<uint2*>(slot + pos) = make_uint2(a | (b << 16), c | (d << 16));
         };
@@ -702,22 +800,33 @@ __device__ __forceinline__ void external_product_block(
               [&](int pos, uint2 tw) {
                 return static_cast<uint32_t>(digit(g, j, pos)) * tw.x + bias;
               },
-              store, q < G * cn, tab, stage, x0, x1, md, 2 * bias);
+              store, q < G * cn, tab, stage, x0, x1, md, 2 * bias, start_row);
         } else {
           ntt_fwd<N>(
               [&](int pos, uint2 tw) {
                 const int d = digit(g, j, pos);
                 return shoup(static_cast<uint32_t>(d < 0 ? d + static_cast<int>(p) : d), tw, p);
               },
-              store, q < G * cn, tab, stage, x0, x1, md, 2 * p);
+              store, q < G * cn, tab, stage, x0, x1, md, 2 * p, start_row);
         }
       }
       __syncthreads();
 
       // MAC over the chunk's rows
+      if constexpr (N == 2048) {
+        // row c0 is in flight.  After the prime's last forward transforms
+        // (the barrier above) the forward half of the tables is dead: the
+        // next prime's table (the next round's first) rides with row c0 + 1
+        if (c0 + cn == rows) refill_half<N>(sm.stage, tabs, pi + 1 < P ? pi + 1 : 0, 0);
+        if (cn > 1)
+          fetch(c0 + 1, 1);
+        else
+          cp_async_commit();
+      } else {
 #pragma unroll
-      for (int r = 0; r < RING; ++r)
-        if (r < cn) fetch(c0 + r, r);
+        for (int r = 0; r < RING; ++r)
+          if (r < cn) fetch(c0 + r, r);
+      }
 #pragma unroll 1
       for (int j0 = 0; j0 < cn; j0 += RING) {
 #pragma unroll
@@ -739,19 +848,35 @@ __device__ __forceinline__ void external_product_block(
               pending = 0;
             }
             ++pending;
-            uint32_t d[G][E];
+            if constexpr (N == 2048) {
+              const uint4 dq = *reinterpret_cast<const uint4*>(sm.r1 + j * N + cb);
+              const uint32_t dw[4] = {dq.x, dq.y, dq.z, dq.w};
 #pragma unroll
-            for (int g = 0; g < G; ++g)
+              for (int q = 0; q < 4; ++q) {
+                const uint4 wq = *reinterpret_cast<const uint4*>(ring + Ge::ring(jj, 2 * q));
+                const uint32_t ww[4] = {wq.x, wq.y, wq.z, wq.w};
 #pragma unroll
-              for (int e = 0; e < E; ++e) d[g][e] = sm.r1[(g * cn + j) * N + E * tid + e];
-#pragma unroll
-            for (int o = 0; o < 8; ++o)
-#pragma unroll
-              for (int e = 0; e < E; ++e) {
-                const uint32_t w = ringh[(jj * 8 + o) * N + e];
-#pragma unroll
-                for (int g = 0; g < G; ++g) a[g][o][e] += d[g][e] * w;
+                for (int e = 0; e < 8; ++e) {
+                  const uint32_t d = e & 1 ? dw[e / 2] >> 16 : dw[e / 2] & 0xffffu;
+                  const uint32_t w = e & 1 ? ww[e / 2] >> 16 : ww[e / 2] & 0xffffu;
+                  a[0][2 * q + e / 4][e % 4] += d * w;
+                }
               }
+            } else {
+              uint32_t d[G][E];
+#pragma unroll
+              for (int g = 0; g < G; ++g)
+#pragma unroll
+                for (int e = 0; e < E; ++e) d[g][e] = sm.r1[(g * cn + j) * N + E * tid + e];
+#pragma unroll
+              for (int o = 0; o < 8; ++o)
+#pragma unroll
+                for (int e = 0; e < E; ++e) {
+                  const uint32_t w = ringh[2 * Ge::ring(jj, o) + e];
+#pragma unroll
+                  for (int g = 0; g < G; ++g) a[g][o][e] += d[g][e] * w;
+                }
+            }
             // Refill the slot this thread has just read (nobody else touches
             // these words).  Read-then-asynchronous-write is safe: the "memory"
             // clobber of cp_async keeps the compiler from moving the copy
@@ -767,18 +892,33 @@ __device__ __forceinline__ void external_product_block(
     // the MAC sums become r1's first G * 8 rows, below 2p < 2^16 each (below
     // p for a prime above 2^15, so that they fit 16 bits)
     const bool wide = p >= (1u << 15);
+    if constexpr (N == 2048) {  // coefficients cb .. cb + 7 of polynomials 2q + h
 #pragma unroll
-    for (int g = 0; g < G; ++g)
+      for (int q = 0; q < 4; ++q) {
+        uint32_t f[8];
 #pragma unroll
-      for (int o = 0; o < 8; ++o) {
-        uint32_t f[E];
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          f[e] = wide ? reduce(a[g][o][e], md) : reduce_2p(a[g][o][e], md);
-        uint32_t* w = reinterpret_cast<uint32_t*>(sm.r1 + (g * 8 + o) * N + E * tid);
-#pragma unroll
-        for (int e = 0; e < E; e += 2) w[e / 2] = f[e] | (f[e + 1] << 16);
+        for (int e = 0; e < 8; ++e) {
+          const uint32_t x = a[0][2 * q + e / 4][e % 4];
+          f[e] = wide ? reduce(x, md) : reduce_2p(x, md);
+        }
+        *reinterpret_cast<uint4*>(sm.r1 + (2 * q + h) * N + cb) =
+            make_uint4(f[0] | (f[1] << 16), f[2] | (f[3] << 16), f[4] | (f[5] << 16),
+                       f[6] | (f[7] << 16));
       }
+    } else {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int o = 0; o < 8; ++o) {
+          uint32_t f[E];
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            f[e] = wide ? reduce(a[g][o][e], md) : reduce_2p(a[g][o][e], md);
+          uint32_t* w = reinterpret_cast<uint32_t*>(sm.r1 + (g * 8 + o) * N + E * tid);
+#pragma unroll
+          for (int e = 0; e < E; e += 2) w[e / 2] = f[e] | (f[e + 1] << 16);
+        }
+    }
     __syncthreads();
 
     // inverse transforms of the G * 8 sums; the last prime's stay in place,
@@ -1029,10 +1169,18 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
     for (int k = tid; k < 2 * N; k += Ge::T)
       sm.acc[c * 2 * N + k] =
           first + c < B ? static_cast<uint32_t>(acc0[(first + c) * 2 * N + k]) : 0u;
-  if (S::RES)
+  if constexpr (S::RES) {
     stage_tables<N>(sm.stage, tabs, 0, P);  // ends with a barrier
-  else
+  } else if constexpr (N == 2048) {
+    // the launch's one staging: prime 0's forward table (its inverse one
+    // comes with the prime's refill)
+    refill_half<N>(sm.stage, tabs, 0, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
     __syncthreads();
+  } else {
+    __syncthreads();
+  }
   const GadgetDigits<N, D> dig{sm.diff, g};
 #pragma unroll 1
   for (int j = 0; j < rounds; ++j) {
@@ -1194,12 +1342,13 @@ struct K4Config {
   size_t bytes;
   bool resident;  // every prime's stage tables stay in shared memory
   bool alias;     // the accumulators lie on r2
+  bool refill;    // one prime's tables, each half refilled off the block's path
 };
 
 template <int N, int G, int P, int D>
 K4Config k4_layout(int cr) {
   using S = Smem<N, G, P, D>;
-  return K4Config{G, cr, S::bytes(cr), S::RES, S::ALIAS};
+  return K4Config{G, cr, S::bytes(cr), S::RES, S::ALIAS, N == 2048};
 }
 
 template <int N, int P, int D>
@@ -1343,11 +1492,13 @@ int redsec_cmux_round(const int32_t* acc, const int32_t* t, const int16_t* bk,
 // a time, staged again for every prime of every round), out[4] the shared
 // bytes two ciphertexts a block would take with all their digit rows and
 // every prime's tables (above what a block may have where they do not fit),
-// out[5] 1 where the accumulators lie on r2 (Smem::ALIAS).
+// out[5] 1 where the accumulators lie on r2 (Smem::ALIAS), out[6] 1 where
+// one prime's tables are refilled by cp.async with the next prime's
+// (N = 2048) instead of staged again behind a barrier.
 // Returns non-zero for a combination without an instance.
 int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, int* out) {
   const int D = bundle == 2 ? 3 : 1;
-  K4Config cf{0, 0, 0, false, false};
+  K4Config cf{0, 0, 0, false, false, false};
   size_t bytes2 = 0;
   bool ok = false;
   REDSEC_DISPATCH_K4(N, P, D, {
@@ -1362,6 +1513,7 @@ int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, 
   out[3] = cf.resident;
   out[4] = static_cast<int>(bytes2);
   out[5] = cf.alias;
+  out[6] = cf.refill;
   return 0;
 }
 

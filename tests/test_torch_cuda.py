@@ -184,6 +184,36 @@ def test_blind_rotate_kernel_equals_twin_at_the_new_instances(new_key, batch):
     assert cfg["shared_bytes"] <= 232448 and 1 <= cfg["chunk_rows"]
 
 
+# K4 at N = 2048 with n cut to an odd and an even number of rounds, plain
+# and bundled: the launch's one staging of the stage tables, each half's
+# refill with the next prime's (and the next round's first) while the block
+# runs on, and a chunk's first key row started before the barrier that ends
+# its forward transforms; every ciphertext against the twin
+CUT_N2048 = [(1, 3), (1, 4), (2, 6), (2, 4)]  # (bundle, n): 3, 4, 3 and 2 rounds
+
+
+@pytest.mark.parametrize("bundle,n", CUT_N2048, ids=[f"bundle{b}-n{n}" for b, n in CUT_N2048])
+@pytest.mark.parametrize("batch", [1, 133])
+def test_blind_rotate_kernel_at_n2048_equals_twin_at_cut_rounds(bundle, n, batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import dataclasses
+
+    from redsec_tpu_torch.crypto.params import get_params
+
+    params = dataclasses.replace(get_params("small_v2_n2048"), n=n)
+    _, cloud = kg.keygen(params, seed=0, bundle=bundle)
+    dkey = bs.prepare_cloud_key(cloud, device="cuda")
+    assert K.key_bundle(dkey.bk, params) == bundle
+    rng = np.random.default_rng(10 * n + batch)
+    acc0 = _ri(rng, -2**31, 2**31, (batch, 2, params.N))
+    abar = _ri(rng, 0, 2 * params.N, (batch, n))
+    got = K.blind_rotate(acc0, abar, dkey.bk, params, dkey.plan)
+    assert torch.equal(got, K.blind_rotate_plain(acc0, abar, dkey.bk, params, dkey.plan))
+    cfg = _config_equals_mirror(batch, params, dkey.plan, bundle)
+    assert (cfg["group"], cfg["chunk_rows"]) == (1, 12 if bundle == 1 else 8)
+
+
 @pytest.mark.parametrize("name", ["small_v2_n2048", "small"])
 def test_ntt_kernel_equals_twin_at_the_new_plans(name):
     if not torch.cuda.is_available():

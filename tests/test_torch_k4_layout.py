@@ -79,22 +79,27 @@ def test_every_layout_fits_a_block(N, P, bundle, batch):
     # every prime's tables stay unless they do not fit beside the smallest chunk
     assert lay["tables_resident"] == (N <= 1024 and K.k4_shared_bytes(
         N, lay["group"], P, 3 if bundle == 2 else 1, polys // lay["group"], P) <= MAX)
+    # at N = 2048 the one prime's tables are refilled off the block's path;
+    # where N <= 1024 stages them a prime, it does so behind a barrier
+    assert lay["tables_refilled"] == (N == 2048)
 
 
 SHIPPED = [("small_v2", 1), ("small_v2_n2048", 1), ("small", 1), ("small_v2_tpu", 2),
            ("small_v2_tpu2", 2), ("small_v2_tpu", 1), ("small_v2_n2048", 2)]
-# (group, chunk rows, shared bytes, every prime's tables stay) at batch 512
-# on 132 SMs: small and bundled small_v2_tpu stage their tables a prime
-# (233,472 bytes with every prime's at the smallest chunk); bundled
-# small_v2_n2048 takes 217,088 only with its accumulators on r2
+# (group, chunk rows, shared bytes, every prime's tables stay, one prime's
+# refilled off the path) at batch 512 on 132 SMs: small and bundled
+# small_v2_tpu stage their tables a prime behind a barrier (233,472 bytes
+# with every prime's at the smallest chunk); the two N = 2048 instances hold
+# one prime's and refill each half with the next prime's by cp.async;
+# bundled small_v2_n2048 takes 217,088 only with its accumulators on r2
 WANT = {
-    ("small_v2", 1): (2, 12, 217088, True),
-    ("small_v2_n2048", 1): (1, 12, 217088, False),
-    ("small", 1): (2, 6, 217088, False),
-    ("small_v2_tpu", 2): (2, 8, 217088, False),
-    ("small_v2_tpu2", 2): (1, 16, 217088, True),
-    ("small_v2_tpu", 1): (2, 12, 217088, True),
-    ("small_v2_n2048", 2): (1, 8, 217088, False),
+    ("small_v2", 1): (2, 12, 217088, True, False),
+    ("small_v2_n2048", 1): (1, 12, 217088, False, True),
+    ("small", 1): (2, 6, 217088, False, False),
+    ("small_v2_tpu", 2): (2, 8, 217088, False, False),
+    ("small_v2_tpu2", 2): (1, 16, 217088, True, False),
+    ("small_v2_tpu", 1): (2, 12, 217088, True, False),
+    ("small_v2_n2048", 2): (1, 8, 217088, False, True),
 }
 # Where two ciphertexts do not fit a block even at the smallest chunk with
 # the stage tables staged a prime (299,008 and 249,856 bytes), a cluster of
@@ -106,7 +111,11 @@ WANT = {
 # rows at 2.36e12 (N = 1024) and 4.41e12 B/s (N = 2048) into the pair's
 # shared memory against 5.38e12 and 8.55e12 for one block's own cp.async
 # ring (tools/l2_rate.py).  So they keep one a block.  Bundled small_v2_n2048
-# does not fit two a block even with its accumulators on r2.
+# does not fit two a block even with its accumulators on r2.  At N = 2048 a
+# block's own key stream was then made cheaper instead: the rows copied past
+# L1 in 16-byte runs, the first row of a chunk started before the barrier
+# that ends its forward transforms, and the one prime's stage tables refilled
+# off the block's path (88 and 117 ms against 100 and 137, PERF.md).
 ONE_A_BLOCK = {("small_v2_n2048", 1), ("small_v2_tpu2", 2), ("small_v2_n2048", 2)}
 
 
@@ -117,7 +126,8 @@ def test_shipped_sets_share_every_key_load_at_a_full_chunk(name, bundle):
     lay = K.k4_layout(512, params, plan, bundle, SMS)
     want_shared = 1 if (name, bundle) in ONE_A_BLOCK else 2
     assert lay["group"] == want_shared
-    got = (lay["group"], lay["chunk_rows"], lay["shared_bytes"], lay["tables_resident"])
+    got = (lay["group"], lay["chunk_rows"], lay["shared_bytes"], lay["tables_resident"],
+           lay["tables_refilled"])
     assert got == WANT[(name, bundle)]
     N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
     assert lay["instance"] == f"blind_rotate_kernelILi{N}ELi{want_shared}ELi{P}ELi{D}E"
@@ -180,7 +190,8 @@ def test_rule_reads_only_the_shape():
 
 def test_bundled_n2048_fits_only_with_its_accumulators_on_r2():
     """Bundled small_v2_n2048: 60 digit rows, one prime's stage tables at a
-    time.  With the accumulators in their own words the smallest chunk takes
+    time, refilled half by half with the next prime's while the block runs
+    on.  With the accumulators in their own words the smallest chunk takes
     233,472 B, 1,024 over what a block may have; on r2 (32 KB of inverse
     results, idle between rounds, holding 16 KB of accumulators) rows run in
     chunks of 8: 32 + 68 + 48 + 32 + 32 KB."""
@@ -190,6 +201,7 @@ def test_bundled_n2048_fits_only_with_its_accumulators_on_r2():
     assert K.k4_shared_bytes(2048, 1, 2, 3, 4, 1) == 233472 == MAX + 1024
     lay = K.k4_layout(512, params, plan, 2, SMS)
     assert lay["accumulators_on_r2"] and lay["chunk_rows"] == 8
+    assert lay["tables_refilled"] and not lay["tables_resident"]
     assert lay["shared_bytes"] == K.k4_shared_bytes(2048, 1, 2, 3, 8, 1, True) == 217088
     assert 217088 == 32768 + 69632 + 49152 + 32768 + 32768
     assert K.k4_shared_bytes(2048, 1, 2, 3, 12, 1, True) > MAX  # chunks of 12 do not fit
