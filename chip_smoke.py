@@ -31,7 +31,9 @@ Phases (any failure exits non-zero):
    at batches 512, 133, 5 and 1, timed at 512: ``small_v2_n2048`` (N 2048),
    ``small`` (three primes), bundled ``small_v2_tpu``, ``small_v2_tpu2`` and
    ``small_v2_n2048`` (``bundle=2``: n/2 rounds of 3 x 2l digit rows; three
-   primes at tpu2; at N 2048 the accumulators on the inverse results' region).
+   primes at tpu2; at N 2048, and at tpu2 two ciphertexts a block, the
+   accumulators on the MAC sums' region; at tpu2 two a block, the last
+   prime's MAC sums on the differences).
    At every instance and batch the layout the library chooses must be
    ``kernels.k4_layout``'s; each record gives the ciphertexts a block and
    a key load serves (every block loads its own key rows), the chunk of
@@ -1531,7 +1533,10 @@ def main() -> int:
                     ciphertexts_per_key_load=cfg["group"],
                     chunk_rows=cfg["chunk_rows"], shared_bytes=cfg["shared_bytes"],
                     tables_resident=cfg["tables_resident"],
-                    tables_refilled=cfg["tables_refilled"], registers=regs, spill_bytes=spill)
+                    tables_refilled=cfg["tables_refilled"],
+                    accumulators_on_r2=cfg["accumulators_on_r2"],
+                    sums_on_differences=cfg["sums_on_differences"], registers=regs,
+                    spill_bytes=spill)
 
     # K4 over all n rounds, at every batch the forward gives it and at batches
     # that take the one-ciphertext-a-block path (1, 5) or end on a ragged
@@ -1604,10 +1609,12 @@ def main() -> int:
 
     # K1 at N = 2048 and K4 at the instances of these keys: N = 2048 (primes
     # 12289 and 40961), three primes (small), bundled rounds (small_v2_tpu:
-    # 36 digit rows; small_v2_tpu2: 30 rows, three primes; small_v2_n2048: 60
-    # rows, the accumulators on r2); at batches 512, 133, 5 and 1, timed at
-    # 512.  K1 at N = 2048 is held at the plain key's rows here and at the
-    # bundled key's by its preparation (check_key)
+    # 36 digit rows; small_v2_tpu2: 30 rows, three primes, two a block in
+    # chunks of 4 with the accumulators on r2 and the last prime's sums on the
+    # differences; small_v2_n2048: 60 rows, the accumulators on r2); at
+    # batches 512, 133, 5 and 1, timed at 512.  K1 at N = 2048 is held at the
+    # plain key's rows here and at the bundled key's by its preparation
+    # (check_key)
     PN = get_params("small_v2_n2048")
     P3 = get_params("small_v2_tpu2")
     new_keys = {}  # (set name, bundle) -> (secret key, cloud key), seed 0

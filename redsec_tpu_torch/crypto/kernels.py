@@ -503,9 +503,9 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
                          f"{len(plan.primes)} primes, bundle {bundle}")
     N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
     return {"group": out[0], "chunk_rows": out[1], "shared_bytes": out[2],
-            "tables_resident": bool(out[3]), "accumulators_on_r2": bool(out[5]),
-            "tables_refilled": bool(out[6]), "instance": _k4_instance(N, out[0], P, D),
-            "shared_bytes_g2": out[4]}
+            "tables_resident": bool(out[3]), "tables_refilled": not out[3],
+            "accumulators_on_r2": bool(out[5]), "sums_on_differences": bool(out[6]),
+            "instance": _k4_instance(N, out[0], P, D), "shared_bytes_g2": out[4]}
 
 
 # K4's layout (csrc/pbs.cu: Geo, Smem, k4_chunk, k4_config), mirrored so that
@@ -514,43 +514,42 @@ K4_MAX_SHARED = 232448
 
 
 def k4_shared_bytes(N: int, group: int, primes: int, diffs: int, chunk: int,
-                    tables: int, alias: bool = False) -> int:
+                    tables: int, alias: bool = False, on_diff: bool = False) -> int:
     """Dynamic shared bytes of ``Smem<N, group, primes, diffs>`` with ``chunk``
     digit rows a chunk and the stage tables of ``tables`` primes: the tables
     (uint2 [tables][2][N]), the exchange buffers ([POLYS][2][N + N/16 padded]
     words, the key ring in the MAC), accumulators and differences ([group]
     [1 + diffs][2][N] words; [group][diffs][2][N] with ``alias``, where the
-    accumulators lie on the last region), digit rows or MAC sums (uint16
-    [group * max(chunk, 8)][N]) and the inverse transforms of all primes but
-    the last (uint16 [primes - 1][group * 8][N])."""
+    accumulators lie on the last region), digit rows and the last prime's
+    MAC sums (uint16 [group * max(chunk, 8)][N]; [group * chunk][N] with
+    ``on_diff``, where those sums lie on the differences) and the MAC sums of
+    all primes but the last (uint16 [primes - 1][group * 8][N])."""
     polys = 8 if N <= 1024 else 4
     xw = N + N // 16  # N + 16 * S words, S = N / 256
     accs = diffs if alias else 1 + diffs
+    r1 = group * (chunk if on_diff else max(chunk, 8))
     return (8 * tables * 2 * N + 4 * (polys * 2 * xw + accs * group * 2 * N)
-            + 2 * (group * max(chunk, 8) * N + (primes - 1) * group * 8 * N))
+            + 2 * (r1 * N + (primes - 1) * group * 8 * N))
 
 
-def _k4_tables(N: int, group: int, primes: int, diffs: int) -> int:
-    """Primes whose stage tables stay in shared memory: every prime's where
-    they fit beside the smallest chunk (N <= 1024), else one prime's at a
-    time."""
+def _k4_regions(N: int, group: int, primes: int, diffs: int) -> tuple:
+    """The first of these layouts that fits at the smallest chunk, each giving
+    up one more region of its own: every prime's stage tables (N <= 1024);
+    one prime's, refilled half by half; the accumulators on the region of the
+    MAC sums, idle between rounds (``alias``); the last prime's MAC sums on
+    the differences, dead once its last forward transforms have cut their
+    digits (``on_diff``, a bundled round's three differences only).  Returns
+    (tables, alias, on_diff): primes whose tables stay and the two flags."""
     smallest = (8 if N <= 1024 else 4) // group
-    if N <= 1024 and k4_shared_bytes(N, group, primes, diffs, smallest,
-                                     primes) <= K4_MAX_SHARED:
-        return primes
-    return 1
 
+    def fits(tables, alias=False, on_diff=False):
+        return k4_shared_bytes(N, group, primes, diffs, smallest, tables, alias,
+                               on_diff) <= K4_MAX_SHARED
 
-def _k4_alias(N: int, group: int, primes: int, diffs: int) -> bool:
-    """Whether the accumulators lie on the inverse results' region (r2, idle
-    between rounds, (primes - 1) * group * 8 * N * 2 bytes against their
-    group * 2 * N * 4): where the layout with them in their own words does
-    not fit at the smallest chunk and this one does.  Only the bundled
-    instance at N = 2048 takes it."""
-    smallest = (8 if N <= 1024 else 4) // group
-    tables = _k4_tables(N, group, primes, diffs)
-    return (k4_shared_bytes(N, group, primes, diffs, smallest, tables) > K4_MAX_SHARED
-            >= k4_shared_bytes(N, group, primes, diffs, smallest, tables, True))
+    tables = primes if N <= 1024 and fits(primes) else 1
+    alias = not fits(tables)
+    on_diff = diffs == 3 and alias and not fits(tables, True)
+    return tables, alias, on_diff
 
 
 def _k4_chunk(N: int, group: int, primes: int, diffs: int, rows: int) -> int:
@@ -558,12 +557,11 @@ def _k4_chunk(N: int, group: int, primes: int, diffs: int, rows: int) -> int:
     block: all rows, else a multiple of POLYS / group; 0 where none fits
     (the instance is not built)."""
     step = (8 if N <= 1024 else 4) // group
-    tables = _k4_tables(N, group, primes, diffs)
-    alias = _k4_alias(N, group, primes, diffs)
-    if k4_shared_bytes(N, group, primes, diffs, step, tables, alias) > K4_MAX_SHARED:
+    tables, alias, on_diff = _k4_regions(N, group, primes, diffs)
+    if k4_shared_bytes(N, group, primes, diffs, step, tables, alias, on_diff) > K4_MAX_SHARED:
         return 0
     cr = rows
-    while k4_shared_bytes(N, group, primes, diffs, cr, tables, alias) > K4_MAX_SHARED:
+    while k4_shared_bytes(N, group, primes, diffs, cr, tables, alias, on_diff) > K4_MAX_SHARED:
         cr = (cr - 1) // step * step
     return cr
 
@@ -586,22 +584,26 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     ``chunk_rows``: digit rows transformed and multiplied at a time (the
     largest chunk that fits); ``shared_bytes``: the block's dynamic shared
     memory; ``tables_resident``: every prime's stage tables stay in shared
-    memory (else one prime's at a time); ``tables_refilled``: at N = 2048
-    that one prime's region is refilled half by half with the next prime's
-    tables by ``cp.async`` as soon as each half is dead (the forward half
-    riding with the second key row of the prime's last chunk, the inverse
-    half issued as the prime starts), so the launch stages tables once and
-    no block waits for them; elsewhere (``small``, bundled ``small_v2_tpu``
-    at two ciphertexts a block) they are staged again for every prime of
-    every round behind a barrier.  At N = 2048 the key ring's two slots lie
-    on the exchange buffers' x0 and x1 halves, so a chunk's first key row
-    starts during the last pass of its last forward transforms, and each
-    thread copies the words it multiplies 16 bytes a ``cp.async.cg`` (past
-    L1);
-    ``accumulators_on_r2``: the accumulators lie on the
-    inverse results' region, carried in registers through each round (where
-    nothing else fits: bundled at N = 2048); ``instance``: the kernel
-    launched, as the compiler's report names it.
+    memory; else ``tables_refilled``: one prime's region, refilled half by
+    half with the next prime's tables by ``cp.async`` as soon as each half is
+    dead (the forward half riding with a key row of the prime's last chunk,
+    the inverse half issued as the prime starts), so the launch stages tables
+    once and no block waits for them (``small``, bundled ``small_v2_tpu`` and
+    ``small_v2_tpu2`` at two ciphertexts a block, both N = 2048 instances);
+    ``accumulators_on_r2``: the accumulators lie on the region of the MAC
+    sums, carried in registers through each round, and
+    ``sums_on_differences``: the last prime's MAC sums lie on the round's
+    differences, so that the digit rows' region holds the chunk's rows only
+    (each taken only where the layout before it does not fit: bundled at
+    N = 2048, and bundled ``small_v2_tpu2`` at two a block, which takes
+    both); ``instance``: the kernel launched, as the compiler's report names
+    it.  Whatever the layout, in the MAC each thread copies 16-byte runs of
+    each key row (eight coefficients of N / T of the limb polynomials) by
+    ``cp.async.cg``, past L1, and multiplies just those at one ciphertext a
+    block, or at two its N / T coefficients of all eight limb polynomials,
+    copied by its warp; a chunk's first key rows start in the ring slots on
+    the exchange buffers' x0 halves during the last pass of its last forward
+    transforms.
     Raises for a combination ``supported`` refuses."""
     plan = plan or bs.bootstrap_plan(params, bundle == 2)
     if plan is None or not supported(params, plan, bundle):
@@ -611,12 +613,11 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
     cr2 = _k4_chunk(N, 2, P, D, rows)
     group = 2 if batch > sm_count and cr2 > 0 else 1
     cr = cr2 if group == 2 else _k4_chunk(N, 1, P, D, rows)
-    tables = _k4_tables(N, group, P, D)
-    alias = _k4_alias(N, group, P, D)
+    tables, alias, on_diff = _k4_regions(N, group, P, D)
     return {"group": group, "chunk_rows": cr,
-            "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables, alias),
-            "tables_resident": tables == P, "accumulators_on_r2": alias,
-            "tables_refilled": tables < P and N > 1024,
+            "shared_bytes": k4_shared_bytes(N, group, P, D, cr, tables, alias, on_diff),
+            "tables_resident": tables == P, "tables_refilled": tables < P,
+            "accumulators_on_r2": alias, "sums_on_differences": on_diff,
             "instance": _k4_instance(N, group, P, D)}
 
 

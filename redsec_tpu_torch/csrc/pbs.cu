@@ -66,40 +66,43 @@
 // * Twiddles.  The stage tables of every prime and both directions (uint2 =
 //   (w, w'), 16 KB a prime at N = 1024) are staged in shared memory once a
 //   block; where they do not fit beside the rest (N = 2048, and two
-//   ciphertexts a block at three primes) they hold one prime's at a time
-//   (32 or 16 KB).  At N = 1024 that prime's are loaded again for every
-//   prime of every round, behind a barrier.  At N = 2048 the
-//   launch stages prime 0's forward table once, and each 16 KB half is then
-//   refilled with the next prime's by cp.async as soon as what it holds is
-//   dead, in a commit group of the key ring, so the ring's own waits and
-//   barriers cover the copies: the inverse half as a prime starts (the last
-//   prime's inverse transforms ended at the barrier before), the forward
-//   half with the second key row of the prime's last chunk (no transform
-//   reads it after the barrier that ends the chunk's forward transforms;
-//   the next round's first prime after the last).  No block waits for a
-//   table.  Twist and
-//   untwist (one coalesced load a coefficient) come through the read-only
-//   cache.  Table layout per prime, uint2 [4][N]: twist, forward stage
-//   tables (the stage of half-span h at offset N - 2h), untwist (psi^-j /
-//   N), inverse stage tables (half-span h at offset h - 1); values and order
-//   of ntt.NttPlan (kernels.shoup_tables builds it).
+//   ciphertexts a block at three primes or in a bundled round at N = 1024)
+//   the region holds one prime's at a time (32 or 16 KB): the launch stages
+//   prime 0's forward table once, and each half is then refilled with the
+//   next prime's by cp.async as soon as what it holds is dead, in a commit
+//   group of the key ring, so the ring's own waits and barriers cover the
+//   copies: the inverse half as a prime starts (the last prime's inverse
+//   transforms ended at the barrier before), the forward half with the
+//   first key row issued after the barrier that ends the prime's last
+//   forward transforms (pass C still reads it before that barrier; the next
+//   round's first prime after the last).  No block waits for a table.
+//   Twist and untwist (one coalesced load a coefficient) come through the
+//   read-only cache.  Table layout per prime, uint2 [4][N]: twist, forward
+//   stage tables (the stage of half-span h at offset N - 2h), untwist
+//   (psi^-j / N), inverse stage tables (half-span h at offset h - 1); values
+//   and order of ntt.NttPlan (kernels.shoup_tables builds it).
 // * One key load serves G ciphertexts, and its latency stays out of the
-//   loop: in the MAC a thread owns E = N/T consecutive coefficients of all
-//   G.  The exchange buffers, idle then, hold a ring of four BK rows (two at
-//   N = 2048); each thread copies the words it will itself read (cp.async,
-//   no barrier) ahead of the row it multiplies, reads each residue back with
-//   a 16-bit load (zero-extended: 40961 is a 16-bit pattern of the int16
-//   BK) and uses it G times.  At N = 2048 the two slots lie on the x0 and
-//   x1 halves of the four polynomials' exchange buffers (Geo::ring), and
-//   pass C of a transform reads only x1: a chunk's first row is issued into
-//   slot 0 right after the second barrier of its last forward batch, and
-//   flies during pass C and the barrier after it, instead of after them.
-//   There a thread owns in the MAC eight consecutive coefficients of four of
-//   the eight limb polynomials, so its words of a row are four runs of 16
-//   bytes, each copied by one cp.async.cg, which keeps the rows out of L1,
-//   where the transforms read their twists (the same 16-byte copies through
-//   L1, cp.async.ca, were 9-11% slower, and .cg takes no smaller size;
-//   PERF.md).
+//   loop.  The exchange buffers, idle in the MAC, hold a ring of four BK
+//   rows (two at N = 2048).  Each thread copies eight consecutive
+//   coefficients of E = N/T of the eight limb polynomials of a row, E runs
+//   of 16 bytes, ahead of the row it multiplies, each by one cp.async.cg,
+//   which keeps the rows out of L1, where the transforms read their twists
+//   (the same 16-byte copies through L1, cp.async.ca, were 9-11% slower at
+//   N = 2048, and .cg takes no smaller size; PERF.md); no block barrier.  At
+//   one ciphertext a block it multiplies just those runs (digits and sums
+//   likewise 16 bytes a load); at two it multiplies its E coefficients of
+//   all eight limb polynomials, words its warp's lanes copied (a __syncwarp
+//   after the wait and before the slot's refill), so that each digit it
+//   loads serves eight products and each residue two: the runs' layout,
+//   with a ciphertext's eight digits a row a thread, was 0.6-3.9% slower
+//   there, and the warp's (timed without the early rows) 3-4% slower at one
+//   a block (PERF.md).  Residues are
+//   zero-extended 16-bit patterns (40961 is one of the int16 BK).  The
+//   slots lie on the halves of the exchange buffers (Geo::slot), the first
+//   POLYS / 4 of them on the x0 halves, which pass C of a transform does not
+//   read: a chunk's first one or two rows are issued right after the second
+//   barrier of its last forward batch, and fly during pass C and the barrier
+//   after it, instead of after them.
 // * Digit rows in chunks.  Where all rows' transforms do not fit shared
 //   memory beside the rest (20 rows at N = 2048 or of two ciphertexts, a
 //   bundled round's 30 rows at three primes, 36 of two ciphertexts or 60 at
@@ -109,7 +112,7 @@
 //   the MAC's sums stay in registers across chunks.
 // * blind_rotate loops over all rounds inside the block (the TPU's
 //   sequential grid axis has no Hopper counterpart): the accumulators stay in
-//   shared memory (a bundled key at N = 2048: on r2, below); each round
+//   shared memory (where nothing else fits, on r2, below); each round
 //   writes X^t acc - acc + gadget offset once into shared memory, and the
 //   forward transforms cut their digits out of it.
 //   A bundled round (the JAX package's bundle == 2 body) writes three
@@ -120,44 +123,50 @@
 //
 // Shared memory (dynamic, opted in with cudaFuncSetAttribute; a block may
 // have 232,448 B), stage tables / exchange / accumulators and differences /
-// digit rows and MAC sums (uint16, aliased) / results of all primes but the
-// last, beyond one wave of blocks (kernels.k4_layout mirrors the rule):
+// digit rows and the last prime's MAC sums (uint16) / the other primes' MAC
+// sums, beyond one wave of blocks (kernels.k4_layout mirrors the rule):
 //   small_v2_tpu, N 1024, 12 rows, G 2:   32 + 68 + 32 + 48 + 32 KB = 217,088 B
 //   small_v2, 20 rows in chunks of 12, G 2:
 //                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
-//   small, three primes, 6 rows, G 2, one prime's tables at a time:
+//   small, three primes, 6 rows, G 2, one prime's tables refilled:
 //                                          16 + 68 + 32 + 32 + 64 KB = 217,088 B
-//   bundled small_v2_tpu, 36 rows in chunks of 8, G 2, one prime's tables at a time:
+//   bundled small_v2_tpu, 36 rows in chunks of 8, G 2, one prime's tables refilled:
 //                                          16 + 68 + 64 + 32 + 32 KB = 217,088 B
+//   bundled small_v2_tpu2, 30 rows in chunks of 4, three primes, G 2, one
+//   prime's tables refilled, the three differences only (the accumulators on
+//   r2), the chunk's digit rows only (the last prime's sums on the differences):
+//                                          16 + 68 + 48 + 16 + 64 KB = 217,088 B
 //   small_v2_n2048, N 2048, chunks of 12, G 1, one prime's tables refilled:
 //                                          32 + 68 + 32 + 48 + 32 KB = 217,088 B
-//   bundled small_v2_tpu2, 30 rows in chunks of 16, three primes, G 1:
-//                                          48 + 68 + 32 + 32 + 32 KB = 217,088 B
 //   bundled small_v2_n2048, 60 rows in chunks of 8, G 1, one prime's tables
 //   refilled, the three differences only (the accumulators on r2):
 //                                          32 + 68 + 48 + 32 + 32 KB = 217,088 B
-// At N = 2048 the words change hands within a prime as follows: the table
+// Within a prime the words change hands as follows: a one-prime table
 // region's forward half is read by the forward transforms and refilled
 // during the last chunk's MAC, its inverse half read by the inverse
 // transforms and refilled from the next prime's start; the exchange buffers
-// are the transforms' x0/x1 and the ring's two slots (slot 0 on x0 from the
-// last forward batch's pass C, slot 1 on x1 after the barrier that ends it,
-// both free again at the chunk's last barrier); r1 holds the chunk's digit
-// rows, then the MAC sums; r2 the first prime's inverse results (bundled:
-// the accumulators between rounds).
-// A bundled round at N = 2048 with the accumulators in their own words would
-// take 233,472 B at the smallest chunk, 1,024 over what a block may have; r2
-// is idle between rounds, so the accumulators lie there, and in a round each
-// thread carries the eight words it adds to in registers from before the
-// differences are written until after the CRT has read r2 (Smem::ALIAS; no
-// other instance takes it).  Two ciphertexts of the last three do not fit
-// (299,008 and 249,856 B at the smallest chunk with one prime's tables for
-// the first two); a cluster of two blocks, one ciphertext each, that loaded
-// each key row once for both by a multicast bulk copy was slower than one a
-// block on the H100 (PERF.md), so they run one a block.  Up to one wave of
-// blocks every set runs one a block (small_v2 176,128 B with all 20 rows,
-// small 184,320, bundled small_v2_tpu 225,280).  One block of 16 warps per
-// SM (124-128 registers a thread).
+// are the transforms' x0/x1 and the ring's slots (those on x0 from the last
+// forward batch's pass C, the others after the barrier that ends it, all
+// free again at the chunk's last barrier); r1 holds the chunk's digit rows,
+// then the last prime's MAC sums; r2 the other primes' sums, each inverted
+// in place (where it holds them, the accumulators between rounds).
+// The layout is the first of the following that fits at the smallest
+// chunk (Smem): every prime's tables; one prime's, refilled; the
+// accumulators on r2 as well, each thread carrying the words it adds to in
+// registers from before the differences are written until after the CRT has
+// read r2 (Smem::ALIAS: a bundled round at N = 2048, 233,472 B with them in
+// their own words, 1,024 over what a block may have); the last prime's MAC
+// sums on the round's differences as well, dead once that prime's last
+// forward transforms have cut their digits, so that r1 holds only the
+// chunk's rows (Smem::ON_DIFF: bundled small_v2_tpu2 at two a block,
+// 233,472 B with r1 holding the sums).  At N = 2048 two ciphertexts do not
+// fit (266,240 and 282,624 B at the smallest chunk); a cluster of two
+// blocks, one ciphertext each, that loaded each key row once for both by a
+// multicast bulk copy was slower than one a block on the H100 (PERF.md),
+// so they run one a block.  Up to one wave of blocks every set runs one a
+// block (small_v2 176,128 B with all 20 rows, small 184,320, bundled
+// small_v2_tpu 225,280, bundled small_v2_tpu2 217,088 in chunks of 16).
+// One block of 16 warps per SM (124-128 registers a thread).
 //
 // Bound on this card: int32 instructions in the transforms, and in the MAC
 // the rate at which the ring brings key rows from L2 into shared memory.
@@ -167,9 +176,10 @@
 // every key row of every round from L2, and the ring moves them at 5.4e12
 // B/s with 4-byte copies (8.5e12 with 8-byte ones at N = 2048;
 // tools/l2_rate.py), which is why a key row loaded once for two ciphertexts
-// pays.  At N = 2048, with the rows copied past L1 in 16-byte runs, the MAC
-// runs at its own instruction floor and the whole kernel at 93-95% of its
-// int32 floor (tools/k4_spans.py times each phase of a block).  PERF.md has
+// pays.  With the rows copied past L1 in 16-byte runs the MAC runs near its
+// own instruction floor at N = 2048 (tools/k4_spans.py times each phase of
+// a block), and the transforms, bound by int32 issue, take most of the
+// time at every N.  PERF.md has
 // the instruction count read from the SASS (scripts/sass_count.py), the
 // floor it gives at 64 int32 lanes an SM, and the measured times.
 //
@@ -245,16 +255,28 @@ template <int K>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(K) : "memory");
 }
+// The same for K = min(k, R - 1), k >= 0 (uniform over the block).
+template <int R>
+__device__ __forceinline__ void cp_async_wait_upto(int k) {
+  if constexpr (R > 1) {
+    if (k >= R - 1)
+      cp_async_wait<R - 1>();
+    else
+      cp_async_wait_upto<R - 1>(k);
+  } else {
+    cp_async_wait<0>();
+  }
+}
 
 // Geometry of one transform and of a block: L threads a polynomial, thread t
 // of them holds 16 coefficients.  Pass A: positions t + L*k.  Pass B:
 // L*b + j + S*k with t = b*S + j.  Pass C: runs of max(4, S) consecutive
 // coefficients.  A block transforms POLYS polynomials at once with T threads;
 // outside the transforms a thread owns E consecutive coefficients of every
-// polynomial.  At N = 2048 a block has 4 polynomials (8 would need 1,024
-// threads and twice the registers an SM has), a ring of 2 BK rows on the x0
-// and x1 halves (ring()), and the stage tables of one prime at a time,
-// refilled half by half off the block's path (refill_half).
+// polynomial (in the MAC only at two ciphertexts a block).  At N = 2048 a block has 4 polynomials
+// (8 would need 1,024 threads and twice the registers an SM has) and a ring
+// of 2 BK rows, elsewhere 8 and a ring of 4; the ring's slots lie on the
+// exchange buffers' halves, the first EARLY of them on the x0 halves.
 template <int N>
 struct Geo {
   static constexpr int L = N / kPer;    // threads a polynomial (64 at N = 1024)
@@ -265,21 +287,25 @@ struct Geo {
   static constexpr int T = POLYS * L;   // threads a block: N/2, or N/4 at 2048
   static constexpr int E = N / T;       // 2, or 4 at 2048
   static constexpr int RING = N <= 1024 ? 4 : 2;  // BK rows in flight in the MAC
-  static constexpr bool RESIDENT = N <= 1024;  // every prime's stage tables stay
+  static constexpr int EARLY = POLYS / 4;  // ring slots on the x0 halves
+  static constexpr bool RESIDENT = N <= 1024;  // every prime's stage tables may stay
   static constexpr int XW = N + kPer * S;  // words of one exchange buffer
   static_assert(S == 1 || S == 2 || S == 4 || S == 8, "N is 256, 512, 1024 or 2048");
-  static_assert(RING * 8 * N * 2 <= POLYS * 2 * XW * 4, "the BK ring fits the exchange buffers");
+  static_assert(RING * 4 == POLYS * 2 && N <= XW, "a slot takes four halves of two limbs each");
   // exchange address of coefficient `pos`: S words of padding every L
   __device__ static __forceinline__ int addr(int pos) { return pos + ((pos >> LOG_L) << LOG_S); }
-  // First word of limb polynomial o (0..7) of ring slot s, N/2 words of
-  // residue pairs.  At N = 2048 slot s lies on the x_s halves of the four
-  // polynomials' exchange buffers, two limb polynomials each (2 * N/2 <= XW
-  // words), so slot 0 is free as soon as pass B has read x0; elsewhere the
-  // slots follow one another.
-  __host__ __device__ static constexpr int ring(int s, int o) {
-    return N == 2048 ? (o >> 1) * 2 * XW + s * XW + (o & 1) * (N / 2) : (s * 8 + o) * (N / 2);
+  // The BK ring: limb polynomial o (0..7) of slot s, N/2 words of residue
+  // pairs, starts at word slot(s) + limb(o).  Slot s takes halves 4s ..
+  // 4s + 3 in the order x0 of every polynomial, then x1 of every polynomial,
+  // two limb polynomials a half (2 * N/2 <= XW words).  So slots 0 .. EARLY - 1
+  // lie on x0, free as soon as pass B of the last forward transforms has
+  // read it: a chunk's first EARLY key rows fly during pass C.
+  __host__ __device__ static constexpr int slot(int s) {
+    return (4 * s % POLYS) * 2 * XW + (4 * s / POLYS) * XW;
   }
-  static_assert(N != 2048 || (RING == 2 && POLYS == 4 && N <= XW), "two slots on x0 and x1");
+  __host__ __device__ static constexpr int limb(int o) {
+    return (o >> 1) * 2 * XW + (o & 1) * (N / 2);
+  }
 };
 
 // Four forward (decimation in frequency) stages on v[16]: pairs k, k + D for
@@ -334,7 +360,7 @@ __device__ __forceinline__ void inv_stages(uint32_t (&v)[kPer], const uint2* tab
 // polynomial's exchange buffers.  Every thread of the block calls this
 // (two __syncthreads() inside); `active` is uniform over the L threads.
 // after_b() runs in every thread after the second barrier, where no thread
-// reads any polynomial's x0 again (K4 at N = 2048 starts a key row there).
+// reads any polynomial's x0 again (K4 starts a chunk's first key rows there).
 struct NoHook {
   __device__ __forceinline__ void operator()() const {}
 };
@@ -605,20 +631,22 @@ __device__ __forceinline__ uint32_t crt3(uint32_t c0, uint32_t c1, uint32_t c2, 
 
 // Shared memory of G ciphertexts of a block, P primes, D differences a
 // round (1, or 3 for a bundled round), digit rows transformed and multiplied
-// `cr` at a time; all offsets are multiples of 16 bytes.
-// r1 holds a chunk's G * cr digit rows, then the G * 8 MAC sums.
+// `cr` at a time; all offsets are multiples of 16 bytes.  r1 holds a chunk's
+// G * cr digit rows and then, unless they lie on the differences (on_diff),
+// the last prime's G * 8 MAC sums.
 template <int G>
-__host__ __device__ constexpr int r1_rows(int cr) {
-  return G * (cr > 8 ? cr : 8);
+__host__ __device__ constexpr int r1_rows(int cr, bool on_diff) {
+  return G * (on_diff || cr > 8 ? cr : 8);
 }
 
-// Bytes of Smem<N, G, P, D> with the stage tables of tp primes and the
-// accumulators in their own words (alias false) or on r2 (true).
+// Bytes of Smem<N, G, P, D> with the stage tables of tp primes, the
+// accumulators in their own words (alias false) or on r2 (true), and the
+// last prime's MAC sums in r1 (on_diff false) or on the differences (true).
 template <int N, int G, int P, int D>
-__host__ __device__ constexpr size_t smem_bytes(int tp, int cr, bool alias) {
+__host__ __device__ constexpr size_t smem_bytes(int tp, int cr, bool alias, bool on_diff) {
   return sizeof(uint2) * tp * 2 * N +
          sizeof(uint32_t) * (Geo<N>::POLYS * 2 * Geo<N>::XW + (alias ? D : 1 + D) * G * 2 * N) +
-         sizeof(uint16_t) * (static_cast<size_t>(r1_rows<G>(cr)) * N +
+         sizeof(uint16_t) * (static_cast<size_t>(r1_rows<G>(cr, on_diff)) * N +
                              static_cast<size_t>(P - 1) * G * 8 * N);
 }
 
@@ -626,27 +654,36 @@ template <int N, int G, int P, int D>
 struct Smem {
   using Ge = Geo<N>;
   static constexpr int SMALLEST = Ge::POLYS / G;  // the smallest chunk of digit rows
-  // Every prime's stage tables stay where they fit beside the smallest chunk
-  // of digit rows; else one prime's at a time, staged again for every prime
-  // of every round (N = 2048; G = 2 at three primes or a bundled round)
+  // The first of these layouts that fits at the smallest chunk of digit
+  // rows, each giving up one more region of its own:
+  // * every prime's stage tables stay (N <= 1024);
+  // * one prime's at a time (RES false), each half refilled with the next
+  //   prime's by cp.async as soon as it is dead (refill_half);
+  // * the accumulators on r2, which is idle between rounds (ALIAS): in a
+  //   round each thread carries the accumulator words it adds to in
+  //   registers from before the differences are written until the CRT has
+  //   read r2;
+  // * the last prime's MAC sums on the differences, dead once that prime's
+  //   last forward transforms have cut their digits (ON_DIFF; a bundled
+  //   round's three differences hold them: 3 * G * 2 * N words against
+  //   G * 8 * N halves), so that r1 holds only the chunk's digit rows.
   static constexpr bool RES =
-      Ge::RESIDENT && smem_bytes<N, G, P, D>(P, SMALLEST, false) <= kMaxSmem;
+      Ge::RESIDENT && smem_bytes<N, G, P, D>(P, SMALLEST, false, false) <= kMaxSmem;
   static constexpr int TP = RES ? P : 1;  // primes whose tables stay
-  // Where even that does not fit at the smallest chunk, the accumulators lie
-  // on r2, which is idle between rounds: in a round each thread carries the
-  // accumulator words it adds to in registers from before the differences
-  // are written until the CRT has read r2 (a bundled round at N = 2048)
-  static constexpr bool ALIAS = smem_bytes<N, G, P, D>(TP, SMALLEST, false) > kMaxSmem &&
-                                smem_bytes<N, G, P, D>(TP, SMALLEST, true) <= kMaxSmem;
+  static constexpr bool ALIAS = smem_bytes<N, G, P, D>(TP, SMALLEST, false, false) > kMaxSmem;
+  static constexpr bool ON_DIFF =
+      D == 3 && ALIAS && smem_bytes<N, G, P, D>(TP, SMALLEST, true, false) > kMaxSmem;
   static_assert((P - 1) * G * 8 * N * 2 >= G * 2 * N * 4, "r2 holds the accumulators");
+  static_assert(!ON_DIFF || D * G * 2 * N * 4 >= G * 8 * N * 2, "the differences hold the sums");
   uint2* stage;     // [TP][2: forward, inverse][N]
   uint32_t* ex;     // [POLYS][2][XW] exchange buffers, the BK ring in the MAC
   uint32_t* acc;    // [G][2][N] accumulators (unused by external_product); on r2 if ALIAS
   uint32_t* diff;   // [G][D][2][N] X^t acc - acc + gadget offset (likewise)
-  uint16_t* r1;     // [G * max(cr, 8)][N]: digit rows in the NTT domain, then MAC sums
-  uint16_t* r2;     // [P - 1][G * 8][N]: the inverse transforms of all primes but the last
+  uint16_t* r1;     // [r1_rows][N]: the chunk's digit rows in the NTT domain, the last prime's sums
+  uint16_t* r2;     // [P - 1][G * 8][N]: the MAC sums of all primes but the last, inverted in place
+  uint16_t* last;   // [G * 8][N]: the last prime's MAC sums, inverted in place (r1 or diff)
   __host__ __device__ static constexpr size_t bytes(int cr) {
-    return smem_bytes<N, G, P, D>(TP, cr, ALIAS);
+    return smem_bytes<N, G, P, D>(TP, cr, ALIAS, ON_DIFF);
   }
   __device__ Smem(unsigned char* base, int cr) {
     stage = reinterpret_cast<uint2*>(base);
@@ -654,19 +691,20 @@ struct Smem {
     acc = ex + Ge::POLYS * 2 * Ge::XW;
     diff = ALIAS ? acc : acc + G * 2 * N;
     r1 = reinterpret_cast<uint16_t*>(diff + D * G * 2 * N);
-    r2 = r1 + static_cast<size_t>(r1_rows<G>(cr)) * N;
+    r2 = r1 + static_cast<size_t>(r1_rows<G>(cr, ON_DIFF)) * N;
+    last = ON_DIFF ? reinterpret_cast<uint16_t*>(diff) : r1;
     if (ALIAS) acc = reinterpret_cast<uint32_t*>(r2);
   }
 };
 
-// Copy the forward and inverse stage tables of primes pi0 .. pi0 + np - 1
-// into shared memory.  tabs: uint2 [P][4][N] in global memory.  Ends with a
+// Copy the forward and inverse stage tables of primes 0 .. np - 1 into
+// shared memory.  tabs: uint2 [P][4][N] in global memory.  Ends with a
 // barrier.
 template <int N>
 __device__ __forceinline__ void stage_tables(uint2* stage, const uint2* __restrict__ tabs,
-                                             int pi0, int np) {
+                                             int np) {
   for (int i = threadIdx.x; i < np * 2 * N; i += Geo<N>::T) {
-    const int pi = pi0 + i / (2 * N), dir = (i / N) & 1, k = i & (N - 1);
+    const int pi = i / (2 * N), dir = (i / N) & 1, k = i & (N - 1);
     stage[i] = tabs[(pi * 4 + 1 + 2 * dir) * N + k];
   }
   __syncthreads();
@@ -700,7 +738,7 @@ __device__ __forceinline__ void refill_half(uint2* stage, const uint2* __restric
 // i * prime_stride elements further.  On return delta[g][u][e] holds
 // coefficient E*tid + e.  The caller puts a barrier between its own
 // shared-memory writes and this call; after its last barrier the function
-// only reads r1 and r2.
+// only reads r2 and sm.last.
 template <int N, int G, int P, int D, class DigitFn>
 __device__ __forceinline__ void external_product_block(
     const DigitFn& digit, int rows, int cr, const int16_t* __restrict__ bk,
@@ -708,69 +746,67 @@ __device__ __forceinline__ void external_product_block(
     const Smem<N, G, P, D>& sm, uint32_t (&delta)[G][2][Geo<N>::E]) {
   using Ge = Geo<N>;
   using S = Smem<N, G, P, D>;
-  constexpr int E = Ge::E, RING = Ge::RING;
+  constexpr int E = Ge::E, RING = Ge::RING, EARLY = Ge::EARLY;
+  // The key ring: each thread copies coefficients cb .. cb + 7 of the E limb
+  // polynomials HG * q + h (q < E) of a key row, 16 contiguous bytes each;
+  // LS lanes of a warp share h and cover 8 * LS coefficients.  At one
+  // ciphertext a block (RUNS) it multiplies just those (the digits and the
+  // sums likewise in 16-byte runs); at two (N <= 1024) it multiplies
+  // coefficients E*tid .. E*tid + E - 1 of all eight limb polynomials, which
+  // its warp's lanes copied (a __syncwarp after the wait and before a slot's
+  // refill), so that a digit it loads serves eight products, not E.
+  constexpr int HG = 8 / E, LS = 32 / HG;
+  constexpr bool RUNS = G == 1;
+  static_assert(RUNS || E == 2, "two ciphertexts a block at N <= 1024 only");
   const int tid = threadIdx.x;
   const int grp = tid / Ge::L;
   uint32_t* x0 = sm.ex + grp * 2 * Ge::XW;
   uint32_t* x1 = x0 + Ge::XW;
+  const int h = (tid & 31) / LS;
+  const int cb = (tid >> 5) * 8 * LS + 8 * (tid & (LS - 1));
+  const uint32_t* ring = sm.ex + Ge::limb(h) + cb / 2;  // limb HG * q + h is q * HG * XW further
+  const uint32_t ring_addr = shared_address(ring);
+  const uint16_t* ringw = reinterpret_cast<const uint16_t*>(sm.ex + tid);  // E == 2: word tid
 #pragma unroll 1
   for (int pi = 0; pi < P; ++pi) {
     const Mod md = crt_mod(crt, pi);
     const uint32_t p = md.p;
     const uint2* tab = tabs + pi * 4 * N;
     const uint2* stage = sm.stage + (S::RES ? pi * 2 * N : 0);
-    if constexpr (N == 2048) {
+    if constexpr (!S::RES) {
       // the inverse half holds the last prime's table, dead since the
       // barrier that ended its inverse transforms: this prime's lands during
       // the forward transforms, and the MAC's first wait covers it
       refill_half<N>(sm.stage, tabs, pi, 1);
       cp_async_commit();
-    } else if (!S::RES) {
-      stage_tables<N>(sm.stage, tabs, pi, 1);
     }
     const uint32_t bias = digit.small_bias(p);
-    // MAC accumulators: this thread's coefficients E*tid .. E*tid + E - 1 of
-    // all 8 outputs and G ciphertexts, each BK residue fetched once for all
-    // G.  `lazy` products of residues fit a uint32 beside a carried value
-    // < 2p, so the sums are reduced (to [0, 2p)) only before the product
-    // that would not fit, and at the end.
-    uint32_t a[G][8][E];
+    // MAC accumulators of ciphertext g: a[g][8 * q + e] sums coefficient
+    // cb + e of limb polynomial HG * q + h (RUNS), else a[g][E * o + e]
+    // coefficient E*tid + e of limb polynomial o; each BK residue is fetched
+    // once for all G.  `lazy` products of residues fit a uint32 beside a
+    // carried value < 2p, so the sums are reduced (to [0, 2p)) only before
+    // the product that would not fit, and at the end.
+    uint32_t a[G][8 * E];
 #pragma unroll
     for (int g = 0; g < G; ++g)
 #pragma unroll
-      for (int o = 0; o < 8; ++o)
-#pragma unroll
-        for (int e = 0; e < E; ++e) a[g][o][e] = 0u;
+      for (int k = 0; k < 8 * E; ++k) a[g][k] = 0u;
     const int lazy = crt_lazy(crt, pi);
     int pending = 0;
     // The exchange buffers are idle in the MAC and serve as a ring of RING
-    // rows of BK (slot s, limb polynomial o at word Ge::ring(s, o)): a
-    // thread copies the words it will itself read (so no barrier),
-    // asynchronously and RING - 1 rows ahead of the row it multiplies, which
-    // keeps the L2 latency out of the loop.  At N = 2048 a
-    // thread owns in the MAC coefficients cb .. cb + 7 of the four limb
-    // polynomials o = 2q + h (h: the half of its warp), so its words of a
-    // limb polynomial are 16 contiguous bytes, copied by one cp.async.cg
-    // (past L1); a[0][2q + e / 4][e % 4] sums coefficient cb + e of o.
-    // Elsewhere it owns E*tid .. E*tid + E - 1 of all eight.
-    const int h = (tid & 31) >> 4;
-    const int cb = N == 2048 ? 2 * ((tid >> 5) * 64 + 4 * (tid & 15)) : E * tid;
-    const int own = N == 2048 ? cb / 2 + h * (N / 2) : tid * (E / 2);  // first ring word
-    const uint32_t* bkw = reinterpret_cast<const uint32_t*>(bk + pi * prime_stride) + own;
-    uint32_t* ring = sm.ex + own;
-    const uint16_t* ringh = reinterpret_cast<const uint16_t*>(ring);
-    const uint32_t ring_addr = shared_address(ring);
-    const auto fetch = [&](int row, int slot) {  // slot is a constant where this is called
+    // rows of BK (Geo::slot, Geo::limb): a thread copies E runs of 16 bytes
+    // a row, each by one cp.async.cg, which keeps the rows out of L1, where
+    // the transforms read their twists; RING - 1 rows ahead of the row it
+    // multiplies, which keeps the L2 latency out of the loop, and no block
+    // barrier: a thread reads only its own words (RUNS) or its warp's.
+    const uint32_t* bkw = reinterpret_cast<const uint32_t*>(bk + pi * prime_stride) +
+                          h * (N / 2) + cb / 2;
+    const auto fetch = [&](int row, int s) {  // s is a constant where this is called
       const uint32_t* src = bkw + row * 8 * (N / 2);
-      if constexpr (N == 2048) {
-        static_assert(G == 1 && E == 4 && Ge::T == 512, "512 threads, 8 coefficients of 4 polynomials");
 #pragma unroll
-        for (int q = 0; q < 4; ++q) cp_async<16>(ring_addr + 4u * Ge::ring(slot, 2 * q), src + q * N);
-      } else {
-#pragma unroll
-        for (int o = 0; o < 8; ++o)
-          cp_async<2 * E>(ring_addr + 4u * Ge::ring(slot, o), src + o * (N / 2));
-      }
+      for (int q = 0; q < E; ++q)
+        cp_async<16>(ring_addr + 4u * (Ge::slot(s) + q * HG * Ge::XW), src + q * HG * (N / 2));
       cp_async_commit();
     };
 
@@ -784,11 +820,15 @@ __device__ __forceinline__ void external_product_block(
         const int q = q0 + grp;
         const int g = q / cn, j = c0 + q - g * cn;
         uint16_t* slot = sm.r1 + static_cast<size_t>(q) * N;
-        // at N = 2048 the chunk's first key row flies into ring slot 0 (the
-        // x0 halves) during pass C of the chunk's last forward batch
-        const bool last_batch = N == 2048 && q0 + Ge::POLYS >= G * cn;
-        const auto start_row = [&] {
-          if (last_batch) fetch(c0, 0);
+        // the chunk's first EARLY key rows fly into the slots on the x0
+        // halves during pass C of the chunk's last forward batch
+        const bool last_batch = q0 + Ge::POLYS >= G * cn;
+        const auto start_rows = [&] {
+          if (last_batch) {
+#pragma unroll
+            for (int r = 0; r < EARLY; ++r)
+              if (r < cn) fetch(c0 + r, r);
+          }
         };
         const auto store = [&](int pos, uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
           *reinterpret_cast<uint2*>(slot + pos) = make_uint2(a | (b << 16), c | (d << 16));
@@ -800,69 +840,64 @@ __device__ __forceinline__ void external_product_block(
               [&](int pos, uint2 tw) {
                 return static_cast<uint32_t>(digit(g, j, pos)) * tw.x + bias;
               },
-              store, q < G * cn, tab, stage, x0, x1, md, 2 * bias, start_row);
+              store, q < G * cn, tab, stage, x0, x1, md, 2 * bias, start_rows);
         } else {
           ntt_fwd<N>(
               [&](int pos, uint2 tw) {
                 const int d = digit(g, j, pos);
                 return shoup(static_cast<uint32_t>(d < 0 ? d + static_cast<int>(p) : d), tw, p);
               },
-              store, q < G * cn, tab, stage, x0, x1, md, 2 * p, start_row);
+              store, q < G * cn, tab, stage, x0, x1, md, 2 * p, start_rows);
         }
       }
       __syncthreads();
 
-      // MAC over the chunk's rows
-      if constexpr (N == 2048) {
-        // row c0 is in flight.  After the prime's last forward transforms
-        // (the barrier above) the forward half of the tables is dead: the
-        // next prime's table (the next round's first) rides with row c0 + 1
-        if (c0 + cn == rows) refill_half<N>(sm.stage, tabs, pi + 1 < P ? pi + 1 : 0, 0);
-        if (cn > 1)
-          fetch(c0 + 1, 1);
-        else
-          cp_async_commit();
-      } else {
+      // MAC over the chunk's rows.  Rows c0 .. c0 + EARLY - 1 are in flight.
+      // After the prime's last forward transforms (the barrier above) the
+      // forward half of the tables is dead: the next prime's table (the next
+      // round's first) rides with the chunk's next row, or alone
+      const bool refill = !S::RES && c0 + cn == rows;
+      if (refill) refill_half<N>(sm.stage, tabs, pi + 1 < P ? pi + 1 : 0, 0);
 #pragma unroll
-        for (int r = 0; r < RING; ++r)
-          if (r < cn) fetch(c0 + r, r);
-      }
+      for (int r = EARLY; r < RING; ++r)
+        if (r < cn) fetch(c0 + r, r);
+      if (refill && cn <= EARLY) cp_async_commit();
 #pragma unroll 1
       for (int j0 = 0; j0 < cn; j0 += RING) {
 #pragma unroll
         for (int jj = 0; jj < RING; ++jj) {
           const int j = j0 + jj;
           if (j < cn) {
-            // rows j .. min(j + RING - 1, cn - 1) are in flight: row j must have landed
-            if (j + RING - 1 < cn)
-              cp_async_wait<RING - 1>();
-            else
-              cp_async_wait<0>();
+            // rows j .. min(j + RING - 1, cn - 1) are in flight, the table's
+            // refill with them: row j must have landed
+            cp_async_wait_upto<RING>(cn - 1 - j);
             if (pending == lazy) {
 #pragma unroll
               for (int g = 0; g < G; ++g)
 #pragma unroll
-                for (int o = 0; o < 8; ++o)
-#pragma unroll
-                  for (int e = 0; e < E; ++e) a[g][o][e] = reduce_2p(a[g][o][e], md);
+                for (int k = 0; k < 8 * E; ++k) a[g][k] = reduce_2p(a[g][k], md);
               pending = 0;
             }
             ++pending;
-            if constexpr (N == 2048) {
+            if constexpr (RUNS) {
               const uint4 dq = *reinterpret_cast<const uint4*>(sm.r1 + j * N + cb);
               const uint32_t dw[4] = {dq.x, dq.y, dq.z, dq.w};
+              uint32_t d[8];
 #pragma unroll
-              for (int q = 0; q < 4; ++q) {
-                const uint4 wq = *reinterpret_cast<const uint4*>(ring + Ge::ring(jj, 2 * q));
+              for (int e = 0; e < 8; ++e) d[e] = e & 1 ? dw[e / 2] >> 16 : dw[e / 2] & 0xffffu;
+#pragma unroll
+              for (int q = 0; q < E; ++q) {
+                const uint4 wq =
+                    *reinterpret_cast<const uint4*>(ring + Ge::slot(jj) + q * HG * Ge::XW);
                 const uint32_t ww[4] = {wq.x, wq.y, wq.z, wq.w};
 #pragma unroll
                 for (int e = 0; e < 8; ++e) {
-                  const uint32_t d = e & 1 ? dw[e / 2] >> 16 : dw[e / 2] & 0xffffu;
                   const uint32_t w = e & 1 ? ww[e / 2] >> 16 : ww[e / 2] & 0xffffu;
-                  a[0][2 * q + e / 4][e % 4] += d * w;
+                  a[0][8 * q + e] += d[e] * w;
                 }
               }
             } else {
+              __syncwarp();  // the warp's copies of row j have all landed
               uint32_t d[G][E];
 #pragma unroll
               for (int g = 0; g < G; ++g)
@@ -872,69 +907,62 @@ __device__ __forceinline__ void external_product_block(
               for (int o = 0; o < 8; ++o)
 #pragma unroll
                 for (int e = 0; e < E; ++e) {
-                  const uint32_t w = ringh[2 * Ge::ring(jj, o) + e];
+                  const uint32_t w = ringw[2 * (Ge::slot(jj) + Ge::limb(o)) + e];
 #pragma unroll
-                  for (int g = 0; g < G; ++g) a[g][o][e] += d[g][e] * w;
+                  for (int g = 0; g < G; ++g) a[g][E * o + e] += d[g][e] * w;
                 }
             }
-            // Refill the slot this thread has just read (nobody else touches
-            // these words).  Read-then-asynchronous-write is safe: the "memory"
+            // Refill the slot just read: with RUNS nobody else touches this
+            // thread's words; else its warp's lanes have read them after the
+            // __syncwarp.  Read-then-asynchronous-write is safe: the "memory"
             // clobber of cp_async keeps the compiler from moving the copy
-            // above the loads of `w`, the SM issues a thread's shared loads and
-            // its cp.async through one in-order pipe, and a load has picked its
-            // data up long before the copy's global read can come back to write.
-            if (j + RING < cn) fetch(c0 + j + RING, jj);
+            // above the loads of the row, the SM issues a thread's shared loads
+            // and its cp.async through one in-order pipe, and a load has picked
+            // its data up long before the copy's global read can come back.
+            if (j + RING < cn) {
+              if constexpr (!RUNS) __syncwarp();
+              fetch(c0 + j + RING, jj);
+            }
           }
         }
       }
       __syncthreads();  // the chunk's digit rows and the ring are free again
     }
-    // the MAC sums become r1's first G * 8 rows, below 2p < 2^16 each (below
-    // p for a prime above 2^15, so that they fit 16 bits)
+    // the MAC sums go where they are inverse-transformed: r2 for all primes
+    // but the last, sm.last for the last; below 2p < 2^16 each (below p for
+    // a prime above 2^15, so that they fit 16 bits)
+    uint16_t* sums = pi == P - 1 ? sm.last : sm.r2 + static_cast<size_t>(pi) * G * 8 * N;
     const bool wide = p >= (1u << 15);
-    if constexpr (N == 2048) {  // coefficients cb .. cb + 7 of polynomials 2q + h
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        uint32_t f[8];
+    for (int g = 0; g < G; ++g) {
+      uint32_t f[8 * E];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const uint32_t x = a[0][2 * q + e / 4][e % 4];
-          f[e] = wide ? reduce(x, md) : reduce_2p(x, md);
-        }
-        *reinterpret_cast<uint4*>(sm.r1 + (2 * q + h) * N + cb) =
-            make_uint4(f[0] | (f[1] << 16), f[2] | (f[3] << 16), f[4] | (f[5] << 16),
-                       f[6] | (f[7] << 16));
+      for (int k = 0; k < 8 * E; ++k) f[k] = wide ? reduce(a[g][k], md) : reduce_2p(a[g][k], md);
+#pragma unroll
+      for (int k = 0; k < 8 * E; k += 8) {
+        if constexpr (RUNS)  // coefficients cb .. cb + 7 of limb polynomial HG * q + h
+          *reinterpret_cast<uint4*>(sums + (HG * (k / 8) + h) * N + cb) =
+              make_uint4(f[k] | (f[k + 1] << 16), f[k + 2] | (f[k + 3] << 16),
+                         f[k + 4] | (f[k + 5] << 16), f[k + 6] | (f[k + 7] << 16));
+        else  // coefficients E*tid, E*tid + 1 of limb polynomials k/2 .. k/2 + 3
+#pragma unroll
+          for (int o = k / 2; o < k / 2 + 4; ++o)
+            *reinterpret_cast<uint32_t*>(sums + (g * 8 + o) * N + E * tid) =
+                f[E * o] | (f[E * o + 1] << 16);
       }
-    } else {
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int o = 0; o < 8; ++o) {
-          uint32_t f[E];
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            f[e] = wide ? reduce(a[g][o][e], md) : reduce_2p(a[g][o][e], md);
-          uint32_t* w = reinterpret_cast<uint32_t*>(sm.r1 + (g * 8 + o) * N + E * tid);
-#pragma unroll
-          for (int e = 0; e < E; e += 2) w[e / 2] = f[e] | (f[e + 1] << 16);
-        }
     }
     __syncthreads();
 
-    // inverse transforms of the G * 8 sums; the last prime's stay in place,
-    // the others go to r2
+    // inverse transforms of the G * 8 sums, in place
 #pragma unroll 1
     for (int q0 = 0; q0 < G * 8; q0 += Ge::POLYS) {
-      const int q = q0 + grp;
-      const uint16_t* src = sm.r1 + static_cast<size_t>(q) * N;
-      uint16_t* dst = (pi == P - 1 ? sm.r1 : sm.r2 + static_cast<size_t>(pi) * G * 8 * N) +
-                      static_cast<size_t>(q) * N;
+      uint16_t* row = sums + static_cast<size_t>(q0 + grp) * N;
       ntt_inv<N>(
           [&](int pos) {
-            const uint2 w = *reinterpret_cast<const uint2*>(src + pos);
+            const uint2 w = *reinterpret_cast<const uint2*>(row + pos);
             return make_uint4(w.x & 0xffffu, w.x >> 16, w.y & 0xffffu, w.y >> 16);
           },
-          [&](int pos, uint32_t v) { dst[pos] = static_cast<uint16_t>(v); },
+          [&](int pos, uint32_t v) { row[pos] = static_cast<uint16_t>(v); },
           true, tab + 2 * N, stage + N, x0, x1, md);
     }
     __syncthreads();
@@ -953,9 +981,9 @@ __device__ __forceinline__ void external_product_block(
         const int k = (g * 8 + o) * N + E * tid + e;
         uint32_t v;
         if constexpr (P == 2)
-          v = crt2(sm.r2[k], sm.r1[k], crt);
+          v = crt2(sm.r2[k], sm.last[k], crt);
         else
-          v = crt3(sm.r2[k], sm.r2[G * 8 * N + k], sm.r1[k], crt);
+          v = crt3(sm.r2[k], sm.r2[G * 8 * N + k], sm.last[k], crt);
         delta[g][o / 4][e] += v << (8 * (o % 4));
       }
     }
@@ -1107,7 +1135,7 @@ __global__ void __launch_bounds__(Geo<N>::T) external_product_kernel(
     const uint2* __restrict__ tabs, int32_t* __restrict__ delta_out, int rows, Crt crt) {
   extern __shared__ uint4 smem_raw[];
   const Smem<N, 1, 2, 1> sm(reinterpret_cast<unsigned char*>(smem_raw), rows);
-  stage_tables<N>(sm.stage, tabs, 0, 2);
+  stage_tables<N>(sm.stage, tabs, 2);
   const long long m = blockIdx.x;
   const RowDigits<N> dig{digits + m * rows * N};
   uint32_t delta[1][2][Geo<N>::E];
@@ -1130,7 +1158,7 @@ __global__ void __launch_bounds__(Geo<N>::T) cmux_round_kernel(
   const int tid = threadIdx.x;
   for (int k = tid; k < 2 * N; k += Geo<N>::T)
     sm.acc[k] = static_cast<uint32_t>(acc_in[m * 2 * N + k]);
-  stage_tables<N>(sm.stage, tabs, 0, 2);  // ends with a barrier
+  stage_tables<N>(sm.stage, tabs, 2);  // ends with a barrier
   const int tt[1] = {t[m]};
   rotate_diff<N, 1, 2>(sm, tt, g.offset);
   const GadgetDigits<N, 1> dig{sm.diff, g};
@@ -1170,15 +1198,13 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
       sm.acc[c * 2 * N + k] =
           first + c < B ? static_cast<uint32_t>(acc0[(first + c) * 2 * N + k]) : 0u;
   if constexpr (S::RES) {
-    stage_tables<N>(sm.stage, tabs, 0, P);  // ends with a barrier
-  } else if constexpr (N == 2048) {
+    stage_tables<N>(sm.stage, tabs, P);  // ends with a barrier
+  } else {
     // the launch's one staging: prime 0's forward table (its inverse one
     // comes with the prime's refill)
     refill_half<N>(sm.stage, tabs, 0, 0);
     cp_async_commit();
     cp_async_wait<0>();
-    __syncthreads();
-  } else {
     __syncthreads();
   }
   const GadgetDigits<N, D> dig{sm.diff, g};
@@ -1210,7 +1236,7 @@ __global__ void __launch_bounds__(Geo<N>::T, 1) blind_rotate_kernel(
       rotate_diff3<N, G, P>(sm, ti, tj, g.offset);
     }
     uint32_t delta[G][2][E];
-    // reads sm.diff, never sm.acc, and only r1 and r2 after its last barrier
+    // reads sm.diff, never sm.acc, and only r2 and sm.last after its last barrier
     external_product_block<N, G, P, D>(dig, rows, cr, bk + j * round_stride, prime_stride, tabs,
                                        crt, sm, delta);
     if constexpr (S::ALIAS) {
@@ -1340,15 +1366,16 @@ int k4_chunk(int rows) {
 struct K4Config {
   int G, cr;
   size_t bytes;
-  bool resident;  // every prime's stage tables stay in shared memory
+  bool resident;  // every prime's stage tables stay in shared memory (else one
+                  // prime's, each half refilled off the block's path)
   bool alias;     // the accumulators lie on r2
-  bool refill;    // one prime's tables, each half refilled off the block's path
+  bool on_diff;   // the last prime's MAC sums lie on the differences
 };
 
 template <int N, int G, int P, int D>
 K4Config k4_layout(int cr) {
   using S = Smem<N, G, P, D>;
-  return K4Config{G, cr, S::bytes(cr), S::RES, S::ALIAS, N == 2048};
+  return K4Config{G, cr, S::bytes(cr), S::RES, S::ALIAS, S::ON_DIFF};
 }
 
 template <int N, int P, int D>
@@ -1489,12 +1516,11 @@ int redsec_cmux_round(const int32_t* acc, const int32_t* t, const int16_t* bk,
 // How K4 runs at batch B on a card with `sms` SMs: out[0] ciphertexts a
 // block, out[1] digit rows a chunk, out[2] dynamic shared bytes, out[3] 1
 // where every prime's stage tables stay in shared memory (0: one prime's at
-// a time, staged again for every prime of every round), out[4] the shared
-// bytes two ciphertexts a block would take with all their digit rows and
-// every prime's tables (above what a block may have where they do not fit),
-// out[5] 1 where the accumulators lie on r2 (Smem::ALIAS), out[6] 1 where
-// one prime's tables are refilled by cp.async with the next prime's
-// (N = 2048) instead of staged again behind a barrier.
+// a time, each half refilled by cp.async with the next prime's), out[4] the
+// shared bytes two ciphertexts a block would take with all their digit rows
+// and every prime's tables (above what a block may have where they do not
+// fit), out[5] 1 where the accumulators lie on r2 (Smem::ALIAS), out[6] 1
+// where the last prime's MAC sums lie on the differences (Smem::ON_DIFF).
 // Returns non-zero for a combination without an instance.
 int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, int* out) {
   const int D = bundle == 2 ? 3 : 1;
@@ -1503,7 +1529,7 @@ int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, 
   bool ok = false;
   REDSEC_DISPATCH_K4(N, P, D, {
     ok = k4_config<NN, PP, DD>(B, DD * 2 * l, sms, &cf);
-    bytes2 = smem_bytes<NN, 2, PP, DD>(Geo<NN>::RESIDENT ? PP : 1, DD * 2 * l, false);
+    bytes2 = smem_bytes<NN, 2, PP, DD>(Geo<NN>::RESIDENT ? PP : 1, DD * 2 * l, false, false);
     break;
   });
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -1513,7 +1539,7 @@ int redsec_blind_rotate_config(int B, int N, int l, int P, int bundle, int sms, 
   out[3] = cf.resident;
   out[4] = static_cast<int>(bytes2);
   out[5] = cf.alias;
-  out[6] = cf.refill;
+  out[6] = cf.on_diff;
   return 0;
 }
 

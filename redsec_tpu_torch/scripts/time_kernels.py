@@ -23,7 +23,12 @@ instead, or as well, the four-step kernels on a "matmul" key prepared from
 the same raw key (K2-mm and K3-mm on 64 ciphertexts, K4-mm at 512 and 32 at
 ``small_v2_tpu`` and at 512 at the sets of ``--sets`` that ``supported_mm``
 takes), each held against its twin, and K4-mm at 512 against K4 on the
-radix-2 key where both run.  One JSON line per run ends the output.
+radix-2 key where both run.  ``--forward`` times as well the main path's
+slice: ``mnist/sign1024x1`` with the golden weights of ``tests/golden`` at
+``small_v2_tpu`` on 8 synthetic images (seed 1), one warm-up forward and then
+``FORWARD_REPS`` timed ones (host clock around ``synchronize()``, the key
+prepared beforehand), each with its PBS/s.  One JSON line per run ends the
+output.
 """
 
 from __future__ import annotations
@@ -40,6 +45,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 K4_BATCHES = (512, 32)  # a full PBS chunk and the smallest chunk of the model paths
 K4_REPS = 3
+FORWARD_REPS = 3
+WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(HERE)), "tests", "golden",
+                       "sign1024x1_var_prep_from_ref_wght.dat")
 # S1 shapes (N, digit rows, batch, Bg/2): medium_v2 at both chunk sizes of the
 # sign1024x1 path and a gate's batch, medium, large, large_v2
 S1_SHAPES = ((4096, 8, 512, 128), (4096, 8, 196, 128), (4096, 8, 4, 128),
@@ -57,6 +65,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--flavor", default="radix2",
                     help="comma-separated key flavours whose kernels are timed: radix2 (K1-K4, "
                          "S1), matmul (K2-mm, K3-mm, K4-mm)")
+    ap.add_argument("--forward", action="store_true",
+                    help="also time the sign1024x1 forward at small_v2_tpu on 8 images")
     args = ap.parse_args(argv)
     flavors = set(filter(None, args.flavor.split(",")))
     if not flavors or flavors - {"radix2", "matmul"}:
@@ -169,8 +179,51 @@ def main(argv=None) -> dict:
                           f"{out['schoolbook_twin_ms_N4096_rows8_512']:.4f} ms", flush=True)
     if "matmul" in flavors:
         _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, ms)
+    if args.forward:
+        _time_forward(args, out, P, dkey)
     print(json.dumps(out), flush=True)
     return out
+
+
+def _time_forward(args, out, P, dkey) -> None:
+    """The sign1024x1 forward on 8 images through the checkout's entry
+    points (``build_encrypted_forward``), as ``chip_smoke.py``'s slice runs
+    it: seconds and PBS/s of each timed forward, and K4's launches in one."""
+    import numpy as np
+    import torch
+
+    from redsec_tpu_torch.crypto import keygen as kg
+    from redsec_tpu_torch.device import launches
+    from redsec_tpu_torch.formats.image_io import pixel_transform_for
+    from redsec_tpu_torch.models.spec import prep_model
+    from redsec_tpu_torch.models.zoo import get_model
+    from redsec_tpu_torch.runtime.encrypted import build_encrypted_forward, encrypt_images
+    from redsec_tpu_torch.utils.metrics import summarize
+
+    batch = 8
+    model = get_model("mnist/sign1024x1")
+    mplan = prep_model(model, WEIGHTS)
+    per_image = summarize(mplan)["total_bootstraps"]
+    sk, _ = kg.keygen(P, seed=0)  # the secret key of time_kernels' seed-0 key
+    raw = np.random.default_rng(1).integers(0, 256, size=(batch, 28, 28, 1))
+    fwd = build_encrypted_forward(mplan, dkey)
+    ct = encrypt_images(sk, pixel_transform_for(model.name)(raw), P, np.random.default_rng(2),
+                        gain=fwd.in_gain)
+    fwd(ct)  # warm-up: cuBLAS's handle, the allocator's first blocks
+    secs = []
+    for _ in range(FORWARD_REPS):
+        launches.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(ct)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    k4 = launches.counts.get("blind_rotate", 0)
+    out["forward_sign1024x1_s"] = secs
+    out["forward_sign1024x1_pbs_per_s"] = [batch * per_image / s for s in secs]
+    print(f"{args.tag} forward sign1024x1 ({P.name}, {batch} images x {per_image} PBS, "
+          f"{k4} K4 launches): " + ", ".join(f"{s:.4f} s {batch * per_image / s:.2f} PBS/s"
+                                             for s in secs), flush=True)
 
 
 def _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, ms) -> None:

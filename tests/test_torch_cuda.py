@@ -245,6 +245,43 @@ def test_three_primes_and_bundles_at_n256_and_n512():
         _blind_rotate_equals_twin(params, dkey, 135)
 
 
+# Every K4 instance at N <= 1024 (N, primes, bundle), n cut to 4 rounds:
+# (base set, gadget) giving those primes at that N
+SMALL_N = {(2, 1): ("small_v2_tpu", {}), (2, 2): ("small_v2_tpu", {}),
+           (3, 1): ("small", {}), (3, 2): ("small", {})}
+SMALL_N_INSTANCES = [(N, P_, b) for N in (256, 512, 1024) for P_ in (2, 3) for b in (1, 2)]
+
+
+@pytest.fixture(scope="module")
+def small_n_keys():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return {}
+
+
+@pytest.mark.parametrize("N,primes,bundle", SMALL_N_INSTANCES,
+                         ids=[f"N{N}-P{p}-bundle{b}" for N, p, b in SMALL_N_INSTANCES])
+@pytest.mark.parametrize("batch", [1, 5, 133, 512])
+def test_every_small_n_instance_equals_twin(small_n_keys, N, primes, bundle, batch):
+    """One and two ciphertexts a block, a ragged last block (5, 133), every
+    layout (tables resident or refilled, the last prime's sums on the
+    differences), the key ring's 16-byte runs and early rows, at each N."""
+    import dataclasses
+
+    from redsec_tpu_torch.crypto.params import get_params
+
+    if (N, primes, bundle) not in small_n_keys:
+        name, kw = SMALL_N[(primes, bundle)]
+        if (N, primes, bundle) == (256, 3, 1):
+            kw = {"bg_bit": 11, "l": 2}  # three primes at N = 256 need Bg * rows this large
+        params = dataclasses.replace(get_params(name), N=N, n=4, **kw)
+        _, cloud = kg.keygen(params, seed=0, bundle=bundle)
+        small_n_keys[(N, primes, bundle)] = (params, bs.prepare_cloud_key(cloud, device="cuda"))
+    params, dkey = small_n_keys[(N, primes, bundle)]
+    assert len(dkey.plan.primes) == primes and K.key_bundle(dkey.bk, params) == bundle
+    _blind_rotate_equals_twin(params, dkey, batch)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(key):
     dkey = key[2]
     bk = dkey.bk[:, 0]  # a strided view: the kernel reads contiguous slices

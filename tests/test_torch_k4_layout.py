@@ -6,9 +6,10 @@ The mirror is held to the built library on the card by
 what the rule must give: every layout fits the 232,448 bytes a block may
 have, every instance of the shipped sets where two ciphertexts fit a block
 shares each key load between them at a full chunk of 512 on the H100's 132
-SMs (the two where they do not keep one a block, for the measured reason
-named at ``ONE_A_BLOCK``), the byte counts the design was chosen from, and a
-rule that reads nothing but the shape.  Exact integers throughout.
+SMs (the two N = 2048 ones, where they do not, keep one a block, for the
+measured reason named at ``ONE_A_BLOCK``), the byte counts the design was
+chosen from, where one prime's tables are refilled, and a rule that reads
+nothing but the shape.  Exact integers throughout.
 """
 
 import dataclasses
@@ -63,60 +64,69 @@ def test_every_layout_fits_a_block(N, P, bundle, batch):
     assert (lay["chunk_rows"] == rows
             or lay["chunk_rows"] * lay["group"] % polys == 0)
     # one ciphertext a block up to one wave of blocks; beyond it two where
-    # two fit a block at the smallest chunk
-    two_fit = K.k4_shared_bytes(N, 2, P, 3 if bundle == 2 else 1, polys // 2, 1) <= MAX
+    # two fit a block at the smallest chunk in the layout that gives up the
+    # most: one prime's tables, the accumulators on r2 and (bundled) the
+    # last prime's sums on the differences
+    D = 3 if bundle == 2 else 1
+    two_fit = K.k4_shared_bytes(N, 2, P, D, polys // 2, 1, True, D == 3) <= MAX
     assert lay["group"] == (2 if batch > SMS and two_fit else 1)
     # a larger chunk would not fit (the rule takes the largest)
-    D = 3 if bundle == 2 else 1
     tables = P if lay["tables_resident"] else 1
+    alias, on_diff = lay["accumulators_on_r2"], lay["sums_on_differences"]
     if lay["chunk_rows"] < rows:
         step = polys // lay["group"]
         assert K.k4_shared_bytes(N, lay["group"], P, D, lay["chunk_rows"] + step, tables,
-                                 lay["accumulators_on_r2"]) > MAX
-    # the accumulators lie on r2 only where their own words do not fit
-    assert lay["accumulators_on_r2"] == (K.k4_shared_bytes(
-        N, lay["group"], P, D, polys // lay["group"], tables) > MAX)
+                                 alias, on_diff) > MAX
+    # the accumulators lie on r2 only where their own words do not fit, the
+    # sums on the differences only where that does not fit either
+    smallest = polys // lay["group"]
+    assert alias == (K.k4_shared_bytes(N, lay["group"], P, D, smallest, tables) > MAX)
+    assert on_diff == (alias and K.k4_shared_bytes(N, lay["group"], P, D, smallest, tables,
+                                                   True) > MAX)
+    assert not on_diff or D == 3  # only a bundled round's differences hold the sums
     # every prime's tables stay unless they do not fit beside the smallest chunk
     assert lay["tables_resident"] == (N <= 1024 and K.k4_shared_bytes(
-        N, lay["group"], P, 3 if bundle == 2 else 1, polys // lay["group"], P) <= MAX)
-    # at N = 2048 the one prime's tables are refilled off the block's path;
-    # where N <= 1024 stages them a prime, it does so behind a barrier
-    assert lay["tables_refilled"] == (N == 2048)
+        N, lay["group"], P, D, smallest, P) <= MAX)
+    # else the one prime's tables are refilled off the block's path, at every N
+    assert lay["tables_refilled"] == (not lay["tables_resident"])
 
 
 SHIPPED = [("small_v2", 1), ("small_v2_n2048", 1), ("small", 1), ("small_v2_tpu", 2),
            ("small_v2_tpu2", 2), ("small_v2_tpu", 1), ("small_v2_n2048", 2)]
 # (group, chunk rows, shared bytes, every prime's tables stay, one prime's
-# refilled off the path) at batch 512 on 132 SMs: small and bundled
-# small_v2_tpu stage their tables a prime behind a barrier (233,472 bytes
-# with every prime's at the smallest chunk); the two N = 2048 instances hold
-# one prime's and refill each half with the next prime's by cp.async;
-# bundled small_v2_n2048 takes 217,088 only with its accumulators on r2
+# refilled off the path) at batch 512 on 132 SMs: small, bundled
+# small_v2_tpu and bundled small_v2_tpu2 at two a block and the two
+# N = 2048 instances hold one prime's tables (249,856 and 233,472 bytes with
+# every prime's at the smallest chunk for the first two) and refill each half with
+# the next prime's by cp.async; bundled small_v2_n2048 takes 217,088 only
+# with its accumulators on r2, bundled small_v2_tpu2 at two a block only
+# with those and its last prime's MAC sums on the differences (chunks of 4)
 WANT = {
     ("small_v2", 1): (2, 12, 217088, True, False),
     ("small_v2_n2048", 1): (1, 12, 217088, False, True),
-    ("small", 1): (2, 6, 217088, False, False),
-    ("small_v2_tpu", 2): (2, 8, 217088, False, False),
-    ("small_v2_tpu2", 2): (1, 16, 217088, True, False),
+    ("small", 1): (2, 6, 217088, False, True),
+    ("small_v2_tpu", 2): (2, 8, 217088, False, True),
+    ("small_v2_tpu2", 2): (2, 4, 217088, False, True),
     ("small_v2_tpu", 1): (2, 12, 217088, True, False),
     ("small_v2_n2048", 2): (1, 8, 217088, False, True),
 }
 # Where two ciphertexts do not fit a block even at the smallest chunk with
-# the stage tables staged a prime (299,008 and 249,856 bytes), a cluster of
-# two blocks that loaded each key row once for both, by one multicast bulk
-# copy, was measured slower than one ciphertext a block on the H100 (80GB
-# HBM3, 700 W; PERF.md): 132.76 against 100.62 ms at small_v2_n2048 and
-# 94.11 against 55.63 ms at bundled small_v2_tpu2.  Such a ring, one copy a
-# key row that both blocks must have read before the slot is refilled, moves
-# rows at 2.36e12 (N = 1024) and 4.41e12 B/s (N = 2048) into the pair's
-# shared memory against 5.38e12 and 8.55e12 for one block's own cp.async
-# ring (tools/l2_rate.py).  So they keep one a block.  Bundled small_v2_n2048
-# does not fit two a block even with its accumulators on r2.  At N = 2048 a
-# block's own key stream was then made cheaper instead: the rows copied past
-# L1 in 16-byte runs, the first row of a chunk started before the barrier
-# that ends its forward transforms, and the one prime's stage tables refilled
-# off the block's path (88 and 117 ms against 100 and 137, PERF.md).
-ONE_A_BLOCK = {("small_v2_n2048", 1), ("small_v2_tpu2", 2), ("small_v2_n2048", 2)}
+# one prime's tables, the accumulators on r2 and (bundled) the last prime's
+# sums on the differences (266,240 and 282,624 bytes at N = 2048), a cluster
+# of two blocks that loaded each key row once for both, by one multicast
+# bulk copy, was measured slower than one ciphertext a block on the H100
+# (80GB HBM3, 700 W; PERF.md): 132.76 against 100.62 ms at small_v2_n2048
+# and 94.11 against 55.63 ms at bundled small_v2_tpu2 (which now fits two a
+# block).  Such a ring, one copy a key row that both blocks must have read
+# before the slot is refilled, moves rows at 2.36e12 (N = 1024) and 4.41e12
+# B/s (N = 2048) into the pair's shared memory against 5.38e12 and 8.55e12
+# for one block's own cp.async ring (tools/l2_rate.py).  So they keep one a
+# block, and a block's own key stream was made cheaper instead: the rows
+# copied past L1 in 16-byte runs, the first rows of a chunk started before
+# the barrier that ends its forward transforms, and the one prime's stage
+# tables refilled off the block's path (88 and 117 ms against 100 and 137,
+# PERF.md), the same stream every N <= 1024 instance runs.
+ONE_A_BLOCK = {("small_v2_n2048", 1), ("small_v2_n2048", 2)}
 
 
 @pytest.mark.parametrize("name,bundle", SHIPPED)
@@ -131,10 +141,12 @@ def test_shipped_sets_share_every_key_load_at_a_full_chunk(name, bundle):
     assert got == WANT[(name, bundle)]
     N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
     assert lay["instance"] == f"blind_rotate_kernelILi{N}ELi{want_shared}ELi{P}ELi{D}E"
-    tables_one = K.k4_shared_bytes(N, 2, P, D, (8 if N <= 1024 else 4) // 2, 1)
-    assert (tables_one > MAX) == ((name, bundle) in ONE_A_BLOCK)
-    if (name, bundle) in ONE_A_BLOCK:  # nor with the accumulators on r2
-        assert K.k4_shared_bytes(N, 2, P, D, (8 if N <= 1024 else 4) // 2, 1, True) > MAX
+    smallest = (8 if N <= 1024 else 4) // 2
+    tables_one = K.k4_shared_bytes(N, 2, P, D, smallest, 1)
+    assert (tables_one > MAX) == ((name, bundle) in ONE_A_BLOCK | {("small_v2_tpu2", 2)})
+    # nor with the accumulators on r2 and the last prime's sums on the differences
+    least = K.k4_shared_bytes(N, 2, P, D, smallest, 1, True, D == 3)
+    assert (least > MAX) == ((name, bundle) in ONE_A_BLOCK)
     # the forward's smallest chunk (batch 32) and one ciphertext: one a block
     for batch in (1, 32):
         small = K.k4_layout(batch, params, plan, bundle, SMS)
@@ -211,12 +223,67 @@ def test_bundled_n2048_fits_only_with_its_accumulators_on_r2():
 @pytest.mark.parametrize("N,P,bundle", [i for i in INSTANCES if i != (2048, 2, 2)])
 def test_every_earlier_instance_keeps_its_bytes(N, P, bundle):
     """Every instance built before the bundled N = 2048 one keeps its
-    accumulators in their own words, so its layout and bytes are unchanged."""
+    accumulators in their own words, so its layout and bytes are unchanged;
+    the one exception is the instance built since, bundled N = 1024 at three
+    primes and two ciphertexts a block, which fits only with the accumulators
+    on r2 and the last prime's sums on the differences."""
     params, plan = _instance(N, P, bundle)
     D = 3 if bundle == 2 else 1
     for batch in (1, 5, 132, 133, 512):
         lay = K.k4_layout(batch, params, plan, bundle, SMS)
         tables = P if lay["tables_resident"] else 1
-        assert not lay["accumulators_on_r2"]
+        if (N, P, bundle, lay["group"]) == (1024, 3, 2, 2):
+            assert lay["accumulators_on_r2"] and lay["sums_on_differences"]
+            assert lay["shared_bytes"] == K.k4_shared_bytes(N, 2, P, D, lay["chunk_rows"], 1,
+                                                            True, True)
+            continue
+        assert not lay["accumulators_on_r2"] and not lay["sums_on_differences"]
         assert lay["shared_bytes"] == K.k4_shared_bytes(N, lay["group"], P, D,
                                                         lay["chunk_rows"], tables)
+
+
+def test_bundled_tpu2_fits_two_a_block_only_with_its_sums_on_the_differences():
+    """Bundled small_v2_tpu2 at two ciphertexts a block: 30 digit rows, three
+    primes, one prime's stage tables at a time.  With the accumulators on r2
+    the smallest chunk still takes 233,472 B, 1,024 over what a block may
+    have, because the digit rows' region holds the G * 8 MAC sums (8 rows a
+    ciphertext against a chunk's 4); with the last prime's sums on the three
+    differences (dead once that prime's last forward transforms have cut
+    their digits; the other primes' sums on r2) it holds the chunk's rows
+    only: 16 + 68 + 48 + 16 + 64 KB in chunks of 4."""
+    params = get_params("small_v2_tpu2")
+    plan = bs.bootstrap_plan(params, True)
+    assert len(plan.primes) == 3 and 3 * params.decomp_rows == 30
+    assert K.k4_shared_bytes(1024, 2, 3, 3, 4, 1, True) == 233472 == MAX + 1024
+    lay = K.k4_layout(512, params, plan, 2, SMS)
+    assert (lay["group"], lay["chunk_rows"]) == (2, 4)
+    assert lay["accumulators_on_r2"] and lay["sums_on_differences"]
+    assert lay["tables_refilled"] and not lay["tables_resident"]
+    assert lay["shared_bytes"] == K.k4_shared_bytes(1024, 2, 3, 3, 4, 1, True, True) == 217088
+    assert 217088 == 16384 + 69632 + 49152 + 16384 + 65536
+    assert K.k4_shared_bytes(1024, 2, 3, 3, 8, 1, True, True) > MAX  # chunks of 8 do not fit
+    assert 3 * 2 * 2 * 1024 * 4 >= 2 * 8 * 1024 * 2  # the differences hold the sums
+    # at one ciphertext a block (up to the SM count) every prime's tables stay
+    one = K.k4_layout(132, params, plan, 2, SMS)
+    assert (one["group"], one["chunk_rows"], one["tables_resident"]) == (1, 16, True)
+    assert not one["accumulators_on_r2"] and not one["sums_on_differences"]
+
+
+@pytest.mark.parametrize("name,bundle", [("small", 1), ("small_v2_tpu", 2),
+                                         ("small_v2_tpu2", 2), ("small_v2_tpu", 1),
+                                         ("small_v2", 1)])
+def test_where_tables_are_refilled_at_n1024(name, bundle):
+    """At N = 1024 one prime's tables, refilled by cp.async, where every
+    prime's do not fit beside the smallest chunk: small, bundled
+    small_v2_tpu and small_v2_tpu2 at two ciphertexts a block; every prime's
+    stay at one a block and at small_v2_tpu and small_v2 (two primes)."""
+    params = get_params(name)
+    plan = bs.bootstrap_plan(params, bundle == 2)
+    refilled = (name, bundle) in {("small", 1), ("small_v2_tpu", 2), ("small_v2_tpu2", 2)}
+    lay = K.k4_layout(512, params, plan, bundle, SMS)
+    assert lay["tables_refilled"] == refilled == (not lay["tables_resident"])
+    N, P, D = params.N, len(plan.primes), 3 if bundle == 2 else 1
+    assert (K.k4_shared_bytes(N, 2, P, D, 4, P) > MAX) == refilled
+    for batch in (1, 32, 132):
+        small = K.k4_layout(batch, params, plan, bundle, SMS)
+        assert small["group"] == 1 and small["tables_resident"] and not small["tables_refilled"]

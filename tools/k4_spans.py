@@ -10,7 +10,8 @@ boundary of ``blind_rotate_kernel`` and adds the span since the last one to
 a device buffer by phase:
 
     tables    the launch's start (accumulators loaded, stage tables staged)
-              and, where the tables are staged a prime, every staging
+              and, in a build that stages one prime's tables again for
+              every prime, every staging
     diff      the differences of a round (X^t acc - acc)
     fwd0      the forward transforms of a prime's first chunk of digit rows,
               to the barrier after them
@@ -97,8 +98,8 @@ PATCHES = [
     (r"stage_tables<N>\(sm\.stage, tabs, pi, 1\);",
      r"{\n      \g<0>\n      if (prb_) prb_->mark(0);\n    }"),
     (r"(\n\s*)// MAC over the chunk's rows", r"\1if (prb_) prb_->mark(c0 == 0 ? 2 : 3);\g<0>"),
-    ((r"(cp_async_wait<0>\(\);\n(?:.*__syncwarp.*\n)?)(\s*if \(pending == lazy\) \{)",
-      r"(const auto mac_row = \[&\]\(int cn, int j, int slot\) \{\n)()"),
+    ((r"(cp_async_wait_upto<RING>\(cn - 1 - j\);\n)(\s*if \(pending == lazy\) \{)",
+      r"(cp_async_wait<0>\(\);\n(?:.*__syncwarp.*\n)?)(\s*if \(pending == lazy\) \{)"),
      r"\1      if (prb_ && j == 0) prb_->mark(4);\n\2"),
     (r"__syncthreads\(\);  // the chunk's digit rows and the ring are free again",
      r"\g<0>\n      if (prb_) prb_->mark(5);"),
