@@ -9,8 +9,8 @@ Phases (any failure exits non-zero):
 
 1. Print the card's name and power limit (``nvidia-smi``).
 2. Build the CUDA kernels of ``redsec_tpu_torch/csrc/pbs.cu``,
-   ``csrc/blind_mm.cu``, ``csrc/probes.cu`` and ``csrc/schoolbook.cu`` with
-   ``nvcc`` for ``sm_90a``,
+   ``csrc/blind_mm.cu``, ``csrc/probes.cu``, ``csrc/schoolbook.cu`` and
+   ``csrc/schoolbook_fft.cu`` with ``nvcc`` for ``sm_90a``,
    one compiler per source, all started together (a thread each); the compiler's
    register/shared-memory report goes to ``chiprun_out/ptxas.txt``.
 3. Kernel phase: each kernel against its plain PyTorch twin on the card, on
@@ -125,7 +125,10 @@ Phases (any failure exits non-zero):
    before; every candidate is checked equal inside them, and the run fails
    unless each probe kernel was launched as often as the scripts call it.
 11. The schoolbook sets (no NTT primes, N >= 4096), through the schoolbook
-   product kernel (S1, ``csrc/schoolbook.cu``, one launch a round):
+   round kernel (S1-fft, ``csrc/schoolbook_fft.cu``: the whole CMUX round,
+   one launch a round, on the key's prepared spectra); S1
+   (``csrc/schoolbook.cu``), which the paths ran before, stays checked and
+   timed beside it:
    - S1 (int8 tensor cores, ``wgmma`` u8 x s8) against its twin (a
      float64 FFT product) on random digits and key rows, each shape with its
      set's Bg/2: N 4096 with 6 and 8 digit rows (``medium``, ``medium_v2``),
@@ -136,31 +139,46 @@ Phases (any failure exits non-zero):
      (digits -Bg/2 and Bg/2 - 1, keys -2^31, -1, 0, 2^31 - 1 at N 8192).
      Timed at 512 at each N >= 1024 and rows, and at the path's batches;
      the twin timed beside it at ``medium_v2``'s [512, 8, 4096].  Its
-     ``bound_ms`` is the smaller of two formulations' times: the int8
-     tensor-core MACs of the limb formulation S1 runs, and the int32
-     multiply-adds of one CUDA-core MAC a tap (``bound_int32_cuda_core_ms``
-     beside it).  Registers and spills of every instance from the
+     ``bound_ms`` is the smallest of three formulations' times: the exact
+     float64 FFTs of its twin (``schoolbook_fft_flops`` at ``fp64_ms``), the
+     int8 tensor-core MACs of the limb formulation S1 runs, and the int32
+     multiply-adds of one CUDA-core MAC a tap (each beside it).  Registers and spills of every instance from the
      compiler's report.
+   - S1-fft against its twin (the same twisted float64 transforms in torch,
+     ``kernels.schoolbook_round_plain``) and against one round of S1 with its
+     torch glue, bit for bit: ``medium``, ``medium_v2``, ``large``,
+     ``large_v2``, ``small_v2_tpu`` and ``small_v2`` at batches 1, 4, 196,
+     512 and 513 (and the path's at ``medium_v2``), at 4 with the digits at
+     their worst-case norm (every digit -Bg/2), at 4 and 513 in place.
+     Timed in turns with S1 alone and S1 with its glue (glue, kernel, S1,
+     kernel, glue) at 512 at the four sets and at a gate's 4 at
+     ``medium_v2``.  Its ``bound_ms`` is the larger of its bytes (acc read
+     and written, the round's spectra) and its twisted-transform flops
+     (``bound_twisted_fp64_ms``): the transforms at the least published
+     flop count (``fft_flops``) and the fp64 vector rate, the
+     multiply-accumulate at DMMA's rate (at the vector rate beside it, and
+     the 2N-FFT count beside that).
    - The forced-schoolbook PBS (``prepare_cloud_key(..., schoolbook=True)``)
      bit-identical to K4's PBS on the ``small_v2_tpu`` key of phase 4 (real
-     noise, n = 350), on 64 ciphertexts.
+     noise, n = 350), on 64 ciphertexts: 350 S1-fft launches.
    - ``medium``, ``large``, ``large_v2`` at full N and n cut to 16 (keys from
-     ``keygen`` with real noise): the PBS of 8 ciphertexts through S1
-     bit-identical to the same PBS through the twin on the card.
+     ``keygen`` with real noise): the PBS of 8 ciphertexts through S1-fft
+     bit-identical to the same PBS through its twin on the card; each key's
+     a-priori rounding bound printed.
    - The full-width path: the README's client/server flow through the CLI
      at ``medium_v2`` (n 3072, N 4096, Bg 2^8, l 4, key switch 2 x 16) on
      one ``sign1024x1`` image: keygen, encrypt-image, run-encrypted,
-     decrypt-image.  Exactly 1,220 PBS in 3 chunks of 3,072 S1 launches,
-     counted at the kernel's door and by the counters; 8 of layer 0's
-     ciphertexts through the twin path on the card (3,072 rounds of the FFT
-     product) bit-identical to the kernel path's outputs for them; the
-     printed class their argmax, and beside it the plaintext oracle's
-     (informational).  With ``--profile``, the path's first 512-chunk
-     through the CLI's bootstrap traced once: device busy time, idle share,
-     S1's share and that of the torch glue around it.
+     decrypt-image.  Exactly 1,220 PBS in 3 chunks of 3,072 S1-fft launches
+     (none of S1), counted at the kernel's door and by the counters; 8 of
+     layer 0's ciphertexts through the twin path on the card (3,072 rounds of
+     the torch transforms) bit-identical to the kernel path's outputs for
+     them; the printed class their argmax, and beside it the plaintext
+     oracle's (informational).  With ``--profile``, the path's first
+     512-chunk through the CLI's bootstrap traced once: device busy time,
+     idle share, S1-fft's share and that of the torch glue around it.
    - ``GateSet`` on the card: the truth tables of the ten two-input gates
      and MUX at ``small_v2_tpu`` (K4), and AND at full ``medium_v2`` on the
-     path's key (S1).
+     path's key (S1-fft).
 
 12. ``phase12``: the calibration knobs through the command line, the
    agreement forecast beside a measured run, the "matmul" key flavour and the
@@ -211,8 +229,8 @@ Phases (any failure exits non-zero):
      same instance, two primes at N 1024).
    - ``validate_full_geometry`` at full-n ``medium``, 32 PBS (seed 0): its
      RESULT equals ``results/full_geometry_validation.log:26`` but for
-     ``boots_per_s``; 3,072 S1 launches of 32 at the door; 4 outputs through
-     the twin path on the card bit-identical.  Path ``fullgeo/medium``; host
+     ``boots_per_s``; 3,072 S1-fft launches of 32 at the door; 4 outputs
+     through the twin path on the card bit-identical.  Path ``fullgeo/medium``; host
      keygen, key preparation and PBS times.
 
 The second-to-last line is the kernel table as JSON; the last line is
@@ -251,9 +269,11 @@ PEAK_INT32_OPS = 67e12 / 4
 # operations a MAC): the bound of the JAX package's int8 schoolbook product
 PEAK_INT8_MACS = 1979e12 / 2
 # float64 flops a second outside the tensor cores (data sheet: 34 TFLOP/s;
-# 132 SMs x 64 fp64 lanes x 2 x 1.98 GHz): the bound of the schoolbook
-# product through exact float64 FFTs, the formulation of its plain twin
+# 132 SMs x 64 fp64 lanes x 2 x 1.98 GHz), and on them (DMMA; data sheet:
+# 67 TFLOP/s): the bounds of the schoolbook product through exact float64
+# transforms, the formulation of its plain twin and of the round kernel
 PEAK_FP64_FLOPS = 132 * 64 * 2 * 1.98e9
+PEAK_FP64_TENSOR_FLOPS = 67e12
 BATCH = 8  # images in the slice phase
 
 
@@ -354,18 +374,60 @@ def schoolbook_int8_macs(B: int, rows: int, N: int, half_bg: int) -> int:
     return B * 8 * rows * (1 if half_bg <= 128 else 2) * N * N
 
 
-def schoolbook_fft_flops(B: int, rows: int, N: int) -> int:
+def fft_flops(M: int) -> int:
+    """Real flops of one complex DFT of length M = 2^k at the least count
+    published for a power of two: Johnson and Frigo's modified split radix
+    ("A modified split-radix FFT with fewer arithmetic operations", IEEE
+    Trans. Signal Process. 55 (2007)), 34/9 M k - 124/27 M - 2 k
+    - 2/9 (-1)^k k + 16/27 (-1)^k + 8.  Split radix (4 M k - 6 M + 8) and
+    radix 2 (5 M k) lie above it; so does every pass of the round kernel."""
+    k = M.bit_length() - 1
+    s = (-1) ** k
+    return round((102 * M * k - 124 * M - 54 * k - 6 * s * k + 16 * s + 216) / 27)
+
+
+def schoolbook_fft_flops(B: int, rows: int, N: int) -> tuple[int, int]:
     """The same product through float64 FFTs of length L = 2N, as its plain
-    twin (``kernels.schoolbook_product_plain``) computes it exactly: a real
-    forward transform of every digit row and of the key's 4 sign-balanced
-    16-bit halves a row, B x rows x 4 x (N + 1) complex multiply-adds (8
-    flops), and B x 4 real inverse transforms; a real transform taken as
-    2.5 L log2 L flops (half the radix-2 count of a complex one).  The fold,
-    rounding and recombination (a few operations an output) are not
-    counted."""
+    twin (``kernels.schoolbook_product_plain``) computes it exactly, as
+    (transform flops, multiply-accumulate flops): a real forward transform
+    of every digit row and of the key's 4 sign-balanced 16-bit halves a row,
+    and B x 4 real inverse transforms, a real transform taken as half a
+    complex one (``fft_flops``); B x rows x 4 x (N + 1) complex
+    multiply-adds of 8 flops.  The fold, rounding and recombination (a few
+    operations an output) are not counted."""
     L = 2 * N
-    rfft = 5 * L * (L.bit_length() - 1) // 2
-    return (B * rows + 4 * rows + 4 * B) * rfft + 8 * B * rows * 4 * (N + 1)
+    return (B * rows + 4 * rows + 4 * B) * fft_flops(L) // 2, 8 * B * rows * 4 * (N + 1)
+
+
+def schoolbook_round_flops(B: int, rows: int, N: int) -> tuple[int, int]:
+    """One schoolbook CMUX round as the round kernel computes it
+    (``csrc/schoolbook_fft.cu``), as (transform flops, multiply-accumulate
+    flops): the twisted transforms of length M = N / 2, rows forward and 4
+    inverse a ciphertext (``fft_flops``), their twist or untwist (one
+    complex product, 6 flops, a value), and the multiply-accumulate of every
+    digit spectrum into 4 spectra (8 flops a complex multiply-add).  The
+    key's spectra are prepared once a key and not counted; nor are the
+    digits, rounding and recombination (integer work of a few operations a
+    coefficient)."""
+    M = N // 2
+    return B * (rows + 4) * (fft_flops(M) + 6 * M), B * 8 * 4 * rows * M
+
+
+def fp64_ms(flops: tuple[int, int], mac_rate: float | None = None) -> float:
+    """The least time of (transform flops, multiply-accumulate flops): the
+    transforms at the vector rate, the multiply-accumulate at ``mac_rate``,
+    by default the faster of the vector and the DMMA rate (for each bin it
+    is a [B x rows] x [rows x 4] complex matrix product, which DMMA runs);
+    the two taken as not overlapping."""
+    rate = max(PEAK_FP64_FLOPS, PEAK_FP64_TENSOR_FLOPS) if mac_rate is None else mac_rate
+    return (flops[0] / PEAK_FP64_FLOPS + flops[1] / rate) * 1e3
+
+
+def schoolbook_round_bytes(B: int, rows: int, N: int) -> int:
+    """Bytes a round must move: acc read and written (int32 [B, 2, N] each),
+    the exponents, and the round's key spectra (complex128 [rows, 2, 2, N/2])
+    read once."""
+    return 2 * B * 2 * N * 4 + B * 4 + rows * 4 * (N // 2) * 16
 
 
 def bound(bytes_: float, ops: float) -> tuple[float, str]:
@@ -429,14 +491,22 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 5) -> tuple[f
          f"(trace {retries + 1} of at most {tries})")
 
 
-def profile_forward(fwd, ct, card: str, tag: str) -> tuple:
+def profile_forward(fwd, ct, card: str, tag: str, warmup=None) -> tuple:
     """Device time by kernel over one traced forward, and the share of the
-    forward's wall time in which the device ran no kernel.  Returns (wall ms,
-    device busy ms, [(kernel, device ms, launches)])."""
+    forward's wall time in which the device ran no kernel.  With ``warmup``
+    the tracer starts one step early, as in ``kernel_device_ms``: a step
+    running ``warmup()``, whose events it drops, then the forward.  Returns
+    (wall ms, device busy ms, [(kernel, device ms, launches)])."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    sched = None if warmup is None else schedule(wait=0, warmup=1, active=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=sched) as prof:
+        if warmup is not None:
+            warmup()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fwd(ct)
         torch.cuda.synchronize()
@@ -444,7 +514,8 @@ def profile_forward(fwd, ct, card: str, tag: str) -> tuple:
     # device-side events only: a CPU op's entry repeats the time of the
     # kernels it launched
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:
@@ -1080,7 +1151,7 @@ def phase14(c: dict) -> None:
     ``weights``), the PBS chunk, a work directory (removed at the end) and the
     ``by_path`` / ``slices`` records it adds to.  Every script runs in
     process through its ``main`` or its function, with the blind rotation
-    (K4) and the schoolbook product (S1) wrapped at their doors; the runner's
+    (K4) and the schoolbook round (S1-fft) wrapped at their doors; the runner's
     keys are generated into the work directory."""
     import ast
 
@@ -1104,15 +1175,15 @@ def phase14(c: dict) -> None:
     os.makedirs(keys)
     timer = StageTimer()
     rec = {}
-    k4_door, s1_door = [], []
+    k4_door, r_door = [], []
 
     def door_k4(acc0, *rest, _real=K.blind_rotate):
         k4_door.append(acc0.shape[0])
         return _real(acc0, *rest)
 
-    def door_s1(digits, *rest, _real=K.schoolbook_product):
-        s1_door.append(digits.shape[0])
-        return _real(digits, *rest)
+    def door_round(acc, *rest, _real=K.schoolbook_round, **kw):
+        r_door.append(acc.shape[0])
+        return _real(acc, *rest, **kw)
 
     # -- a. the runner: mnist/sign1024x1 at small_v2_tpu on a synthetic
     # 24-row CSV in the reference's layout (numpy seed 1), batches of 8
@@ -1240,13 +1311,14 @@ def phase14(c: dict) -> None:
           f"96 one K4 launch at the door", flush=True)
     timer.mark("noise budget")
 
-    # -- c. full-n medium, 32 PBS through S1, against the JAX run's RESULT
+    # -- c. full-n medium, 32 PBS through the schoolbook round kernel, against
+    # the JAX run's RESULT
     with open(FULLGEO_LOG) as f:
         line = f.read().splitlines()[FULLGEO_LINE - 1]
     want = ast.literal_eval(line.split("RESULT ", 1)[1])
-    s1_door.clear()
+    r_door.clear()
     launches.reset()
-    with mock.patch.object(K, "schoolbook_product", door_s1):
+    with mock.patch.object(K, "schoolbook_round", door_round):
         g = vfg.validate(MEDIUM, 32, 0, "cuda")
     torch.cuda.synchronize()
     counts = dict(launches.counts)
@@ -1255,23 +1327,23 @@ def phase14(c: dict) -> None:
     if got != {k: v for k, v in want.items() if k != "boots_per_s"}:
         fail(f"fullgeo/medium: RESULT {g['result']} on the card; the JAX run logged {want} "
              f"({os.path.relpath(FULLGEO_LOG, HERE)}:{FULLGEO_LINE})")
-    if s1_door != [32] * MEDIUM.n or counts.get("schoolbook_product") != MEDIUM.n:
-        fail(f"fullgeo/medium: {len(s1_door)} S1 launches at the door (batches "
-             f"{sorted(set(s1_door))}), counters {counts}; expected {MEDIUM.n} of 32")
+    if r_door != [32] * MEDIUM.n or counts.get("schoolbook_round") != MEDIUM.n:
+        fail(f"fullgeo/medium: {len(r_door)} schoolbook round launches at the door (batches "
+             f"{sorted(set(r_door))}), counters {counts}; expected {MEDIUM.n} of 32")
     arr = g["arrays"]
     t0 = time.perf_counter()
-    with mock.patch.object(K, "schoolbook_product", K.schoolbook_product_plain):
+    with mock.patch.object(K, "schoolbook_round", K.schoolbook_round_plain):
         twin = g["pbs"](arr["ct"][:4], arr["tv"])
     t_twin = time.perf_counter() - t0
     if not np.array_equal(twin, arr["out"][:4]):
-        fail("fullgeo/medium: 4 outputs through the twin path differ from S1's")
+        fail("fullgeo/medium: 4 outputs through the twin path differ from the kernel's")
     rec["fullgeo/medium"] = {**g["result"], "keygen_s": g["keygen_s"],
                              "prepare_s": g["prepare_s"], "pbs_s": g["pbs_s"],
-                             "s1_launches": len(s1_door), "twin_check_s": t_twin}
+                             "round_launches": len(r_door), "twin_check_s": t_twin}
     print(f"fullgeo/medium: RESULT equals {os.path.relpath(FULLGEO_LOG, HERE)}:{FULLGEO_LINE} "
           f"(boots_per_s aside); host keygen {g['keygen_s']:.1f} s, key preparation "
           f"{g['prepare_s']:.1f} s, 32 PBS in {g['pbs_s']:.3f} s ({32 / g['pbs_s']:.2f} PBS/s, "
-          f"{len(s1_door)} S1 launches at the door) on {card}; 4 outputs through the twin path "
+          f"{len(r_door)} round launches at the door) on {card}; 4 outputs through the twin path "
           f"({MEDIUM.n} rounds, {t_twin:.1f} s) bit-identical", flush=True)
     del g, twin
     torch.cuda.empty_cache()
@@ -1344,7 +1416,7 @@ def main() -> int:
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    sources = [K.SOURCE, K.MM_SOURCE, PK.SOURCE, K.SCHOOLBOOK_SOURCE]
+    sources = [K.SOURCE, K.MM_SOURCE, PK.SOURCE, K.SCHOOLBOOK_SOURCE, K.SBFFT_SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         ptxas = "".join(pool.map(lambda src: K.build_library(src, force=True), sources))
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
@@ -2423,7 +2495,8 @@ def main() -> int:
         if pcounts != expect:
             fail(f"{tag} launched {pcounts}, expected {expect}")
 
-    # ---- phase 11: the schoolbook sets through the schoolbook product (S1)
+    # ---- phase 11: the schoolbook sets through the schoolbook round kernel (S1-fft),
+    # with the schoolbook product (S1) it took over from held and timed beside it
     from redsec_tpu_torch.crypto import gates
     from redsec_tpu_torch.crypto import lwe
     from redsec_tpu_torch.runtime import encrypted as renc
@@ -2464,7 +2537,7 @@ def main() -> int:
                 continue
             b_i32 = schoolbook_ops(Bs, rs, Ns) / PEAK_INT32_OPS * 1e3
             b_i8 = schoolbook_int8_macs(Bs, rs, Ns, hb) / PEAK_INT8_MACS * 1e3
-            b_fft = schoolbook_fft_flops(Bs, rs, Ns) / PEAK_FP64_FLOPS * 1e3
+            b_fft = fp64_ms(schoolbook_fft_flops(Bs, rs, Ns))
             b_ms = max((Bs * rs * Ns + rs * 2 * Ns + Bs * 2 * Ns) * 4 / PEAK_BYTES * 1e3,
                        min(b_fft, b_i8, b_i32))
             print(f"kernel schoolbook_product [{Bs}, {rs}, {Ns}] (Bg/2 {hb}, tile "
@@ -2523,7 +2596,7 @@ def main() -> int:
     # S1 runs and the int32 CUDA-core one beside it
     i8 = schoolbook_int8_macs(Bm, PV.decomp_rows, PV.N, PV.half_bg) / PEAK_INT8_MACS * 1e3
     i32 = schoolbook_ops(Bm, PV.decomp_rows, PV.N) / PEAK_INT32_OPS * 1e3
-    f64 = schoolbook_fft_flops(Bm, PV.decomp_rows, PV.N) / PEAK_FP64_FLOPS * 1e3
+    f64 = fp64_ms(schoolbook_fft_flops(Bm, PV.decomp_rows, PV.N))
     print(f"kernel schoolbook_product [{Bm}, {PV.decomp_rows}, {PV.N}]: {v2_ms:.4f} ms is "
           f"{f64 / v2_ms:.4f} of the float64-FFT bound {f64:.4f} ms and {i8 / v2_ms:.4f} of "
           f"the int8 tensor-core bound {i8:.4f} ms on {card}", flush=True)
@@ -2538,6 +2611,108 @@ def main() -> int:
            instance_medium_v2_512=v2_tile, instances_checked=sb_tiles, **sb_regs)
     print(f"kernel schoolbook_product build: {sb_regs}", flush=True)
 
+    # S1-fft, the whole round on the key's spectra (csrc/schoolbook_fft.cu),
+    # against its twin (the same transforms in torch) and against one round of
+    # S1 with its glue, at the sets' N, rows and Bg/2 and the batches of the
+    # tests and of the paths; at each set the digits also at their worst-case
+    # norm (acc = offset / 2 rotated by N: every digit -Bg/2) and in place
+    # (out = acc).  Then timed in turns at 512 (and a gate's 4) beside S1
+    # alone and S1 with its glue
+    r_sets = ["medium", "medium_v2", "large", "large_v2", "small_v2_tpu", "small_v2"]
+    r_batches = {1, 4, 196, 512, 513}
+    r_inst, r_err = {}, 0
+    for name in r_sets:
+        Pr = get_params(name)
+        Nr, rr = Pr.N, Pr.decomp_rows
+        bk_s = ri(-2**31, 2**31, (rr, 2, Nr))
+        bk_s[0, 0, :4] = -2**31
+        spec = K.key_spectra(bk_s)
+        ops_r = bs.RoundOps(Pr)
+        fill = bs.gadget_offset(Pr) // 2
+        batches = sorted(r_batches | (set(sb_path) if name == PV.name else set()))
+        for Bs in batches:
+            acc_r, t_r = ri(-2**31, 2**31, (Bs, 2, Nr)), ri(0, 2 * Nr, (Bs,))
+            if Bs == 4:  # the worst-case digits
+                acc_r[:2] = fill - 2**32 if fill >= 2**31 else fill
+                t_r[:2] = Nr
+            want = K.schoolbook_round_plain(acc_r, t_r, spec, Pr)
+            s1w = acc_r + K.schoolbook_product(ops_r.decompose(ops_r.rotate(acc_r, t_r) - acc_r),
+                                               bk_s, Pr.half_bg)
+            r_err = max(r_err, same(f"schoolbook_round {name} [{Bs}, {rr}, {Nr}]",
+                                    K.schoolbook_round(acc_r, t_r, spec, Pr), want))
+            same(f"schoolbook_round {name} [{Bs}, {rr}, {Nr}] against S1 and its glue", want, s1w)
+            if Bs in (4, 513):
+                K.schoolbook_round(acc_r, t_r, spec, Pr, out=acc_r)
+                same(f"schoolbook_round {name} [{Bs}, {rr}, {Nr}] in place", acc_r, want)
+        lay = K.schoolbook_round_layout(Nr)
+        r_inst[lay.pop("instance")] = Nr
+        print(f"kernel schoolbook_round {name} [*, {rr}, {Nr}] (Bg/2 {Pr.half_bg}, layout {lay}): "
+              f"bit-identical to its twin and to S1 with its glue at batches {batches}, "
+              f"worst-case digits and in place", flush=True)
+        del bk_s, spec, acc_r, want, s1w
+    r_regs = {}
+    for inst in sorted(r_inst):
+        r_regs[f"registers_{inst}"], r_regs[f"spill_bytes_{inst}"] = ptxas_usage(ptxas, inst)
+    r_ms, r_turns = {}, {}
+    for name, Bs in (("medium_v2", 512), ("medium", 512), ("large_v2", 512), ("large", 512),
+                     ("medium_v2", 4)):
+        Pr = get_params(name)
+        Nr, rr = Pr.N, Pr.decomp_rows
+        bk_s = ri(-2**31, 2**31, (rr, 2, Nr))
+        spec = K.key_spectra(bk_s)
+        acc_r, t_r = ri(-2**31, 2**31, (Bs, 2, Nr)), ri(0, 2 * Nr, (Bs,))
+        out_r = torch.empty_like(acc_r)
+        ops_r = bs.RoundOps(Pr)
+        dg = ops_r.decompose(ops_r.rotate(acc_r, t_r) - acc_r)
+
+        def s1_glue():
+            d_ = ops_r.decompose(ops_r.rotate(acc_r, t_r) - acc_r)
+            return acc_r + K.schoolbook_product(d_, bk_s, Pr.half_bg)
+
+        turns = {}
+        for tag, f in (("s1_glue", s1_glue), ("round", lambda: K.schoolbook_round(
+                acc_r, t_r, spec, Pr, out=out_r)), ("s1", lambda: K.schoolbook_product(
+                dg, bk_s, Pr.half_bg)), ("round", lambda: K.schoolbook_round(
+                acc_r, t_r, spec, Pr, out=out_r)), ("s1_glue", s1_glue)):
+            turns.setdefault(tag, []).append(cuda_ms(f, 10, warmup=2))
+        key = f"{name}_{Bs}"
+        r_turns[key] = turns
+        r_ms[key] = min(turns["round"])
+        if (name, Bs) == ("medium_v2", 512):
+            r_twin = cuda_ms(lambda: K.schoolbook_round_plain(acc_r, t_r, spec, Pr), 3)
+            r_bytes = schoolbook_round_bytes(Bs, rr, Nr)
+        tw_flops = schoolbook_round_flops(Bs, rr, Nr)
+        tw_ms, tw_vec = fp64_ms(tw_flops), fp64_ms(tw_flops, PEAK_FP64_FLOPS)
+        by_ms = schoolbook_round_bytes(Bs, rr, Nr) / PEAK_BYTES * 1e3
+        b2n = fp64_ms(schoolbook_fft_flops(Bs, rr, Nr))
+        print(f"time schoolbook_round {name} [{Bs}, {rr}, {Nr}]: {turns['round'][0]:.4f}, "
+              f"{turns['round'][1]:.4f} ms; S1 alone {turns['s1'][0]:.4f}; S1 and its glue "
+              f"{turns['s1_glue'][0]:.4f}, {turns['s1_glue'][1]:.4f} (in turns); bound "
+              f"{max(tw_ms, by_ms):.4f} ms by {'operations' if tw_ms >= by_ms else 'bytes'} "
+              f"(twisted flops {tw_ms:.4f}: transforms {tw_flops[0]} flops at "
+              f"{PEAK_FP64_FLOPS:.4g}/s, MAC {tw_flops[1]} flops at DMMA's "
+              f"{PEAK_FP64_TENSOR_FLOPS:.4g}/s; {tw_vec:.4f} with the MAC at the vector rate; "
+              f"bytes {by_ms:.4f}; the 2N-FFT flops {b2n:.4f}), "
+              f"{max(tw_ms, by_ms) / r_ms[key]:.4f} of it, on {card}", flush=True)
+        del bk_s, spec, acc_r, out_r, dg
+    Bm, Pv = 512, PV
+    r_key = f"{Pv.name}_{Bm}"
+    rf_flops = schoolbook_round_flops(Bm, Pv.decomp_rows, Pv.N)
+    rf = fp64_ms(rf_flops)
+    report("schoolbook_round", [Bm, Pv.decomp_rows, Pv.N], r_err, r_ms[r_key], r_twin, r_bytes,
+           0, "redsec_tpu/crypto/bootstrap.py:538", "schoolbook_fft.cu", ops_ms=rf,
+           params=("medium_v2", "medium", "large", "large_v2", "small_v2_tpu/schoolbook"),
+           share_of_bound=max(rf, r_bytes / PEAK_BYTES * 1e3) / r_ms[r_key],
+           bound_twisted_fp64_ms=rf, bound_twisted_mac_at_vector_rate_ms=fp64_ms(
+               rf_flops, PEAK_FP64_FLOPS), transform_flops=rf_flops[0], mac_flops=rf_flops[1],
+           fp64_vector_flops_per_s=PEAK_FP64_FLOPS, fp64_dmma_flops_per_s=PEAK_FP64_TENSOR_FLOPS,
+           bound_fp64_fft_2n_ms=fp64_ms(schoolbook_fft_flops(Bm, Pv.decomp_rows, Pv.N)),
+           ms_in_turns=r_turns, ms_by_shape=r_ms,
+           layout=K.schoolbook_round_layout(Pv.N), shared_bytes={
+               i: K.schoolbook_round_layout(n_)["shared_bytes"] for i, n_ in r_inst.items()},
+           **r_regs)
+    print(f"kernel schoolbook_round build: {r_regs}", flush=True)
+
     # the forced-schoolbook PBS against K4's on the small_v2_tpu key (real noise)
     sbkey = bs.prepare_cloud_key(cloud, device="cuda", schoolbook=True)
     ct64 = lwe.encrypt_integers(sk.lwe_key, np.random.default_rng(4).integers(-1500, 1500, 64),
@@ -2548,11 +2723,13 @@ def main() -> int:
     torch.cuda.synchronize()
     by_path["schoolbook/small_v2_tpu"] = (f"{P.name}/schoolbook", dict(launches.counts))
     want_k4 = bs.make_batched_bootstrap(dkey)(ct64, tv1)
-    if launches.get("schoolbook_product") != n or not torch.equal(got_sb, want_k4):
+    if launches.get("schoolbook_round") != n or not torch.equal(got_sb, want_k4):
         fail(f"the forced-schoolbook PBS at {P.name} differs from K4's "
              f"({launches.counts}, {ct64.shape[0]} ciphertexts)")
-    print(f"schoolbook PBS at {P.name} (forced, {n} S1 launches at [{ct64.shape[0]}, {rows}, "
-          f"{N}]): bit-identical to K4's PBS on the same key and ciphertexts", flush=True)
+    print(f"schoolbook PBS at {P.name} (forced, {n} schoolbook round launches at "
+          f"[{ct64.shape[0]}, {rows}, {N}]): bit-identical to K4's PBS on the same key and "
+          f"ciphertexts; a-priori rounding bound of the key "
+          f"{K.schoolbook_key_bound(sbkey.bk, P):.6g}", flush=True)
     del sbkey, got_sb, want_k4
 
     # the other sets at full N, n cut to 16: S1's path against the twin's
@@ -2568,13 +2745,15 @@ def main() -> int:
         rout = bs.make_batched_bootstrap(rkey)(rct, rtv)
         torch.cuda.synchronize()
         by_path[f"reduced/{name}"] = (name, dict(launches.counts))
-        with mock.patch.object(K, "schoolbook_product", K.schoolbook_product_plain):
+        with mock.patch.object(K, "schoolbook_round", K.schoolbook_round_plain):
             rplain = bs.make_batched_bootstrap(rkey)(rct, rtv)
-        if launches.get("schoolbook_product") != Pr.n or not torch.equal(rout, rplain):
-            fail(f"{Pr.name}: the PBS through S1 differs from the twin's ({launches.counts})")
+        if launches.get("schoolbook_round") != Pr.n or not torch.equal(rout, rplain):
+            fail(f"{Pr.name}: the PBS through the schoolbook round kernel differs from the "
+                 f"twin's ({launches.counts})")
         dec = lwe.decrypt_integers(rsk.lwe_key, rout.cpu().numpy(), Pr)
         print(f"schoolbook PBS {Pr.name} (N {Pr.N}, {Pr.decomp_rows} digit rows, real noise): "
-              f"8 ciphertexts through S1 bit-identical to the twin path; signs "
+              f"8 ciphertexts through the schoolbook round kernel bit-identical to the twin "
+              f"path (key bound {K.schoolbook_key_bound(rkey.bk, Pr):.6g}); signs "
               f"{float((dec == np.where(vals >= 0, 1, -1)).mean()):.3f} right (informational) "
               f"({time.perf_counter() - t0:.1f} s with keygen)", flush=True)
         del rkey, rout, rplain
@@ -2601,9 +2780,9 @@ def main() -> int:
             return out_
         return kept_run
 
-    def door_s1(digits, bk_round, half_bg, _real=K.schoolbook_product):
-        sb_door.append(digits.shape[0])
-        return _real(digits, bk_round, half_bg)
+    def door_round(acc, t, spectra_round, params, out=None, _real=K.schoolbook_round):
+        sb_door.append(acc.shape[0])
+        return _real(acc, t, spectra_round, params, out=out)
 
     launches.reset()
     t0 = time.perf_counter()
@@ -2614,7 +2793,7 @@ def main() -> int:
             "--image-ptxt", os.path.join(vdir, "image.ptxt"),
             "--out", os.path.join(vdir, "image.ctxt.npz"))
     with mock.patch.object(renc, "make_chunked_bootstrap", keeping), \
-            mock.patch.object(K, "schoolbook_product", door_s1):
+            mock.patch.object(K, "schoolbook_round", door_round):
         _, vrec = run_cli("run-encrypted", "--model", model.name, "--weights", weights,
                           "--eval", os.path.join(vdir, "eval.key.npz"),
                           "--image", os.path.join(vdir, "image.ctxt.npz"),
@@ -2624,12 +2803,13 @@ def main() -> int:
     by_path[f"cli/{PV.name}"] = (PV.name, vcounts)
     sb_chunks = sum(len(range(0, b, pbs_chunk)) for b in sign_boots if b)
     want_s1 = sb_chunks * PV.n
-    if (vrec["pbs"], vrec["s1_launches"], vrec["k4_launches"], vcounts.get("schoolbook_product"),
-            len(sb_door), sum(sb_door)) != (pbs_per_image, want_s1, 0, want_s1, want_s1,
-                                            PV.n * pbs_per_image):
+    if (vrec["pbs"], vrec["round_launches"], vrec["s1_launches"], vrec["k4_launches"],
+            vcounts.get("schoolbook_round"), len(sb_door), sum(sb_door)) != (
+            pbs_per_image, want_s1, 0, 0, want_s1, want_s1, PV.n * pbs_per_image):
         fail(f"cli/{PV.name}: run-encrypted reports {vrec}, counters {vcounts}, "
-             f"{len(sb_door)} S1 launches at the door carrying {sum(sb_door)} ciphertext-rounds; "
-             f"expected {pbs_per_image} PBS in {sb_chunks} chunks of {PV.n} S1 launches")
+             f"{len(sb_door)} round launches at the door carrying {sum(sb_door)} "
+             f"ciphertext-rounds; expected {pbs_per_image} PBS in {sb_chunks} chunks of "
+             f"{PV.n} schoolbook round launches")
     text, _ = run_cli("decrypt-image", "--secret", os.path.join(vdir, "secret.key.npz"),
                       "--output", os.path.join(vdir, "out.ctxt.npz"))
     vcls = decrypted_class(text)
@@ -2641,7 +2821,7 @@ def main() -> int:
              f"{int(vscores[0].argmax())}")
     # layer 0's first 8 ciphertexts through the twin path, 3,072 rounds
     t0 = time.perf_counter()
-    with mock.patch.object(K, "schoolbook_product", K.schoolbook_product_plain):
+    with mock.patch.object(K, "schoolbook_round", K.schoolbook_round_plain):
         vtwin = bs.make_batched_bootstrap(kept["dkey"])(kept["ct"], kept["tv"])
     torch.cuda.synchronize()
     t_twin = time.perf_counter() - t0
@@ -2655,31 +2835,42 @@ def main() -> int:
     print(f"cli/{PV.name} class: decrypted {vcls}, plaintext oracle {int(preds[0])} "
           f"(informational)", flush=True)
     if args.profile:
-        # one 512-chunk of the path through the CLI's bootstrap (n rounds of
-        # torch rotate/difference/decompose/add around one S1 launch each)
+        # one 512-chunk of the path through the CLI's bootstrap (n launches
+        # of the schoolbook round kernel, and the PBS's torch glue around them)
         prof_run = renc.make_chunked_bootstrap(kept["dkey"], chunk=pbs_chunk)
         prof_run(kept["ct512"], kept["tv512"])
         torch.cuda.synchronize()
-        p_wall, p_busy, p_rows = profile_forward(
-            lambda c: prof_run(c, kept["tv512"]), kept["ct512"], card,
-            f"{PV.name}_chunk512")
-        p_s1 = sum(ms for key, ms, _ in p_rows if "schoolbook_mma_kernel" in key)
-        p_s1_n = sum(c for key, _, c in p_rows if "schoolbook_mma_kernel" in key)
-        if p_s1_n != PV.n:
-            fail(f"profile {PV.name}: the trace holds {p_s1_n} S1 launches, not {PV.n}")
+        # the tracer can miss launches right after it starts, and now and then
+        # drops one of a long run (as in kernel_device_ms): it starts a step
+        # early, and a trace short of the n launches is taken again
+        for p_try in range(3):
+            p_wall, p_busy, p_rows = profile_forward(
+                lambda c: prof_run(c, kept["tv512"]), kept["ct512"], card,
+                f"{PV.name}_chunk512", warmup=lambda: prof_run(
+                    kept["ct512"][:1], kept["tv512"] if np.ndim(kept["tv512"]) == 1
+                    else kept["tv512"][:1]))
+            p_s1 = sum(ms for key, ms, _ in p_rows if "schoolbook_round" in key)
+            p_s1_n = sum(c for key, _, c in p_rows if "schoolbook_round" in key)
+            if p_s1_n == PV.n:
+                break
+            print(f"profile {PV.name}: trace {p_try + 1} holds {p_s1_n} round launches, not "
+                  f"{PV.n}", flush=True)
+        else:
+            fail(f"profile {PV.name}: no trace of 3 holds the {PV.n} round launches")
         slices[f"profile/{PV.name}_chunk512"] = {
             "wall_ms": p_wall, "device_busy_ms": p_busy, "idle_share": 1 - p_busy / p_wall,
-            "s1_ms": p_s1, "s1_share_of_busy": p_s1 / p_busy, "glue_ms": p_busy - p_s1,
+            "round_ms": p_s1, "round_share_of_busy": p_s1 / p_busy, "glue_ms": p_busy - p_s1,
             "glue_share_of_busy": (p_busy - p_s1) / p_busy}
         print(f"profile {PV.name}_chunk512: wall {p_wall:.3f} ms, device busy {p_busy:.3f} ms, "
-              f"idle share {1 - p_busy / p_wall:.4f}; S1 {p_s1:.3f} ms x{p_s1_n} "
-              f"({p_s1 / p_busy:.4f} of busy), torch glue and key switch {p_busy - p_s1:.3f} ms "
-              f"({(p_busy - p_s1) / p_busy:.4f}) on {card}", flush=True)
+              f"idle share {1 - p_busy / p_wall:.4f}; schoolbook round kernel {p_s1:.3f} ms "
+              f"x{p_s1_n} ({p_s1 / p_busy:.4f} of busy), torch glue and key switch "
+              f"{p_busy - p_s1:.3f} ms ({(p_busy - p_s1) / p_busy:.4f}) on {card}", flush=True)
     slices[f"cli/{PV.name}"] = {"params": PV.name, **vrec, "keygen_s": t_keygen,
                                 "twin_check_s": t_twin, "class": vcls,
-                                "oracle_class": int(preds[0]), "s1_launches_at_door": len(sb_door)}
+                                "oracle_class": int(preds[0]),
+                                "round_launches_at_door": len(sb_door)}
 
-    # GateSet: truth tables at small_v2_tpu (K4), AND at medium_v2 (S1)
+    # GateSet: truth tables at small_v2_tpu (K4), AND at medium_v2 (S1-fft)
     a2, b2, s2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1]), np.array([1, 0, 1, 0])
     tables = {"AND": a2 & b2, "OR": a2 | b2, "NAND": 1 - (a2 & b2), "NOR": 1 - (a2 | b2),
               "XOR": a2 ^ b2, "XNOR": 1 - (a2 ^ b2), "ANDNY": (1 - a2) & b2,
@@ -2747,8 +2938,10 @@ def main() -> int:
                                  if c.get(counter) and (params is None or pn in sets)}
         r["launches"] = sum(r["launches_by_path"].values())
     never = [name for name, r in rec.items() if r["launches"] == 0 and name not in (
-        "external_product", "cmux_round", "external_product_mm", "cmux_round_mm")]
-    if never:  # the round kernels are the body of blind_rotate(_mm) on every path
+        "external_product", "cmux_round", "external_product_mm", "cmux_round_mm",
+        "schoolbook_product")]
+    if never:  # the round kernels are the body of blind_rotate(_mm) on every path, and
+        # the schoolbook round kernel took S1's place on the schoolbook paths
         fail(f"kernels never launched on any driven path: {never}")
 
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

@@ -172,9 +172,11 @@ def cmd_run_encrypted(args):
     """Cloud side.  Besides the JAX package's lines it prints one JSON line:
     the forward's mode, images, bootstraps (``pbs``), blind-rotation kernel
     launches (``k4_launches``; ``k4mm_launches`` for the four-step kernel
-    that a ``--ntt-flavor matmul`` key runs) and schoolbook-product kernel
-    launches (``s1_launches``, one a round at the sets without NTT primes; all
-    0 on the CPU), ``seconds`` and ``pbs_per_s``; the same dict is returned to
+    that a ``--ntt-flavor matmul`` key runs), schoolbook round kernel
+    launches (``round_launches``, one a round at the sets without NTT
+    primes) and schoolbook-product kernel launches (``s1_launches``, which no
+    path launches since the round kernel took its place; all 0 on the CPU),
+    ``seconds`` and ``pbs_per_s``; the same dict is returned to
     an in-process caller.  ``--ntt-flavor`` is the JAX package's
     ``REDSEC_NTT``: the NTT-domain order both keys are prepared in."""
     import torch
@@ -218,7 +220,7 @@ def cmd_run_encrypted(args):
     fwd = build_encrypted_forward(plan, dkey, **opts)
     x = torch.as_tensor(ct, device=dev)
     k4_before, s1_before = launches.get("blind_rotate"), launches.get("schoolbook_product")
-    mm_before = launches.get("blind_rotate_mm")
+    mm_before, r_before = launches.get("blind_rotate_mm"), launches.get("schoolbook_round")
     t0 = time.time()
     scores = fwd(x).cpu().numpy()
     dt = time.time() - t0
@@ -226,6 +228,7 @@ def cmd_run_encrypted(args):
               "pbs": fwd.pbs_per_image * int(ct.shape[0]),
               "k4_launches": launches.get("blind_rotate") - k4_before,
               "k4mm_launches": launches.get("blind_rotate_mm") - mm_before,
+              "round_launches": launches.get("schoolbook_round") - r_before,
               "s1_launches": launches.get("schoolbook_product") - s1_before, "seconds": dt}
     record["pbs_per_s"] = record["pbs"] / dt
     kio.save_ciphertexts(args.out, scores, params, label=label, out_gain=fwd.out_gain,

@@ -14,12 +14,17 @@ package).
 
 The parameter sets without NTT primes (N >= 4096: ``medium``, ``large``,
 ``medium_v2``, ``large_v2``), and any set prepared with ``schoolbook=True``,
-run the JAX package's schoolbook branch instead: a loop of n rounds in
-torch (rotate, difference, decompose) around one launch a round of the
-``schoolbook_product`` kernel (csrc/schoolbook.cu) on the raw BK.  Its
-output is the exact product, as the JAX package's ``bootstrap_host`` has
-it; the JAX package's int8 convolution wraps the negated digit -(-128) at
-Bg/2 = 128 (``medium_v2``, ``large_v2``), where the two differ.
+run the JAX package's schoolbook branch instead: n CMUX rounds, each one
+call of ``kernels.schoolbook_round`` (csrc/schoolbook_fft.cu: rotate,
+difference, decompose, exact float64 transforms against the key's prepared
+spectra, the add; its plain twin, the same transforms in torch, on a CPU
+tensor).  Its output is the exact product, as the JAX package's
+``bootstrap_host`` has it, and equals the loop of the JAX package's own
+formulation (rotate, difference and decompose around S1,
+``kernels.schoolbook_product`` on the raw BK), which the tests keep as a
+reference; the JAX
+package's int8 convolution wraps the negated digit -(-128) at Bg/2 = 128
+(``medium_v2``, ``large_v2``), where the two differ.
 
 All arithmetic is exact, so the output is bit-identical to the JAX package's
 ``make_batched_bootstrap`` for the same key and ciphertexts, whatever the
@@ -75,9 +80,10 @@ class DeviceCloudKey:
     [P, n/2, 3*rows, 2*limbs, N], per pair the rows of TGSW(s_2i),
     TGSW(s_2i+1) and TGSW(s_2i * s_2i+1).  Without one (``plan`` None,
     flavour ``"schoolbook"``): ``bk`` int32 [n, rows, 2, N], the raw
-    coefficient-domain BK that the schoolbook kernel reads a round at a time
-    (exact as it is; the JAX package keeps reversed-tap int8 limbs of it for
-    its int8 convolution).  Flavour ``"matmul"``: the same residues in the
+    coefficient-domain BK (exact as it is; the JAX package keeps reversed-tap
+    int8 limbs of it for its int8 convolution), and ``spectra`` complex128
+    [n, rows, 2, 2, N/2], its 16-bit halves' twisted spectra, which the
+    schoolbook round kernel reads a round at a time.  Flavour ``"matmul"``: the same residues in the
     four-step [k1, k2] order of ``ntt_matmul``, held as int16
     [P, n', R, 2*limbs, R4, C4] (N = R4 * C4): a shape the radix-2 kernels
     refuse and the four-step ones (``kernels.*_mm``) take.  ``ksk``: int32
@@ -93,6 +99,11 @@ class DeviceCloudKey:
     # transformed); the kernels and their twins check it (a key in another
     # order is garbage to them)
     ntt_flavor: str = "radix2"
+    # flavour "schoolbook" only: complex128 [n, rows, 2, 2, N/2], each raw
+    # BK row's sign-balanced 16-bit halves [u][half] as the spectra of their
+    # twisted folds (kernels.key_spectra), the operand of every schoolbook
+    # round (kernel and twin); the raw ``bk`` stays for S1
+    spectra: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -159,7 +170,10 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
     2048, plain and bundled (``bk_pair``) keys; and, for the sets without
     NTT primes (N >= 4096) or with ``schoolbook`` (the JAX package's
     ``REDSEC_FORCE_SCHOOLBOOK``), the schoolbook key: the raw BK uploaded
-    ``chunk`` key bits at a time, flavour ``"schoolbook"``.  As in the JAX
+    ``chunk`` key bits at a time, flavour ``"schoolbook"``, with its spectra
+    made on the device ``chunk`` rounds at a time
+    (``kernels.prepare_key_spectra``, which raises unless the round's
+    a-priori rounding bound is below 1/2).  As in the JAX
     package, a schoolbook key ignores ``bk_pair`` (it runs unbundled).  On
     CUDA an NTT combination the kernels are not built for
     (``kernels.supported``) raises: nothing falls back.
@@ -180,8 +194,10 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
         if ntt_flavor != "radix2":
             raise ValueError(f"{p.name}: a schoolbook key (no NTT plan) has no "
                              f"{ntt_flavor!r} flavour")
-        return DeviceCloudKey(params=p, plan=None, bk=_upload(cloud.bk, dev, chunk), ksk=ksk,
-                              rerand=_rerand(cloud, dev), ntt_flavor="schoolbook")
+        bk = _upload(cloud.bk, dev, chunk)
+        return DeviceCloudKey(params=p, plan=None, bk=bk, ksk=ksk, rerand=_rerand(cloud, dev),
+                              ntt_flavor="schoolbook",
+                              spectra=kernels.prepare_key_spectra(bk, p, chunk))
     bundle = 2 if bundled else 1
     matmul = ntt_flavor == "matmul"
     if matmul and not ntt_matmul.supported(p.N):
@@ -337,18 +353,20 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
     key is; for ``ntt_flavor="matmul"`` it is ``kernels.blind_rotate_mm``
     where ``kernels.supported_mm`` takes the set and the key's bundling, else
     the torch loop ``kernels.blind_rotate_mm_plain``.  Without
-    one (``plan`` None) it is the JAX package's schoolbook body: n rounds of
-    rotate, difference and decompose around ``kernels.schoolbook_product`` on
-    the raw BK's round slice.  The impl checks every key it is given against
+    one (``plan`` None) it is the JAX package's schoolbook body: n calls of
+    ``kernels.schoolbook_round`` on the key's spectra (two accumulator
+    buffers in turn).  The impl checks every key it is given against
     ``ntt_flavor``."""
     N, n = p.N, p.n
     ops = RoundOps(p)
 
     def blind_rotate_schoolbook(acc: torch.Tensor, abar: torch.Tensor,
-                                bk: torch.Tensor) -> torch.Tensor:
+                                dkey: DeviceCloudKey) -> torch.Tensor:
+        # one schoolbook round a key bit, on two buffers in turn
+        ts = abar.t().contiguous()
+        spare = torch.empty_like(acc)
         for i in range(n):
-            digits = ops.decompose(ops.rotate(acc, abar[:, i]) - acc)
-            acc = acc + kernels.schoolbook_product(digits, bk[i], ops.p.half_bg)
+            acc, spare = kernels.schoolbook_round(acc, ts[i], dkey.spectra[i], p, out=spare), acc
         return acc
 
     want = "schoolbook" if plan is None else ntt_flavor
@@ -361,7 +379,7 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
         acc_b = ops.rotate(tv, (2 * N - bbar) % (2 * N))
         acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1).contiguous()
         if plan is None:
-            acc = blind_rotate_schoolbook(acc, abar, dkey.bk)
+            acc = blind_rotate_schoolbook(acc, abar, dkey)
         elif ntt_flavor == "matmul":
             # the shape rule: the four-step kernel takes what the JAX package's
             # Pallas kernel takes (two primes < 2^15, N = 256 or 1024, bundle
@@ -397,6 +415,13 @@ def _check_key(dkey: DeviceCloudKey, need: Optional[str] = None) -> None:
     if dkey.bk.ndim != ndim:
         raise ValueError(f"a {dkey.ntt_flavor!r}-flavour key's BK has {ndim} dimensions, this one "
                          f"{tuple(dkey.bk.shape)}")
+    if dkey.ntt_flavor == "schoolbook":
+        p = dkey.params
+        want = (p.n, p.decomp_rows, 2, 2, p.N // 2)
+        if dkey.spectra is None or tuple(dkey.spectra.shape) != want:
+            raise ValueError(f"a schoolbook key needs its spectra complex128 {list(want)} "
+                             "(prepare it with prepare_cloud_key); this one has "
+                             f"{None if dkey.spectra is None else tuple(dkey.spectra.shape)}")
     if dkey.plan is None and dkey.bundle != 1:
         raise ValueError("bundle=2 requires an NTT plan (the schoolbook path for the "
                          "medium/large parameter sets runs unbundled)")

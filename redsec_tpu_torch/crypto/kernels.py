@@ -57,6 +57,7 @@ cores; its twin is an exact float64 FFT product.
 from __future__ import annotations
 
 import ctypes
+import math
 import os
 import shutil
 import subprocess
@@ -632,6 +633,7 @@ _SB_ENTRIES = {
 _sb_loaded: list[Library] = []
 SCHOOLBOOK_MAX_HALF_BG = 512  # two s8 limbs of a digit: lo in [-128, 127], hi in [-2, 2]
 SCHOOLBOOK_MAX_ROWS = 64
+_E = 2.0 ** -53  # float64's unit roundoff
 
 
 def _sb_lib() -> Library:
@@ -692,11 +694,13 @@ def _fft_error_bound(digits: torch.Tensor, halves: torch.Tensor) -> float:
     72 (2003), Theorem 5.1).  Twiddles from a library are taken as no better
     than 4e, and the ``rows`` products are summed in the frequency domain, so
     the bound on one coefficient is the sum over rows of the largest
-    ||digits_r||_2 x ||half_r||_2, times that factor."""
+    ||digits_r||_2 x ||half_r||_2, times that factor.  The powers are taken
+    through log1p: in float64 1 + 2^-53 is 1, and (1 + e)^3k with it."""
     L = 2 * digits.shape[-1]
     k = L.bit_length() - 1
-    e = 2.0 ** -53
-    factor = (1 + e) ** (3 * k) * (1 + 5 ** 0.5 * e) ** (3 * k + 1) * (1 + 4 * e) ** (3 * k) - 1
+    e = _E
+    factor = math.expm1(3 * k * math.log1p(e) + (3 * k + 1) * math.log1p(5 ** 0.5 * e)
+                        + 3 * k * math.log1p(4 * e))
     dn = digits.to(torch.float64).norm(dim=-1).amax(dim=0)  # [rows]
     hn = halves.norm(dim=-1).flatten(1).amax(dim=1)  # [rows]
     return 2 * float((dn * hn).sum()) * factor
@@ -767,6 +771,254 @@ def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor,
             raise ValueError(f"{name} must start on a 16-byte boundary")
     _sb_lib().launch("redsec_schoolbook_product", "schoolbook_product", dev, digits.data_ptr(),
                      bk_round.data_ptr(), out.data_ptr(), B, rows, N, half_bg, flush_rows)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# S1-fft: the whole schoolbook CMUX round on the key's spectra                #
+# (csrc/schoolbook_fft.cu)                                                    #
+# --------------------------------------------------------------------------- #
+
+SBFFT_SOURCE = os.path.join(_PKG, "csrc", "schoolbook_fft.cu")
+SBFFT_N = (256, 512, 1024, 2048, 4096, 8192)  # N the round kernel is instantiated for
+_SBF_ENTRIES = {
+    "redsec_schoolbook_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P],
+}
+_sbf_loaded: list[Library] = []
+_fft_cache: dict = {}
+_LIBRARY_TWIDDLE_ERROR = 4 * _E  # what the bounds take for torch.fft's own twiddles
+
+
+def _sbf_lib() -> Library:
+    if not _sbf_loaded:
+        _sbf_loaded.append(Library(SBFFT_SOURCE, _SBF_ENTRIES))
+    return _sbf_loaded[0]
+
+
+def _fft_tables_host(N: int) -> tuple[np.ndarray, np.ndarray, float]:
+    """The round kernel's twiddles at N (M = N / 2), computed in long double
+    and rounded once to complex128: W_M^m = exp(-2 pi i m / M) and the twist
+    zeta^j = exp(i pi j / N), m, j < M; and the largest error of either table
+    against its long double value, plus 16 long double ulps for that value's
+    own error (its argument and cos/sin)."""
+    M = N // 2
+    pi = np.longdouble("3.14159265358979323846264338327950288")
+    m = np.arange(M).astype(np.longdouble)
+    err = 0.0
+    tabs = []
+    for ang in (-2 * pi * m / M, pi * m / N):
+        c, s = np.cos(ang), np.sin(ang)
+        t = c.astype(np.float64) + 1j * s.astype(np.float64)
+        err = max(err, float(np.max(np.hypot(t.real - c, t.imag - s))))
+        tabs.append(t)
+    return tabs[0], tabs[1], err + 16 * float(np.finfo(np.longdouble).eps)
+
+
+def fft_tables(N: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(W_M^m, zeta^j) as complex128 tensors [N / 2] on ``device``, built
+    once per N and device (``_fft_tables_host``)."""
+    dev = torch.device(device)
+    key = (N, str(dev))
+    if key not in _fft_cache:
+        tw, twist, _ = _fft_tables_host(N)
+        _fft_cache[key] = (torch.as_tensor(tw, device=dev), torch.as_tensor(twist, device=dev))
+    return _fft_cache[key]
+
+
+def fft_twiddle_error(N: int) -> float:
+    """The largest error of the round kernel's twiddles at N (absolute; every
+    twiddle has modulus 1), from their long double values."""
+    return _fft_tables_host(N)[2]
+
+
+def schoolbook_fft_error_bound(N: int, rows: int, half_bg: int, half_norm_sum: float) -> float:
+    """An a-priori bound on the largest error of the values the round kernel
+    and its twin round to integers, for ``rows`` digit rows with digits in
+    [-half_bg, half_bg) and key halves whose 2-norms sum over the rows to at
+    most ``half_norm_sum`` (for every round, polynomial and half).
+
+    Percival's Theorem 5.1 ("Rapid multiplication modulo the sum and
+    difference of highly composite numbers", Math. Comp. 72 (2003)): a cyclic
+    convolution of length 2^k through three float64 FFTs (forward, forward,
+    pointwise product, inverse) is off by less than ||x||_2 ||y||_2
+    ((1 + e)^3k (1 + sqrt(5) e)^(3k+1) (1 + b)^3k - 1), e = 2^-53, b the
+    twiddles' error.  Re-derived for the twisted transform the kernel uses
+    (``csrc/schoolbook_fft.cu``): length M = N / 2 (k = log2 M), each of the
+    three transforms with one more complex product by a tabled root (the
+    twist, or the untwist), and the rows products summed in the frequency
+    domain before the inverse (rows - 1 more roundings).  The fold and twist
+    keep the 2-norm of a real row (|zeta^j| = 1), so x and y are a digit row
+    and a key half: ||x||_2 <= half_bg sqrt(N), the worst case whatever the
+    data, and the halves' norms are the prepared key's.  b is the larger of
+    the kernel's own twiddles' error (``fft_twiddle_error``) and 4e, taken
+    for torch.fft's (the key's spectra, and every transform of the twin); the
+    key's spectra are stored as their FFT rounds them, so their rounding is
+    the last level of that transform.  The powers are taken through log1p
+    (1 + 2^-53 is 1 in float64).  With the halves at their largest
+    (2^15 sqrt(N) each, any key): ``medium`` 0.01212, ``large`` 0.02622,
+    ``medium_v2`` 0.00407, ``large_v2`` 0.008803, forced ``small_v2_tpu``
+    0.0001626; a uniformly random key's halves (2^15 sqrt(N / 3)) give about
+    0.58 of that (``schoolbook_key_bound``; the prepared keys' values are in
+    PERF.md section 6)."""
+    M = N // 2
+    k = M.bit_length() - 1
+    b = max(_LIBRARY_TWIDDLE_ERROR, fft_twiddle_error(N))
+    log_factor = ((3 * k + rows - 1) * math.log1p(_E)
+                  + (3 * (k + 1) + 1) * math.log1p(5 ** 0.5 * _E)
+                  + 3 * (k + 1) * math.log1p(b))
+    return half_bg * math.sqrt(N) * half_norm_sum * math.expm1(log_factor)
+
+
+def _key_halves(bk: torch.Tensor) -> torch.Tensor:
+    """int32 [..., N] -> float64 [..., 2, N]: its sign-balanced 16-bit halves
+    lo, hi with bk = lo + 2^16 hi (|lo|, |hi| <= 2^15)."""
+    b = bk.to(torch.int64)
+    lo = ((b + (1 << 15)) & 0xFFFF) - (1 << 15)
+    return torch.stack([lo, (b - lo) >> 16], dim=-2).to(torch.float64)
+
+
+def _twisted_dft(x: torch.Tensor, twist: torch.Tensor) -> torch.Tensor:
+    """float64 [..., N] -> complex128 [..., N / 2]: the DFT of the twisted
+    fold (x[j] + i x[j + N/2]) zeta^j."""
+    M = x.shape[-1] // 2
+    return torch.fft.fft(torch.complex(x[..., :M], x[..., M:]) * twist)
+
+
+def key_spectra(bk: torch.Tensor) -> torch.Tensor:
+    """Raw BK rounds int32 [..., rows, 2, N] -> their spectra complex128
+    [..., rows, 2, 2, N / 2] ([u][half]: the twisted DFT of each 16-bit
+    half), on ``bk``'s device; the operand the round kernel reads."""
+    return _twisted_dft(_key_halves(bk), fft_tables(bk.shape[-1], bk.device)[1])
+
+
+def prepare_key_spectra(bk: torch.Tensor, params: TfheParams, chunk: int) -> torch.Tensor:
+    """A schoolbook key's spectra [n, rows, 2, 2, N / 2] from its raw BK
+    int32 [n, rows, 2, N] on the BK's device, ``chunk`` rounds at a time.
+    Raises unless ``schoolbook_fft_error_bound`` at the worst-case digits
+    and this key's halves is below 1/2: then every product the round kernel
+    and its twin compute rounds to the exact integer, whatever the data."""
+    n, rows, _, N = bk.shape
+    if N not in SBFFT_N:
+        raise ValueError(f"{params.name}: the schoolbook round kernel takes N in {SBFFT_N}, "
+                         f"not {N}")
+    bound = schoolbook_key_bound(bk, params, chunk)
+    if not bound < 0.5:
+        raise ValueError(f"{params.name}: the float64 round could round wrongly (a-priori "
+                         f"error bound {bound:.3g} >= 1/2 at Bg/2 = {params.half_bg}, N = {N})")
+    spectra = torch.empty((n, rows, 2, 2, N // 2), dtype=torch.complex128, device=bk.device)
+    for i0 in range(0, n, chunk):
+        spectra[i0:i0 + chunk] = key_spectra(bk[i0:i0 + chunk])
+    return spectra
+
+
+def schoolbook_key_bound(bk: torch.Tensor, params: TfheParams, chunk: int = 64) -> float:
+    """``schoolbook_fft_error_bound`` for the raw BK int32 [n, rows, 2, N]:
+    the worst-case digits of ``params`` against the largest sum over the
+    rows of this key's halves' 2-norms (any round, polynomial and half),
+    ``chunk`` rounds at a time."""
+    n, rows, _, N = bk.shape
+    norm_sum = max(float(_key_halves(bk[i0:i0 + chunk]).norm(dim=-1).sum(dim=1).amax())
+                   for i0 in range(0, n, chunk))
+    return schoolbook_fft_error_bound(N, rows, params.half_bg, norm_sum)
+
+
+def schoolbook_fft_product_plain(digits: torch.Tensor, spectra_round: torch.Tensor,
+                                 half_bg: int) -> torch.Tensor:
+    """digits int32 [B, rows, N] in [-half_bg, half_bg) x one round's key
+    spectra complex128 [rows, 2, 2, N / 2] -> delta int32 [B, 2, N]: the same
+    function as ``schoolbook_product_plain`` on the raw round, computed as
+    the round kernel computes it (the twisted length-N/2 transforms, see
+    ``csrc/schoolbook_fft.cu``) with torch.fft.  Exact while
+    ``schoolbook_fft_error_bound`` is below 1/2, which ``prepare_key_spectra``
+    asserts for every prepared key.  Raises on a digit outside
+    [-half_bg, half_bg)."""
+    if digits.numel():
+        lo, hi = torch.stack(torch.aminmax(digits)).tolist()
+        if not (lo >= -half_bg and hi < half_bg):
+            raise ValueError(f"digits outside [-{half_bg}, {half_bg}): [{lo}, {hi}]")
+    B, rows, N = digits.shape
+    if tuple(spectra_round.shape) != (rows, 2, 2, N // 2):
+        raise ValueError(f"key spectra of shape {tuple(spectra_round.shape)}, expected "
+                         f"{(rows, 2, 2, N // 2)} for digits {tuple(digits.shape)}")
+    twist = fft_tables(N, digits.device)[1]
+    fd = _twisted_dft(digits.to(torch.float64), twist)  # [B, rows, M]
+    spec = None
+    for r in range(rows):
+        term = fd[:, r, None, None, :] * spectra_round[r][None]
+        spec = term if spec is None else spec + term
+    z = torch.fft.ifft(spec) * twist.conj()  # [B, 2, 2, M]
+    v = torch.round(torch.cat([z.real, z.imag], dim=-1)).to(torch.int64)
+    out = v[:, :, 0] + (v[:, :, 1] << 16)
+    return (((out + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def schoolbook_round_plain(acc: torch.Tensor, t: torch.Tensor, spectra_round: torch.Tensor,
+                           params: TfheParams, out: torch.Tensor | None = None) -> torch.Tensor:
+    """One schoolbook CMUX round: acc [B, 2, N] + the external product of
+    decompose(X^t acc - acc) (``bootstrap.RoundOps``) with the round's key
+    spectra, in torch (``schoolbook_fft_product_plain``); written into
+    ``out`` when it is given."""
+    _require_spectra(spectra_round)
+    ops = bs.RoundOps(params)
+    digits = ops.decompose(ops.rotate(acc, t) - acc)
+    res = acc + schoolbook_fft_product_plain(digits, spectra_round, params.half_bg)
+    return res if out is None else out.copy_(res)
+
+
+def _require_spectra(spectra_round) -> None:
+    if spectra_round is None:
+        raise ValueError("the schoolbook round needs the key's spectra (DeviceCloudKey.spectra, "
+                         "made by prepare_cloud_key); this key has none")
+
+
+def schoolbook_round_layout(N: int) -> dict:
+    """How the round kernel lays out a launch at N (the rule of
+    ``schoolbook_fft.cu``'s ``Shape<M>::T`` and ``launch<M>``): a cluster of
+    two blocks a ciphertext, one output polynomial each, sharing the forward
+    transforms; ``threads`` a block (N / 16, at least 32); ``shared_bytes``
+    a block: one transform buffer of N / 2 complex128 and two through which
+    each block hands its partner the spectrum of every other digit row; and
+    the ``instance`` as the compiler's report names it."""
+    if N not in SBFFT_N:
+        raise ValueError(f"the schoolbook round kernel takes N in {SBFFT_N}, not {N}")
+    M = N // 2
+    return {"threads": max(32, M // 8), "shared_bytes": 48 * M,
+            "instance": f"schoolbook_round_kernelILi{M}E"}
+
+
+def schoolbook_round(acc: torch.Tensor, t: torch.Tensor, spectra_round: torch.Tensor,
+                     params: TfheParams, out: torch.Tensor | None = None) -> torch.Tensor:
+    """S1-fft: one schoolbook CMUX round in one launch, see
+    ``schoolbook_round_plain``: rotate, difference, decompose, the forward
+    transforms, the product with the round's key spectra [rows, 2, 2, N/2]
+    (``DeviceCloudKey.spectra[i]``), the inverse, rounding, and the add, with
+    no digit in memory.  ``out`` may be ``acc`` itself.  Takes N in
+    ``SBFFT_N`` with rows = 2 l; raises on anything else, and on a key
+    without spectra."""
+    _require_spectra(spectra_round)
+    if acc.device.type == "cpu":
+        return schoolbook_round_plain(acc, t, spectra_round, params, out)
+    B, N, rows = acc.shape[0], params.N, params.decomp_rows
+    if N not in SBFFT_N or params.l * params.bg_bit > 32:
+        raise ValueError(f"{params.name}: the schoolbook round kernel takes N in {SBFFT_N} "
+                         f"and l * bg_bit <= 32")
+    dev = acc.device
+    _require(acc, "acc", torch.int32, (B, 2, N), dev)
+    _require(t, "t", torch.int32, (B,), dev)
+    _require(spectra_round, "spectra_round", torch.complex128, (rows, 2, 2, N // 2), dev)
+    if out is None:
+        out = torch.empty_like(acc)
+    else:
+        _require(out, "out", torch.int32, (B, 2, N), dev)
+    for name, x in (("acc", acc), ("spectra_round", spectra_round), ("out", out)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if B == 0:
+        return out
+    tw, twist = fft_tables(N, dev)
+    _sbf_lib().launch("redsec_schoolbook_round", "schoolbook_round", dev, acc.data_ptr(),
+                      t.data_ptr(), spectra_round.data_ptr(), tw.data_ptr(), twist.data_ptr(),
+                      out.data_ptr(), B, N, rows, *_gadget_args(params))
     return out
 
 

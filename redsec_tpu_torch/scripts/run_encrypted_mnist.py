@@ -36,8 +36,9 @@ every model.  ``--jit`` is only a label, kept in the fingerprint so that a
 checkpoint of either package resumes in the other.
 
 The last line is the JAX script's ``RESULT ...``; the line before it gives
-the blind-rotation (K4) and schoolbook-product (S1) launches counted at the
-kernels' doors over the batches this run encrypted.
+the blind-rotation (K4), schoolbook round (S1-fft) and schoolbook-product
+(S1) launches counted at the kernels' doors over the batches this run
+encrypted.
 """
 
 from __future__ import annotations
@@ -272,7 +273,7 @@ def main(argv=None) -> dict:
 
     cold = args.time_mode == "cold"
     pending = [i0 for i0 in range(0, args.images, nb) if str(i0) not in ck["batches"]]
-    doors = ("blind_rotate", "schoolbook_product")
+    doors = ("blind_rotate", "schoolbook_round", "schoolbook_product")
     before = {k: launches.get(k) for k in doors}
     if not cold and pending:
         _, t_first = run_batch(x[pending[0]:pending[0] + nb], pending[0])

@@ -27,8 +27,19 @@ radix-2 key where both run.  ``--forward`` times as well the main path's
 slice: ``mnist/sign1024x1`` with the golden weights of ``tests/golden`` at
 ``small_v2_tpu`` on 8 synthetic images (seed 1), one warm-up forward and then
 ``FORWARD_REPS`` timed ones (host clock around ``synchronize()``, the key
-prepared beforehand), each with its PBS/s.  One JSON line per run ends the
-output.
+prepared beforehand), each with its PBS/s.  A set of ``--sets`` without
+NTT primes (``medium``, ``large``, ``medium_v2``, ``large_v2``) times one
+schoolbook CMUX round at 512 instead of K4: S1 with its torch glue (rotate,
+difference, decompose, the add), and, where the checkout has it, the
+schoolbook round kernel (``schoolbook_round``) beside it in turns, each held
+against the other.  ``--cli SET`` times ``run-encrypted`` of the checkout's
+command line on one ``mnist/sign1024x1`` image at SET (its JSON record:
+seconds, PBS/s, launches); the key files are made by the command line into
+``--work`` on first use and reused, so two checkouts run on the same key.
+One JSON line per run ends the output.
+
+    python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent \
+        --sets medium_v2,large --cli medium_v2
 """
 
 from __future__ import annotations
@@ -67,6 +78,11 @@ def main(argv=None) -> dict:
                          "S1), matmul (K2-mm, K3-mm, K4-mm)")
     ap.add_argument("--forward", action="store_true",
                     help="also time the sign1024x1 forward at small_v2_tpu on 8 images")
+    ap.add_argument("--cli", default="",
+                    help="also time run-encrypted on one sign1024x1 image at this set")
+    ap.add_argument("--work", default=os.path.join(os.path.dirname(os.path.dirname(HERE)),
+                                                   "build", "time_kernels_cli"),
+                    help="where --cli keeps its key and image files")
     args = ap.parse_args(argv)
     flavors = set(filter(None, args.flavor.split(",")))
     if not flavors or flavors - {"radix2", "matmul"}:
@@ -135,6 +151,9 @@ def main(argv=None) -> dict:
             runs.append((name, int(bundle or 1), 512))
         for name, bundle, B in runs:
             Pk = get_params(name)
+            if bs.bootstrap_plan(Pk) is None:
+                _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms)
+                continue
             if (name, bundle) != ("small_v2_tpu", 1):
                 _, cl = kg.keygen(Pk, seed=0, bundle=bundle)
                 dk = bs.prepare_cloud_key(cl, device="cuda")
@@ -181,8 +200,70 @@ def main(argv=None) -> dict:
         _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, ms)
     if args.forward:
         _time_forward(args, out, P, dkey)
+    if args.cli:
+        _time_cli(args, out, get_params(args.cli))
     print(json.dumps(out), flush=True)
     return out
+
+
+def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms, B: int = 512) -> None:
+    """One schoolbook CMUX round at ``Pk`` on ``B`` random accumulators and
+    exponents and a random raw BK round: S1 with the torch glue around it,
+    and the checkout's round kernel where it has one, in turns (glue, kernel,
+    kernel, glue), the kernel held against S1 with its glue."""
+    import torch
+
+    N, rows = Pk.N, Pk.decomp_rows
+    acc, t = ri(-2**31, 2**31, (B, 2, N)), ri(0, 2 * N, (B,))
+    bk = ri(-2**31, 2**31, (rows, 2, N))
+    ops = bs.RoundOps(Pk)
+    takes_half = len(inspect.signature(K.schoolbook_product).parameters) == 3
+    extra = (Pk.half_bg,) if takes_half else ()
+
+    def s1_glue():
+        return acc + K.schoolbook_product(ops.decompose(ops.rotate(acc, t) - acc), bk, *extra)
+
+    turns = [("s1_glue", s1_glue)]
+    if hasattr(K, "schoolbook_round"):
+        spectra, spare = K.key_spectra(bk), torch.empty_like(acc)
+        same(f"schoolbook_round {Pk.name} [{B}, {rows}, {N}] against S1 and its glue",
+             K.schoolbook_round(acc, t, spectra, Pk), s1_glue())
+        turns += [("round", lambda: K.schoolbook_round(acc, t, spectra, Pk, out=spare))]
+    for tag, f in turns + turns[::-1]:
+        out.setdefault(f"{tag}_ms_{Pk.name}_{B}", []).append(ms(f, 10, warmup=2))
+    print(f"{args.tag} schoolbook round {Pk.name} [{B}, {rows}, {N}] in turns: "
+          + "; ".join(f"{tag} {', '.join(f'{v:.4f}' for v in out[f'{tag}_ms_{Pk.name}_{B}'])} ms"
+                      for tag, _ in turns), flush=True)
+
+
+def _time_cli(args, out, Pc) -> None:
+    """``run-encrypted`` of the checkout's command line on one sign1024x1
+    image at ``Pc`` (keygen and encrypt-image into ``--work`` once)."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from redsec_tpu_torch import cli
+    from redsec_tpu_torch.formats.image_io import write_image_ptxt
+
+    work = os.path.join(args.work, Pc.name)
+    files = {k: os.path.join(work, f) for k, f in (
+        ("secret", "secret.key.npz"), ("eval", "eval.key.npz"), ("ptxt", "image.ptxt"),
+        ("ctxt", "image.ctxt.npz"), ("out", f"out.{args.tag}.ctxt.npz"))}
+    if not os.path.exists(files["ctxt"]):
+        cli.main(["keygen", "--params", Pc.name, "--seed", "0", "--out-dir", work])
+        raw = np.random.default_rng(1).integers(0, 256, size=(28, 28, 1))
+        write_image_ptxt(files["ptxt"], 0, raw)
+        cli.main(["encrypt-image", "--secret", files["secret"], "--image-ptxt", files["ptxt"],
+                  "--out", files["ctxt"]])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["run-encrypted", "--model", "mnist/sign1024x1", "--weights", WEIGHTS,
+                  "--eval", files["eval"], "--image", files["ctxt"], "--out", files["out"]])
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    out[f"cli_{Pc.name}"] = rec
+    print(f"{args.tag} cli run-encrypted {Pc.name}: {rec}", flush=True)
 
 
 def _time_forward(args, out, P, dkey) -> None:

@@ -10,6 +10,7 @@ Tolerance: exact equality (integer arithmetic mod p and mod 2^32).
 """
 
 import ctypes
+import dataclasses
 import os
 
 import numpy as np
@@ -424,9 +425,9 @@ def test_schoolbook_pbs_equals_the_ntt_pbs(key):
     ct = lwe.encrypt_integers(sk.lwe_key, rng.integers(-300, 300, size=9), P, rng)
     tv = bs.const_test_vector(P, 1, P.msg_space)
     sb = bs.prepare_cloud_key(cloud, device="cuda", schoolbook=True)
-    before = K.launches.get("schoolbook_product")
+    before = K.launches.get("schoolbook_round")  # one round kernel launch a round
     got = bs.make_batched_bootstrap(sb)(ct, tv)
-    assert K.launches.get("schoolbook_product") == before + P.n
+    assert K.launches.get("schoolbook_round") == before + P.n
     assert torch.equal(got, bs.make_batched_bootstrap(dkey)(ct, tv))
 
 
@@ -451,6 +452,97 @@ def test_schoolbook_wrapper_rejects_bg_without_a_limb_plan(card, half):
     with pytest.raises(ValueError, match="Bg/2"):
         K.schoolbook_product(digits, bk, half)
     assert K.launches.get("schoolbook_product") == before
+
+
+# the schoolbook round kernel's sets: N 4096 and 8192 with 6 rows at Bg/2 512
+# and 8 at 128 (medium, large and the v2 sets), N 1024 with 12 and 20 rows
+# (forced small_v2_tpu and small_v2), and both gadgets of the N >= 4096 sets
+# at N 1024
+ROUND_SETS = ["medium", "medium_v2", "large", "large_v2", "small_v2_tpu", "small_v2",
+              "medium@1024", "medium_v2@1024"]
+
+
+def _round_params(name):
+    from redsec_tpu_torch.crypto.params import get_params
+
+    base, _, n = name.partition("@")
+    p = get_params(base)
+    return dataclasses.replace(p, N=int(n)) if n else p
+
+
+def _round_inputs(rng, Pr, batch):
+    acc = _ri(rng, -2**31, 2**31, (batch, 2, Pr.N))
+    t = _ri(rng, 0, 2 * Pr.N, (batch,))
+    bk = _ri(rng, -2**31, 2**31, (Pr.decomp_rows, 2, Pr.N))
+    bk[0, 0, :4] = -2**31
+    return acc, t, K.key_spectra(bk), bk
+
+
+@pytest.mark.parametrize("name", ROUND_SETS)
+@pytest.mark.parametrize("batch", [1, 4, 196, 512, 513])
+def test_schoolbook_round_kernel_equals_twin(card, name, batch):
+    """One launch against its twin (the same transforms in torch) and against
+    S1 with the torch glue; at batch 4 the first two ciphertexts' digits all
+    -Bg/2 (acc = offset / 2, rotated by N), the worst-case norm."""
+    Pr = _round_params(name)
+    rng = np.random.default_rng(batch + Pr.N + Pr.decomp_rows)
+    acc, t, spectra, bk = _round_inputs(rng, Pr, batch)
+    if batch == 4:
+        fill = bs.gadget_offset(Pr) // 2
+        acc[:2] = fill - 2**32 if fill >= 2**31 else fill
+        t[:2] = Pr.N
+    before = K.launches.get("schoolbook_round")
+    got = K.schoolbook_round(acc, t, spectra, Pr)
+    assert K.launches.get("schoolbook_round") == before + 1
+    assert torch.equal(got, K.schoolbook_round_plain(acc, t, spectra, Pr))
+    ops = bs.RoundOps(Pr)
+    digits = ops.decompose(ops.rotate(acc, t) - acc)
+    if batch == 4:
+        assert int(digits[:2].max()) == int(digits[:2].min()) == -Pr.half_bg
+    assert torch.equal(got, acc + K.schoolbook_product_plain(digits, bk, Pr.half_bg))
+
+
+@pytest.mark.parametrize("name", ["medium_v2", "large", "small_v2_tpu"])
+def test_schoolbook_round_kernel_in_place(card, name):
+    """``out=acc``: at N 8192 the cluster pair of a ciphertext meets at a
+    barrier after its last read of acc, so the in-place round is exact."""
+    Pr = _round_params(name)
+    acc, t, spectra, _ = _round_inputs(np.random.default_rng(2), Pr, 133)
+    want = K.schoolbook_round_plain(acc, t, spectra, Pr)
+    assert K.schoolbook_round(acc, t, spectra, Pr, out=acc) is acc
+    assert torch.equal(acc, want)
+
+
+def test_schoolbook_round_wrapper_rejects_what_the_kernel_does_not_take(card):
+    Pr = _round_params("medium_v2")
+    acc, t, spectra, _ = _round_inputs(np.random.default_rng(3), Pr, 4)
+    before = K.launches.get("schoolbook_round")
+    with pytest.raises(ValueError, match="spectra"):  # a key without spectra
+        K.schoolbook_round(acc, t, None, Pr)
+    flat = torch.zeros(acc.numel() + 1, dtype=torch.int32, device="cuda")
+    unaligned = flat[1:].view(acc.shape)
+    unaligned.copy_(acc)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.schoolbook_round(unaligned, t, spectra, Pr)
+    with pytest.raises(ValueError, match="16-byte"):
+        K.schoolbook_round(acc, t, spectra, Pr, out=unaligned)
+    with pytest.raises(ValueError, match="shape"):
+        K.schoolbook_round(acc, t, spectra[:7].contiguous(), Pr)
+    with pytest.raises(ValueError, match="dtype"):
+        K.schoolbook_round(acc, t.long(), spectra, Pr)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.schoolbook_round(acc.transpose(0, 1).contiguous().transpose(0, 1), t, spectra, Pr)
+    with pytest.raises(ValueError, match="N in"):
+        K.schoolbook_round(acc, t, spectra, dataclasses.replace(Pr, N=16384))
+    assert K.launches.get("schoolbook_round") == before
+
+
+def test_schoolbook_pbs_without_spectra_raises(key):
+    _, cloud, _ = key
+    sb = bs.prepare_cloud_key(cloud, device="cuda", schoolbook=True)
+    assert sb.spectra.device.type == "cuda"
+    with pytest.raises(ValueError, match="spectra"):
+        bs.make_batched_bootstrap(dataclasses.replace(sb, spectra=None))
 
 
 @pytest.mark.parametrize("n", [32, 64])

@@ -73,6 +73,30 @@ def _with_int8_wrap(product):
     return wrapped
 
 
+def _bk_of_spectra(spectra_round):
+    """The raw round int32 [rows, 2, N] that a round's key spectra
+    [rows, 2, 2, N / 2] encode: each half's inverse twisted transform,
+    rounded, recombined lo + 2^16 hi mod 2^32."""
+    M = spectra_round.shape[-1]
+    twist = kernels.fft_tables(2 * M, spectra_round.device)[1]
+    z = torch.fft.ifft(spectra_round) * twist.conj()
+    h = torch.round(torch.cat([z.real, z.imag], dim=-1)).to(torch.int64)
+    b = h[:, :, 0] + (h[:, :, 1] << 16)
+    return (((b + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def _spectra_product_with_int8_wrap():
+    """``kernels.schoolbook_fft_product_plain``, the product of every
+    schoolbook round on a CPU tensor, with JAX's int8 wrap emulated
+    (``_with_int8_wrap`` on the raw round that its spectra encode)."""
+    plain = kernels.schoolbook_fft_product_plain
+
+    def wrapped(digits, spectra_round, half_bg):
+        return _with_int8_wrap(lambda d, _bk, h: plain(d, spectra_round, h))(
+            digits, _bk_of_spectra(spectra_round), half_bg)
+    return wrapped
+
+
 def _encrypt_signs(sk, P, seed, size):
     rng = np.random.default_rng(seed)
     vals = rng.integers(-300, 300, size=(size,))
@@ -136,8 +160,9 @@ def test_medium_geometry_bootstrap_vs_jax_and_host_oracle(name, monkeypatch):
     if name == "medium":
         np.testing.assert_array_equal(got, want)
     else:
-        monkeypatch.setattr(kernels, "schoolbook_product",
-                            _with_int8_wrap(kernels.schoolbook_product))
+        assert torch.equal(_bk_of_spectra(dkey.spectra[2]), dkey.bk[2])
+        monkeypatch.setattr(kernels, "schoolbook_fft_product_plain",
+                            _spectra_product_with_int8_wrap())
         np.testing.assert_array_equal(bs.make_batched_bootstrap(dkey)(ct, tv).numpy(), want)
 
 

@@ -70,7 +70,7 @@ def test_measure_equals_jax_on_the_plain_path_and_the_native_core(label, needs_g
 
 
 def test_full_geometry_equals_jax_at_medium_with_n_cut(needs_gxx, monkeypatch):
-    """On the plain path (the schoolbook product's float64-FFT twin) and on
+    """On the plain path (the schoolbook round's float64 twin) and on
     the port's native core."""
     p = dataclasses.replace(MEDIUM, n=16)
     jp = jax_params(p)
