@@ -152,7 +152,8 @@ Phases (any failure exits non-zero):
      their worst-case norm (every digit -Bg/2), at 4 and 513 in place.
      Timed in turns with S1 alone and S1 with its glue (glue, kernel, S1,
      kernel, glue) at 512 at the four sets and at a gate's 4 at
-     ``medium_v2``.  Its ``bound_ms`` is the larger of its bytes (acc read
+     ``medium_v2``.  Each launched instance's cluster (blocks,
+     ciphertexts), registers and spills from the compiler's report.  Its ``bound_ms`` is the larger of its bytes (acc read
      and written, the round's spectra) and its twisted-transform flops
      (``bound_twisted_fp64_ms``): the transforms at the least published
      flop count (``fft_flops``) and the fp64 vector rate, the
@@ -457,9 +458,11 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 5) -> tuple[f
     step early: a warm-up step of one call, whose events the profiler drops,
     then the ``reps`` calls it records.  A named kernel runs once a call and
     must be seen exactly ``reps`` times.  The tracer has also been seen to
-    drop launches in the middle of a trace (one, and once two, of 20): a
-    trace that saw some launches but fewer than ``reps`` is taken again,
-    ``tries`` traces in all; one that saw more, or none, fails at once.
+    drop launches in the middle of a trace (one, and once two, of 20), and
+    once every launch of a trace (0 of 20 after the ``--profile`` forward
+    traces): a trace that saw fewer than ``reps`` launches, none included,
+    is taken again, ``tries`` traces in all; one that saw more fails at
+    once.
     Returns (ms, the traces taken again), the second for the kernel's
     record.  ``""`` sums every kernel of a PyTorch call."""
     import torch
@@ -483,10 +486,10 @@ def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 5) -> tuple[f
         seen = sum(e.count for e in evs)
         if seen and (not kernel or seen == reps):
             return sum(e.self_device_time_total for e in evs) / reps / 1e3, retries
-        if not kernel or not 0 < seen < reps:
+        if kernel and seen > reps:
             break
-        print(f"the profiler saw {seen} launches of {kernel} in {reps} calls; tracing again",
-              flush=True)
+        print(f"the profiler saw {seen} launches of {kernel or 'any kernel'} in {reps} calls; "
+              f"tracing again", flush=True)
     fail(f"the profiler saw {seen} launches of {kernel or 'any kernel'} in {reps} calls "
          f"(trace {retries + 1} of at most {tries})")
 
@@ -2644,15 +2647,18 @@ def main() -> int:
             if Bs in (4, 513):
                 K.schoolbook_round(acc_r, t_r, spec, Pr, out=acc_r)
                 same(f"schoolbook_round {name} [{Bs}, {rr}, {Nr}] in place", acc_r, want)
-        lay = K.schoolbook_round_layout(Nr)
-        r_inst[lay.pop("instance")] = Nr
+        lay = K.schoolbook_round_layout(Nr, rr)
+        r_inst[lay["instance"]] = lay
+        lay = {k: lay[k] for k in ("cluster", "ciphertexts", "threads", "shared_bytes", "instance")}
         print(f"kernel schoolbook_round {name} [*, {rr}, {Nr}] (Bg/2 {Pr.half_bg}, layout {lay}): "
               f"bit-identical to its twin and to S1 with its glue at batches {batches}, "
               f"worst-case digits and in place", flush=True)
         del bk_s, spec, acc_r, want, s1w
     r_regs = {}
-    for inst in sorted(r_inst):
+    for inst in sorted(r_inst):  # registers, spills and the cluster of every instance launched
         r_regs[f"registers_{inst}"], r_regs[f"spill_bytes_{inst}"] = ptxas_usage(ptxas, inst)
+        r_regs[f"cluster_{inst}"] = r_inst[inst]["cluster"]
+        r_regs[f"ciphertexts_per_cluster_{inst}"] = r_inst[inst]["ciphertexts"]
     r_ms, r_turns = {}, {}
     for name, Bs in (("medium_v2", 512), ("medium", 512), ("large_v2", 512), ("large", 512),
                      ("medium_v2", 4)):
@@ -2708,9 +2714,9 @@ def main() -> int:
            fp64_vector_flops_per_s=PEAK_FP64_FLOPS, fp64_dmma_flops_per_s=PEAK_FP64_TENSOR_FLOPS,
            bound_fp64_fft_2n_ms=fp64_ms(schoolbook_fft_flops(Bm, Pv.decomp_rows, Pv.N)),
            ms_in_turns=r_turns, ms_by_shape=r_ms,
-           layout=K.schoolbook_round_layout(Pv.N), shared_bytes={
-               i: K.schoolbook_round_layout(n_)["shared_bytes"] for i, n_ in r_inst.items()},
-           **r_regs)
+           layout={k: v for k, v in K.schoolbook_round_layout(Pv.N, Pv.decomp_rows).items()
+                   if k in ("cluster", "ciphertexts", "threads", "shared_bytes", "instance")},
+           shared_bytes={i: lay_["shared_bytes"] for i, lay_ in r_inst.items()}, **r_regs)
     print(f"kernel schoolbook_round build: {r_regs}", flush=True)
 
     # the forced-schoolbook PBS against K4's on the small_v2_tpu key (real noise)

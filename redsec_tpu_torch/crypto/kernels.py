@@ -814,14 +814,38 @@ def _fft_tables_host(N: int) -> tuple[np.ndarray, np.ndarray, float]:
     return tabs[0], tabs[1], err + 16 * float(np.finfo(np.longdouble).eps)
 
 
+def fft_pass_index(N: int) -> np.ndarray:
+    """Where the round kernel's passes read their twiddles: entry i of its
+    table is W_M^idx[i] (M = N / 2), pass by pass.  A radix-8 pass that has
+    sub-transforms of Ns points done (Ns = 4, 32, ... below M / RL, the last
+    pass's radix RL in 2, 4, 8 making the radices multiply to M) reads
+    W_M^(k r M / (8 Ns)) at Ns - 4 + (r - 1) Ns + k, r = 1..7, k < Ns; the
+    last pass reads W_M^(j r) at J - 4 + (r - 1) J + j, r < RL, j < J =
+    M / RL: M - 4 entries, and the threads of a warp read consecutive ones
+    (``schoolbook_fft.cu``'s ``pass`` and ``last_pass``)."""
+    M = N // 2
+    RL = {0: 8, 1: 2, 2: 4}[(M.bit_length() - 3) % 3]
+    idx = []
+    Ns = 4
+    while Ns < M // RL:
+        idx += [k * r * (M // (8 * Ns)) for r in range(1, 8) for k in range(Ns)]
+        Ns *= 8
+    J = M // RL
+    idx += [j * r for r in range(1, RL) for j in range(J)]
+    return np.array(idx, dtype=np.int64)
+
+
 def fft_tables(N: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(W_M^m, zeta^j) as complex128 tensors [N / 2] on ``device``, built
-    once per N and device (``_fft_tables_host``)."""
+    """(the round kernel's twiddles W_M^m in its passes' order,
+    ``fft_pass_index``; zeta^j) as complex128 tensors on ``device``, built
+    once per N and device (``_fft_tables_host``: the same values, rounded
+    once from long double)."""
     dev = torch.device(device)
     key = (N, str(dev))
     if key not in _fft_cache:
         tw, twist, _ = _fft_tables_host(N)
-        _fft_cache[key] = (torch.as_tensor(tw, device=dev), torch.as_tensor(twist, device=dev))
+        _fft_cache[key] = (torch.as_tensor(tw[fft_pass_index(N)], device=dev),
+                           torch.as_tensor(twist, device=dev))
     return _fft_cache[key]
 
 
@@ -971,19 +995,58 @@ def _require_spectra(spectra_round) -> None:
                          "made by prepare_cloud_key); this key has none")
 
 
-def schoolbook_round_layout(N: int) -> dict:
+SBFFT_ROLES = 4  # blocks a ciphertext: one accumulated spectrum (u, half) each
+
+
+def sbfft_pad(i):
+    """Where position i of a transform lies in the round kernel's buffer
+    (``schoolbook_fft.cu``'s ``pad``): one padding entry after every 8."""
+    return i + (i >> 3)
+
+
+SBFFT_SLOTS = 2  # digit rows a block transforms in a chunk
+
+
+def schoolbook_round_layout(N: int, rows: int | None = None) -> dict:
     """How the round kernel lays out a launch at N (the rule of
-    ``schoolbook_fft.cu``'s ``Shape<M>::T`` and ``launch<M>``): a cluster of
-    two blocks a ciphertext, one output polynomial each, sharing the forward
-    transforms; ``threads`` a block (N / 16, at least 32); ``shared_bytes``
-    a block: one transform buffer of N / 2 complex128 and two through which
-    each block hands its partner the spectrum of every other digit row; and
-    the ``instance`` as the compiler's report names it."""
+    ``schoolbook_fft.cu``'s ``kR``, ``kSlots``, ``Shape<M>`` and
+    ``launch<M>``): a ``cluster`` of 4 blocks for each of its
+    ``ciphertexts`` (2 at N >= 512, 1 at N = 256); ``threads``
+    a block (N / 16, at least 32); ``shared_bytes`` a block: a transform
+    buffer of N / 2 complex128 with one padding entry after every 8
+    (``sbfft_pad``), and an inbox of the chunk's row spectra's slices, N
+    complex128; the ``instance`` as the compiler's report names it (a
+    second instance carries the MAC's sums from chunk to chunk where rows >
+    ``rows_a_chunk``).  With ``rows``, also who does what, block c of a
+    cluster working for its ciphertext e = c // 4 in role c % 4:
+    ``chunks``, for each chunk of 8 digit rows, the rows of its ciphertext
+    role c % 4 transforms (``chunks[k][role][s]``), each spectrum's slice
+    of bins ``bins[o]`` going to block o's inbox; ``bins[c]``, the range of
+    spectrum bins whose sums block c accumulates for every ciphertext of the
+    cluster, reading each key value once, and sends to the block that
+    inverts them; ``inverts[c]``, the ciphertext and the accumulated
+    spectrum (u, half) block c inverts; ``swap``, the pairs of blocks of
+    one polynomial, which hand each other the rounded values of the half
+    they do not store; and ``stores[c]``, the ciphertext, polynomial and
+    coefficient range block c recombines (lo + 2^16 hi), adds acc to and
+    stores."""
     if N not in SBFFT_N:
         raise ValueError(f"the schoolbook round kernel takes N in {SBFFT_N}, not {N}")
-    M = N // 2
-    return {"threads": max(32, M // 8), "shared_bytes": 48 * M,
-            "instance": f"schoolbook_round_kernelILi{M}E"}
+    M, R, S = N // 2, SBFFT_ROLES, SBFFT_SLOTS
+    CT = 2 if M >= 256 else 1
+    C = R * CT
+    multi = rows is not None and rows > R * S
+    lay = {"cluster": C, "ciphertexts": CT, "threads": max(32, M // 8), "rows_a_chunk": R * S,
+           "shared_bytes": 16 * (sbfft_pad(M) + 2 * M),
+           "instance": f"schoolbook_round_kernelILi{M}ELb{int(multi)}E"}
+    if rows is not None:
+        lay["chunks"] = [[list(range(r0 + role, min(r0 + R * S, rows), R)) for role in range(R)]
+                         for r0 in range(0, rows, R * S)]
+        lay["bins"] = [(c * M // C, (c + 1) * M // C) for c in range(C)]
+        lay["inverts"] = [(c // R, c % R // 2, c % 2) for c in range(C)]
+        lay["swap"] = [(c, c + 1) for c in range(0, C, 2)]
+        lay["stores"] = [(c // R, c % R // 2, (c % 2) * M, (c % 2 + 1) * M) for c in range(C)]
+    return lay
 
 
 def schoolbook_round(acc: torch.Tensor, t: torch.Tensor, spectra_round: torch.Tensor,

@@ -32,7 +32,8 @@ NTT primes (``medium``, ``large``, ``medium_v2``, ``large_v2``) times one
 schoolbook CMUX round at 512 instead of K4: S1 with its torch glue (rotate,
 difference, decompose, the add), and, where the checkout has it, the
 schoolbook round kernel (``schoolbook_round``) beside it in turns, each held
-against the other.  ``--cli SET`` times ``run-encrypted`` of the checkout's
+against the other; ``--rounds-only`` times only those rounds, each item
+``name@B`` at batch B (default 512), and the command line.  ``--cli SET`` times ``run-encrypted`` of the checkout's
 command line on one ``mnist/sign1024x1`` image at SET (its JSON record:
 seconds, PBS/s, launches); the key files are made by the command line into
 ``--work`` on first use and reused, so two checkouts run on the same key.
@@ -40,6 +41,8 @@ One JSON line per run ends the output.
 
     python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent \
         --sets medium_v2,large --cli medium_v2
+    python redsec_tpu_torch/scripts/time_kernels.py --rounds-only \
+        --sets medium_v2,medium,large_v2,large,medium_v2@4 --cli medium_v2
 """
 
 from __future__ import annotations
@@ -80,6 +83,9 @@ def main(argv=None) -> dict:
                     help="also time the sign1024x1 forward at small_v2_tpu on 8 images")
     ap.add_argument("--cli", default="",
                     help="also time run-encrypted on one sign1024x1 image at this set")
+    ap.add_argument("--rounds-only", action="store_true",
+                    help="time only the schoolbook rounds of --sets (set@batch, default batch "
+                         "512) and --cli: no K1-K4, no S1 list")
     ap.add_argument("--work", default=os.path.join(os.path.dirname(os.path.dirname(HERE)),
                                                    "build", "time_kernels_cli"),
                     help="where --cli keeps its key and image files")
@@ -108,6 +114,26 @@ def main(argv=None) -> dict:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda", 0)
+    gen = np.random.default_rng(7)
+
+    def ri(lo, hi, shape):
+        return torch.as_tensor(gen.integers(lo, hi, size=shape, dtype=np.int64)
+                               .astype(np.int32), device=dev)
+
+    def same(name, got, want):
+        if not torch.equal(got, want):
+            raise SystemExit(f"{args.tag}: {name} differs from its plain twin")
+
+    if args.rounds_only:
+        out = {"tag": args.tag, "card": card}
+        for item in filter(None, args.sets.split(",")):
+            name, _, b = item.partition("@")
+            _time_schoolbook_round(args, out, K, bs, get_params(name), ri, same, ms,
+                                   int(b or 512))
+        if args.cli:
+            _time_cli(args, out, get_params(args.cli))
+        print(json.dumps(out), flush=True)
+        return out
     t0 = time.perf_counter()
     ptxas = K.build_library(K.SOURCE)
     if "matmul" in flavors:
@@ -119,16 +145,6 @@ def main(argv=None) -> dict:
     _, cloud = kg.keygen(P, seed=0)
     dkey = bs.prepare_cloud_key(cloud, device="cuda")
     plan, N, n, rows = dkey.plan, P.N, P.n, P.decomp_rows
-    gen = np.random.default_rng(7)
-
-    def ri(lo, hi, shape):
-        return torch.as_tensor(gen.integers(lo, hi, size=shape, dtype=np.int64)
-                               .astype(np.int32), device=dev)
-
-    def same(name, got, want):
-        if not torch.equal(got, want):
-            raise SystemExit(f"{args.tag}: {name} differs from its plain twin")
-
     out = {"tag": args.tag, "card": card, "build_s": build_s}
     if "radix2" in flavors:
         x = ri(0, plan.primes[0], (6144, N))
@@ -210,13 +226,30 @@ def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms, B: int = 512) -> 
     """One schoolbook CMUX round at ``Pk`` on ``B`` random accumulators and
     exponents and a random raw BK round: S1 with the torch glue around it,
     and the checkout's round kernel where it has one, in turns (glue, kernel,
-    kernel, glue), the kernel held against S1 with its glue."""
+    kernel, glue), the kernel held against S1 with its glue.  With
+    ``--rounds-only``, the round kernel alone, held against its twin and
+    timed three times."""
     import torch
 
     N, rows = Pk.N, Pk.decomp_rows
     acc, t = ri(-2**31, 2**31, (B, 2, N)), ri(0, 2 * N, (B,))
     bk = ri(-2**31, 2**31, (rows, 2, N))
     ops = bs.RoundOps(Pk)
+    if args.rounds_only:
+        spectra, spare = K.key_spectra(bk), torch.empty_like(acc)
+        same(f"schoolbook_round {Pk.name} [{B}, {rows}, {N}]",
+             K.schoolbook_round(acc, t, spectra, Pk), K.schoolbook_round_plain(acc, t, spectra, Pk))
+        key = f"round_ms_{Pk.name}_{B}"
+
+        def one():
+            K.schoolbook_round(acc, t, spectra, Pk, out=spare)
+
+        out[key] = [ms(one, 20, warmup=3) for _ in range(3)]
+        out[f"round_device_ms_{Pk.name}_{B}"] = dev = _device_ms(one, "schoolbook_round_kernel")
+        print(f"{args.tag} schoolbook round {Pk.name} [{B}, {rows}, {N}]: "
+              f"{', '.join(f'{v:.4f}' for v in out[key])} ms (events); device {dev:.4f} ms",
+              flush=True)
+        return
     takes_half = len(inspect.signature(K.schoolbook_product).parameters) == 3
     extra = (Pk.half_bg,) if takes_half else ()
 
@@ -234,6 +267,34 @@ def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms, B: int = 512) -> 
     print(f"{args.tag} schoolbook round {Pk.name} [{B}, {rows}, {N}] in turns: "
           + "; ".join(f"{tag} {', '.join(f'{v:.4f}' for v in out[f'{tag}_ms_{Pk.name}_{B}'])} ms"
                       for tag, _ in turns), flush=True)
+
+
+def _device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time a call of ``fn`` of the CUDA kernels whose name holds
+    ``kernel`` (torch.profiler; CUDA events around a launch shorter than the
+    wrapper's host time time the host).  The tracer starts a step early (it
+    can miss the first launch after it starts) and must see ``reps``
+    launches; a trace that saw fewer is taken again, up to 5 in all."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in evs) == reps:
+            return sum(e.self_device_time_total for e in evs) / reps / 1e3
+    raise SystemExit(f"the profiler saw {sum(e.count for e in evs)} launches of {kernel} "
+                     f"in {reps} calls, 5 times")
 
 
 def _time_cli(args, out, Pc) -> None:

@@ -456,10 +456,12 @@ def test_schoolbook_wrapper_rejects_bg_without_a_limb_plan(card, half):
 
 # the schoolbook round kernel's sets: N 4096 and 8192 with 6 rows at Bg/2 512
 # and 8 at 128 (medium, large and the v2 sets), N 1024 with 12 and 20 rows
-# (forced small_v2_tpu and small_v2), and both gadgets of the N >= 4096 sets
-# at N 1024
+# (forced small_v2_tpu and small_v2), both gadgets of the N >= 4096 sets at N
+# 1024, and the other N the kernel takes: 256 (test_noiseless, 20 rows), 512
+# and 2048
 ROUND_SETS = ["medium", "medium_v2", "large", "large_v2", "small_v2_tpu", "small_v2",
-              "medium@1024", "medium_v2@1024"]
+              "medium@1024", "medium_v2@1024", "test_noiseless", "medium@512",
+              "medium_v2@2048"]
 
 
 def _round_params(name):
@@ -482,8 +484,9 @@ def _round_inputs(rng, Pr, batch):
 @pytest.mark.parametrize("batch", [1, 4, 196, 512, 513])
 def test_schoolbook_round_kernel_equals_twin(card, name, batch):
     """One launch against its twin (the same transforms in torch) and against
-    S1 with the torch glue; at batch 4 the first two ciphertexts' digits all
-    -Bg/2 (acc = offset / 2, rotated by N), the worst-case norm."""
+    S1 with the torch glue, and a second one in place (``out=acc``); at
+    batch 4 the first two ciphertexts' digits all -Bg/2 (acc = offset / 2,
+    rotated by N), the worst-case norm."""
     Pr = _round_params(name)
     rng = np.random.default_rng(batch + Pr.N + Pr.decomp_rows)
     acc, t, spectra, bk = _round_inputs(rng, Pr, batch)
@@ -500,6 +503,8 @@ def test_schoolbook_round_kernel_equals_twin(card, name, batch):
     if batch == 4:
         assert int(digits[:2].max()) == int(digits[:2].min()) == -Pr.half_bg
     assert torch.equal(got, acc + K.schoolbook_product_plain(digits, bk, Pr.half_bg))
+    assert K.schoolbook_round(acc, t, spectra, Pr, out=acc) is acc
+    assert torch.equal(acc, got)
 
 
 @pytest.mark.parametrize("name", ["medium_v2", "large", "small_v2_tpu"])

@@ -16,6 +16,14 @@ package.
   and JAX's schoolbook PBS: at ``medium`` as it is, at ``medium_v2`` with
   JAX's int8 wrap emulated.
 - A schoolbook key without spectra raises.
+- The kernel's layout rule (``kernels.schoolbook_round_layout``) at every N
+  it takes, a torch model of the cluster's data movement built from it (each
+  row transformed by one block, its slices sent to the blocks owning the
+  bins, each key value read once for the cluster's two ciphertexts, the sums
+  sent to the block that inverts them, the halves swapped) equal to the
+  twin, the twiddle table in the passes' order (a numpy model of the
+  kernel's passes reading it), the padded buffers' bank groups, and the
+  rounding bound below 1/2 at every parameter set.
 
 Tolerance everywhere: exact equality of int32 arrays (a PBS is
 deterministic); the bounds are computed, not measured.
@@ -36,7 +44,7 @@ from redsec_tpu.crypto import params as jparams
 from redsec_tpu_torch.crypto import bootstrap as bs
 from redsec_tpu_torch.crypto import keygen as kg
 from redsec_tpu_torch.crypto import kernels, lwe
-from redsec_tpu_torch.crypto.params import get_params
+from redsec_tpu_torch.crypto.params import PARAM_SETS, get_params
 from test_torch_schoolbook import _noiseless, _spectra_product_with_int8_wrap
 
 torch.set_num_threads(2)
@@ -218,12 +226,231 @@ def test_a_schoolbook_key_without_spectra_raises():
 @pytest.mark.parametrize("N", kernels.SBFFT_N)
 def test_round_layout(N):
     """The kernel's layout rule (mirrored from schoolbook_fft.cu): a cluster
-    pair a ciphertext, one output polynomial a block, N / 16 threads (at
-    least a warp), a transform buffer and two exchange buffers of N / 2
-    complex128 each, within a block's shared memory; every pass's
-    butterflies cover the block's threads."""
-    lay = kernels.schoolbook_round_layout(N)
+    of at most 8 blocks, 4 for each of its ciphertexts, N / 16 threads (at
+    least a warp), a padded transform buffer of N / 2 complex128 and an
+    inbox of N, within a block's shared memory; at every row count of the
+    sets (and 2, 4, 64), each digit row of a ciphertext transformed once, by
+    one block, at most 2 a block a chunk, each spectrum bin of every ciphertext of the
+    cluster accumulated by one block, each accumulated spectrum (ciphertext,
+    u, half) inverted by one block, and each coefficient stored by one block
+    of the pair that inverted its polynomial's two halves."""
     M = N // 2
-    assert lay["threads"] == max(32, M // 8) and M % lay["threads"] == 0
-    assert lay["shared_bytes"] == 3 * 16 * M <= 227 * 1024
-    assert M // 4 >= lay["threads"]  # the first pass: whole radix-4 butterflies a thread
+    for rows in sorted({2, 4, 64} | {p.decomp_rows for p in PARAM_SETS.values()}):
+        lay = kernels.schoolbook_round_layout(N, rows)
+        C, CT, T = lay["cluster"], lay["ciphertexts"], lay["threads"]
+        S = lay["rows_a_chunk"] // 4
+        assert C == 4 * CT <= 8 and T == max(32, M // 8) and M % T == 0
+        assert lay["shared_bytes"] == 16 * (M + M // 8 + 2 * M) <= 227 * 1024
+        assert lay["instance"].endswith(f"Lb{int(rows > 8)}E")
+        assert M // 4 >= T and (M // C) % T == 0  # whole butterflies, whole bin rows a thread
+        seen = [r for chunk in lay["chunks"] for rws in chunk for r in rws]
+        assert sorted(seen) == list(range(rows))
+        for chunk in lay["chunks"]:
+            assert len(chunk) == 4 and all(len(rws) <= S for rws in chunk)
+            r0 = min(r for rws in chunk for r in rws)
+            assert all(r - r0 == role + 4 * s for role, rws in enumerate(chunk)
+                       for s, r in enumerate(rws))  # the kernel's r0 + role + 4 s
+        cover = np.zeros(M, dtype=int)
+        for lo, hi in lay["bins"]:
+            cover[lo:hi] += 1
+        assert (cover == 1).all() and len(lay["bins"]) == C
+        assert sorted(lay["inverts"]) == [(e, u, h) for e in range(CT) for u in (0, 1)
+                                          for h in (0, 1)]
+        stored = np.zeros((CT, 2, N), dtype=int)
+        for a_c, b_c in lay["swap"]:
+            (ea, ua, ha), (eb, ub, hb) = lay["inverts"][a_c], lay["inverts"][b_c]
+            assert (ea, ua) == (eb, ub) and {ha, hb} == {0, 1}
+            for c in (a_c, b_c):
+                e, u, lo, hi = lay["stores"][c]
+                assert (e, u) == lay["inverts"][c][:2]
+                stored[e, u, lo:hi] += 1
+        assert (stored == 1).all()
+
+
+def _cluster_model_round(acc, t, spectra, P):
+    """One schoolbook round as the round kernel moves its data, in torch,
+    cluster by cluster (``schoolbook_round_layout``): each block transforms
+    the rows its role gives it, a chunk at a time, and sends each slice of
+    bins to the inbox of the block that owns them; for its bins each block
+    reads each row's key slice once and every ciphertext's row slice from
+    its inbox, in row order, and accumulates the 4 products (u, half) of
+    each ciphertext, and sends each sum to the block that inverts it; each
+    block inverts and rounds one accumulated spectrum of its ciphertext,
+    assembled from the cluster's slices; the two blocks of a polynomial swap the uint32
+    values of the half each does not store, and each recombines lo + 2^16 hi
+    on its half and adds acc.  The batch's last cluster may hold fewer
+    ciphertexts."""
+    N, rows, B = P.N, P.decomp_rows, acc.shape[0]
+    M = N // 2
+    lay = kernels.schoolbook_round_layout(N, rows)
+    C, CT = lay["cluster"], lay["ciphertexts"]
+    ops = bs.RoundOps(P)
+    digits = ops.decompose(ops.rotate(acc, t) - acc).to(torch.float64)
+    twist = kernels.fft_tables(N, "cpu")[1]
+    key = spectra.reshape(rows, 4, M)  # [r][(u, half)][bin]
+    out = torch.empty_like(acc)
+    for b0 in range(0, B, CT):
+        cts = list(range(b0, min(b0 + CT, B)))
+        blocks = [c for c in range(C) if c // 4 < len(cts)]
+        sums = {c: torch.zeros((len(cts), 4, hi - lo), dtype=torch.complex128)
+                for c, (lo, hi) in enumerate(lay["bins"])}
+        for chunk in lay["chunks"]:
+            inbox = {}  # (block, ciphertext, row) -> the row spectrum's slice of its bins
+            for c in blocks:
+                for r in chunk[c % 4]:
+                    d = digits[cts[c // 4], r]
+                    y = torch.fft.fft(torch.complex(d[:M], d[M:]) * twist)
+                    for o, (lo, hi) in enumerate(lay["bins"]):
+                        assert (o, c // 4, r) not in inbox
+                        inbox[o, c // 4, r] = y[lo:hi]
+            for c, (lo, hi) in enumerate(lay["bins"]):
+                for r in sorted(r for rws in chunk for r in rws):
+                    k = key[r, :, lo:hi]  # read once for the cluster's ciphertexts
+                    for e in range(len(cts)):
+                        sums[c][e] = sums[c][e] + inbox[c, e, r] * k
+        vals = {}
+        for c in blocks:
+            e, u, h = lay["inverts"][c]
+            spec = torch.cat([sums[o][e, 2 * u + h] for o in range(C)])
+            z = torch.fft.ifft(spec) * twist.conj()
+            vals[c] = torch.round(torch.cat([z.real, z.imag])).to(torch.int64) & 0xFFFFFFFF
+        for a_c, b_c in lay["swap"]:
+            if a_c not in blocks:
+                continue
+            for c, partner in ((a_c, b_c), (b_c, a_c)):
+                e, u, lo, hi = lay["stores"][c]
+                own, got = vals[c][lo:hi], vals[partner][lo:hi]  # got: the swapped half
+                low, high = (got, own) if lay["inverts"][c][2] else (own, got)
+                res = (acc[cts[e], u, lo:hi].to(torch.int64) + low + (high << 16)) & 0xFFFFFFFF
+                out[cts[e], u, lo:hi] = (res - ((res >> 31) << 32)).to(torch.int32)
+    return out
+
+
+@pytest.mark.parametrize("name,N,batch", [("test_noiseless", 256, 3), ("medium", 512, 2),
+                                          ("medium_v2", 4096, 3), ("large_v2", 8192, 1)])
+def test_cluster_data_movement_equals_the_twin(name, N, batch):
+    """The torch model of the kernel's data movement (three chunks of rows
+    at test_noiseless, uneven shares of 6 rows at medium's gadget, one chunk
+    of 8 at medium_v2 and large_v2; odd batches leave the last cluster one
+    ciphertext) is bit-identical to ``schoolbook_round_plain``, with the
+    first ciphertext's digits at their worst-case norm."""
+    P = dataclasses.replace(get_params(name), N=N)
+    rng = np.random.default_rng(N + batch)
+    acc = torch.as_tensor(rng.integers(-2**31, 2**31, size=(batch, 2, N), dtype=np.int64)
+                          .astype(np.int32))
+    t = torch.as_tensor(rng.integers(0, 2 * N, size=batch).astype(np.int32))
+    fill = bs.gadget_offset(P) // 2
+    acc[0] = fill - 2**32 if fill >= 2**31 else fill
+    t[0] = N
+    bk = torch.as_tensor(rng.integers(-2**31, 2**31, size=(P.decomp_rows, 2, N), dtype=np.int64)
+                         .astype(np.int32))
+    bk[0, 0, :4] = -2**31
+    spectra = kernels.key_spectra(bk)
+    ops = bs.RoundOps(P)
+    assert int(ops.decompose(ops.rotate(acc, t) - acc)[0].max()) == -P.half_bg
+    want = kernels.schoolbook_round_plain(acc, t, spectra, P)
+    assert torch.equal(_cluster_model_round(acc, t, spectra, P), want)
+
+
+@pytest.mark.parametrize("name", sorted(PARAM_SETS))
+def test_bound_below_half_at_every_set(name):
+    """The kernel's rounding bound (the same transforms, twists and row-order
+    sum whichever block computes a bin) at the
+    worst-case digits and the largest halves any key can have is below 1/2
+    at every parameter set (each N is one the kernel takes), forced
+    schoolbook included."""
+    P = PARAM_SETS[name]
+    assert P.N in kernels.SBFFT_N
+    worst = kernels.schoolbook_fft_error_bound(P.N, P.decomp_rows, P.half_bg,
+                                               P.decomp_rows * 2**15 * math.sqrt(P.N))
+    assert 0 < worst < 0.5
+
+
+def _kernel_dft(x, tw):
+    """The round kernel's forward DFT of x [M] in numpy, pass by pass as its
+    first_pass, pass and last_pass index their operands and read the
+    twiddle table ``tw`` (``fft_tables``' first element)."""
+    M = x.shape[0]
+    RL = {0: 8, 1: 2, 2: 4}[(M.bit_length() - 3) % 3]
+
+    def small(v):  # the R-point DFT of v [R, J] along the first axis
+        R = v.shape[0]
+        w = np.exp(-2j * np.pi * np.outer(np.arange(R), np.arange(R)) / R)
+        return w @ v
+
+    buf = np.empty(M, dtype=np.complex128)
+    j = np.arange(M // 4)
+    v = small(np.stack([x[j + r * (M // 4)] for r in range(4)]))
+    for r in range(4):
+        buf[4 * j + r] = v[r]
+    Ns = 4
+    while Ns < M // RL:
+        j = np.arange(M // 8)
+        k = j & (Ns - 1)
+        v = np.stack([buf[j + r * (M // 8)] for r in range(8)])
+        for r in range(1, 8):
+            v[r] *= tw[Ns - 4 + (r - 1) * Ns + k]
+        v = small(v)
+        nbuf = np.empty_like(buf)
+        for r in range(8):
+            nbuf[(j - k) * 8 + k + r * Ns] = v[r]
+        buf = nbuf
+        Ns *= 8
+    J = M // RL
+    j = np.arange(J)
+    v = np.stack([buf[j + r * J] for r in range(RL)])
+    for r in range(1, RL):
+        v[r] *= tw[J - 4 + (r - 1) * J + j]
+    v = small(v)
+    out = np.empty_like(x)
+    for r in range(RL):
+        out[j + r * J] = v[r]
+    return out
+
+
+@pytest.mark.parametrize("N", kernels.SBFFT_N)
+def test_pass_twiddle_table_follows_the_kernels_passes(N):
+    """The twiddle table the kernel reads (``fft_tables``, laid out by
+    ``fft_pass_index``) holds the same rounded values W_M^m, and the
+    kernel's passes reading it at their indices compute the DFT."""
+    M = N // 2
+    tw, _ = kernels.fft_tables(N, "cpu")
+    idx = kernels.fft_pass_index(N)
+    assert tuple(tw.shape) == (M - 4,) and 0 <= idx.min() and idx.max() < M
+    assert torch.equal(tw, torch.as_tensor(kernels._fft_tables_host(N)[0][idx]))
+    x = np.random.default_rng(N).standard_normal((M, 2)) @ np.array([1, 1j])
+    got = _kernel_dft(x, tw.numpy())
+    np.testing.assert_allclose(got, np.fft.fft(x), rtol=0, atol=1e-12 * np.abs(x).sum())
+
+
+@pytest.mark.parametrize("N", kernels.SBFFT_N)
+def test_padded_buffer_is_conflict_free(N):
+    """With ``sbfft_pad``, the 8 threads of every quarter warp (one 128-byte
+    shared-memory wavefront of 16-byte values) reach 8 different bank
+    groups in the first pass's stores, every radix-8 pass's loads and
+    stores, the last pass's loads and the row slots' stores and reads."""
+    M = N // 2
+    T = max(32, M // 8)
+    RL = {0: 8, 1: 2, 2: 4}[(M.bit_length() - 3) % 3]
+    pad = kernels.sbfft_pad
+
+    def free(index):  # index(tid) for one access, over a block's threads
+        for q0 in range(0, T, 8):
+            banks = {pad(index(tid)) % 8 for tid in range(q0, q0 + 8)}
+            assert len(banks) == 8, (N, q0)
+
+    for q in range(M // 4 // T):
+        for r in range(4):
+            free(lambda tid: 4 * (tid + q * T) + r)
+    Ns = 4
+    while Ns < M // RL:
+        for r in range(8):
+            free(lambda tid: tid % (M // 8) + r * (M // 8))
+            free(lambda tid: (tid % (M // 8) - tid % Ns) * 8 + tid % Ns + r * Ns)
+        Ns *= 8
+    J = M // RL
+    for q in range(J // T):
+        for r in range(RL):
+            free(lambda tid: tid + q * T + r * J)
+    for q in range(M // T):
+        free(lambda tid: tid + q * T)
