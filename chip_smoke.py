@@ -61,7 +61,12 @@ Phases (any failure exits non-zero):
    as the C entry computes it: ptxas sees none of it and reports 0), the
    least time the card could take for the same work and, for the probes, the
    time of the one PyTorch call that computes the same function (a gather
-   over the doubled polynomial; ``torch.take`` with a fixed index table).
+   over the doubled polynomial; ``torch.take`` with a fixed index table,
+   timed in turns with the Toeplitz probe, both paced by the host).  The
+   round kernels (K2, K3, K2-mm, K3-mm) and the probes also give their
+   device time (profiler), and every wrapper its host microseconds a call
+   (calls with no synchronize between them: the launch path's own cost),
+   printed on one "launch path" line before the kernel phase ends.
 4. Sign slice: keygen ``small_v2_tpu`` (seed 0) -> ``prepare_cloud_key`` on
    the card -> ``mnist/sign1024x1`` with the golden reference weights ->
    encrypt a batch of synthetic images (numpy seed 1) -> encrypted forward
@@ -158,7 +163,12 @@ Phases (any failure exits non-zero):
      (``bound_twisted_fp64_ms``): the transforms at the least published
      flop count (``fft_flops``) and the fp64 vector rate, the
      multiply-accumulate at DMMA's rate (at the vector rate beside it, and
-     the 2N-FFT count beside that).
+     the 2N-FFT count beside that).  At ``medium_v2`` at 4 and 512 each
+     round's host microseconds a call and its traced device time; and the
+     rounds' loop of the paths (``kernels.schoolbook_rounds``, n launches
+     from one C loop) at a gate's 4 with n cut to 16, bit-identical to its
+     twin's loop and counted 16 times, its events a round beside the
+     device's.
    - The forced-schoolbook PBS (``prepare_cloud_key(..., schoolbook=True)``)
      bit-identical to K4's PBS on the ``small_v2_tpu`` key of phase 4 (real
      noise, n = 350), on 64 ciphertexts: 350 S1-fft launches.
@@ -170,7 +180,8 @@ Phases (any failure exits non-zero):
      at ``medium_v2`` (n 3072, N 4096, Bg 2^8, l 4, key switch 2 x 16) on
      one ``sign1024x1`` image: keygen, encrypt-image, run-encrypted,
      decrypt-image.  Exactly 1,220 PBS in 3 chunks of 3,072 S1-fft launches
-     (none of S1), counted at the kernel's door and by the counters; 8 of
+     (none of S1), counted at the rounds' door (``schoolbook_rounds``, each
+     call's rounds) and by the counters; 8 of
      layer 0's ciphertexts through the twin path on the card (3,072 rounds of
      the torch transforms) bit-identical to the kernel path's outputs for
      them; the printed class their argmax, and beside it the plaintext
@@ -179,7 +190,9 @@ Phases (any failure exits non-zero):
      idle share, S1-fft's share and that of the torch glue around it.
    - ``GateSet`` on the card: the truth tables of the ten two-input gates
      and MUX at ``small_v2_tpu`` (K4), and AND at full ``medium_v2`` on the
-     path's key (S1-fft).
+     path's key (S1-fft, its n rounds from one C loop,
+     ``kernels.schoolbook_rounds``): the AND's wall in ms beside its rounds'
+     device time (one traced call) and the idle share.
 
 12. ``phase12``: the calibration knobs through the command line, the
    agreement forecast beside a measured run, the "matmul" key flavour and the
@@ -276,6 +289,12 @@ PEAK_INT8_MACS = 1979e12 / 2
 PEAK_FP64_FLOPS = 132 * 64 * 2 * 1.98e9
 PEAK_FP64_TENSOR_FLOPS = 67e12
 BATCH = 8  # images in the slice phase
+
+
+def ms_text(v, digits: int = 4) -> str:
+    """A device time for a line of output: ``"not measured"`` where the
+    profiler's traces came up short (``device.device_ms``)."""
+    return "not measured" if v is None else f"{v:.{digits}f} ms"
 
 
 def fail(msg: str) -> None:
@@ -450,54 +469,10 @@ def ptxas_usage(ptxas: str, entry: str) -> tuple[int, int]:
     fail(f"the compiler's report has no entry for {entry}")
 
 
-def kernel_device_ms(fn, kernel: str, reps: int = 20, tries: int = 5) -> tuple[float, int]:
-    """Mean device time, per call of ``fn``, of the CUDA kernels whose name
-    contains ``kernel`` over ``reps`` calls (torch.profiler): what the card
-    spends, where CUDA events around a small kernel time the host's enqueue.
-    The tracer may miss the first launch after it starts, so it starts one
-    step early: a warm-up step of one call, whose events the profiler drops,
-    then the ``reps`` calls it records.  A named kernel runs once a call and
-    must be seen exactly ``reps`` times.  The tracer has also been seen to
-    drop launches in the middle of a trace (one, and once two, of 20), and
-    once every launch of a trace (0 of 20 after the ``--profile`` forward
-    traces): a trace that saw fewer than ``reps`` launches, none included,
-    is taken again, ``tries`` traces in all; one that saw more fails at
-    once.
-    Returns (ms, the traces taken again), the second for the kernel's
-    record.  ``""`` sums every kernel of a PyTorch call."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    for retries in range(tries):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()  # leaving the context ends the recorded step and keeps it
-        # the step's own annotation also has a span on the device's timeline
-        evs = [e for e in prof.key_averages()
-               if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("ProfilerStep")]
-        seen = sum(e.count for e in evs)
-        if seen and (not kernel or seen == reps):
-            return sum(e.self_device_time_total for e in evs) / reps / 1e3, retries
-        if kernel and seen > reps:
-            break
-        print(f"the profiler saw {seen} launches of {kernel or 'any kernel'} in {reps} calls; "
-              f"tracing again", flush=True)
-    fail(f"the profiler saw {seen} launches of {kernel or 'any kernel'} in {reps} calls "
-         f"(trace {retries + 1} of at most {tries})")
-
-
 def profile_forward(fwd, ct, card: str, tag: str, warmup=None) -> tuple:
     """Device time by kernel over one traced forward, and the share of the
     forward's wall time in which the device ran no kernel.  With ``warmup``
-    the tracer starts one step early, as in ``kernel_device_ms``: a step
+    the tracer starts one step early, as in ``device.device_ms``: a step
     running ``warmup()``, whose events it drops, then the forward.  Returns
     (wall ms, device busy ms, [(kernel, device ms, launches)])."""
     import torch
@@ -1184,9 +1159,10 @@ def phase14(c: dict) -> None:
         k4_door.append(acc0.shape[0])
         return _real(acc0, *rest)
 
-    def door_round(acc, *rest, _real=K.schoolbook_round, **kw):
-        r_door.append(acc.shape[0])
-        return _real(acc, *rest, **kw)
+    def door_round(acc, ts, *rest, _real=K.schoolbook_rounds):
+        # one call carries a PBS's rounds: each round's batch at the door
+        r_door.extend([acc.shape[0]] * ts.shape[0])
+        return _real(acc, ts, *rest)
 
     # -- a. the runner: mnist/sign1024x1 at small_v2_tpu on a synthetic
     # 24-row CSV in the reference's layout (numpy seed 1), batches of 8
@@ -1321,7 +1297,7 @@ def phase14(c: dict) -> None:
     want = ast.literal_eval(line.split("RESULT ", 1)[1])
     r_door.clear()
     launches.reset()
-    with mock.patch.object(K, "schoolbook_round", door_round):
+    with mock.patch.object(K, "schoolbook_rounds", door_round):
         g = vfg.validate(MEDIUM, 32, 0, "cuda")
     torch.cuda.synchronize()
     counts = dict(launches.counts)
@@ -1335,7 +1311,7 @@ def phase14(c: dict) -> None:
              f"{sorted(set(r_door))}), counters {counts}; expected {MEDIUM.n} of 32")
     arr = g["arrays"]
     t0 = time.perf_counter()
-    with mock.patch.object(K, "schoolbook_round", K.schoolbook_round_plain):
+    with mock.patch.object(K, "schoolbook_rounds", K.schoolbook_rounds_plain):
         twin = g["pbs"](arr["ct"][:4], arr["tv"])
     t_twin = time.perf_counter() - t0
     if not np.array_equal(twin, arr["out"][:4]):
@@ -1391,7 +1367,7 @@ def main() -> int:
     from redsec_tpu_torch.crypto.params import SMALL_V2_NOISELESS as PQ
     from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
     from redsec_tpu_torch.crypto.params import get_params
-    from redsec_tpu_torch.device import cuda_ms, launches
+    from redsec_tpu_torch.device import cuda_ms, device_ms, host_us, launches
     from redsec_tpu_torch.formats import keys as kio
     from redsec_tpu_torch.formats.image_io import pixel_transform_for, write_image_ptxt
     from redsec_tpu_torch.models.spec import prep_model
@@ -1495,9 +1471,9 @@ def main() -> int:
                          library_ms=library_ms, shape=shape, **extra)
         lib = "" if library_ms is None else (
             f", one PyTorch call {library_ms:.4f} ms, on the device alone "
-            f"{extra['library_device_ms']:.4f} ms")
+            f"{ms_text(extra['library_device_ms'])}")
         if "device_ms" in extra:
-            lib += (f"; the kernel on the device alone {extra['device_ms']:.4f} ms (profiler "
+            lib += (f"; the kernel on the device alone {ms_text(extra['device_ms'])} (profiler "
                     f"traces taken again: {extra['profiler_retries']})")
         print(f"kernel {name} {shape}: max abs err {err} against twin; {ms:.4f} ms (twin "
               f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}{lib}) on {card}", flush=True)
@@ -1559,9 +1535,11 @@ def main() -> int:
     pms = cuda_ms(lambda: K.ntt_plain(x0, plan, 0), 5)
     xw = ri(0, plan_s.primes[2], (M1, N))
     ms_w = cuda_ms(lambda: K.ntt(xw, plan_s, 2), 20)
+    # the launch path: each wrapper's host microseconds a call at its shape here
+    launch_us = {"ntt": host_us(lambda: K.ntt(x0, plan, 0))}
     # every set of the paths at N = 1024 (the bundled keys' too)
     report("ntt", [M1, N], err, ms, pms, 2 * M1 * N * 4, M1 * ntt_ops(N),
-           "redsec_tpu/crypto/pallas_ntt.py:147",
+           "redsec_tpu/crypto/pallas_ntt.py:147", host_us=launch_us["ntt"],
            params=(P.name, P2.name, PS.name, f"{P.name}/bundle2", "small_v2_tpu2/bundle2",
                    "small_v2_tpu2"),
            primes=sorted(set(plan.primes) | set(plan_s.primes)), ms_prime40961=ms_w)
@@ -1575,9 +1553,13 @@ def main() -> int:
                K.external_product_plain(digits, bk0, plan))
     ms = cuda_ms(lambda: K.external_product(digits, bk0, plan), 20)
     pms = cuda_ms(lambda: K.external_product_plain(digits, bk0, plan), 3)
+    dev2, _, _, re2 = device_ms(lambda: K.external_product(digits, bk0, plan),
+                                "external_product_kernel", required=False)
+    launch_us["external_product"] = host_us(lambda: K.external_product(digits, bk0, plan))
     report("external_product", [M, rows, N], err, ms, pms,
            digits.numel() * 4 + bk0.numel() * 2 + M * 2 * N * 4,
-           M * ext_product_ops(rows, N), "redsec_tpu/crypto/pallas_round.py:98")
+           M * ext_product_ops(rows, N), "redsec_tpu/crypto/pallas_round.py:98",
+           device_ms=dev2, profiler_retries=re2, host_us=launch_us["external_product"])
 
     acc = ri(-2**31, 2**31, (M, 2, N))
     t = ri(0, 2 * N, (M,))
@@ -1585,9 +1567,13 @@ def main() -> int:
                K.cmux_round_plain(acc, t, bk0, P, plan))
     ms = cuda_ms(lambda: K.cmux_round(acc, t, bk0, P, plan), 20)
     pms = cuda_ms(lambda: K.cmux_round_plain(acc, t, bk0, P, plan), 3)
+    dev3, _, _, re3 = device_ms(lambda: K.cmux_round(acc, t, bk0, P, plan),
+                                "cmux_round_kernel", required=False)
+    launch_us["cmux_round"] = host_us(lambda: K.cmux_round(acc, t, bk0, P, plan))
     report("cmux_round", [M, 2, N], err, ms, pms,
            2 * acc.numel() * 4 + M * 4 + bk0.numel() * 2, M * cmux_ops(rows, N),
-           "redsec_tpu/crypto/pallas_round.py:254")
+           "redsec_tpu/crypto/pallas_round.py:254", device_ms=dev3, profiler_retries=re3,
+           host_us=launch_us["cmux_round"])
 
     # K4's layout at every instance and batch below must be kernels.k4_layout's
     # (two ciphertexts a block, each key row loaded serving both, beyond one
@@ -1632,6 +1618,9 @@ def main() -> int:
         if B4 in k4_timed:
             k4_ms[B4] = cuda_ms(lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan), 3)
         if B4 == k4_batches[0]:
+            launch_us["blind_rotate"] = host_us(
+                lambda: K.blind_rotate(acc0, abar, dkey.bk, P, plan), 5)
+        if B4 == k4_batches[0]:
             k4_rec = dict(shape=[B4, 2, N], err=err, pms=pms,
                           bytes_=dkey.bk.numel() * 2 + 2 * acc0.numel() * 4 + abar.numel() * 4,
                           ops=B4 * n * cmux_ops(rows, N))
@@ -1647,7 +1636,7 @@ def main() -> int:
     report("blind_rotate", k4_rec["shape"], k4_rec["err"], k4_ms[k4_timed[0]], k4_rec["pms"],
            k4_rec["bytes_"], k4_rec["ops"], "redsec_tpu/crypto/pallas_blind.py:60",
            params=(P.name, "small_v2_tpu2"), **{f"ms_batch{k4_timed[1]}": k4_ms[k4_timed[1]]},
-           **build)
+           host_us=launch_us["blind_rotate"], **build)
     print(f"kernel blind_rotate build: {build}", flush=True)
     del acc0, abar, got, want
 
@@ -1782,19 +1771,29 @@ def main() -> int:
                K.external_product_mm_plain(digits, mbk0, plan))
     ms = cuda_ms(lambda: K.external_product_mm(digits, mbk0, plan), 20)
     pms = cuda_ms(lambda: K.external_product_mm_plain(digits, mbk0, plan), 3)
+    # one round of about 33 us: events time the host's path beside it, so the
+    # device time is read from the profiler too
+    dev2m, _, _, re2m = device_ms(lambda: K.external_product_mm(digits, mbk0, plan),
+                                  "external_product_mm_kernel", required=False)
+    launch_us["external_product_mm"] = host_us(lambda: K.external_product_mm(digits, mbk0, plan))
     report("external_product_mm", [M, rows, N], err, ms, pms,
            digits.numel() * 4 + mbk0.numel() * 2 + M * 2 * N * 4,
            M * ext_product_ops(rows, N), "redsec_tpu/crypto/pallas_round.py:98", "blind_mm.cu",
-           bound_four_step_ms=four_step_bound_ms(M, rows, N, False),
+           bound_four_step_ms=four_step_bound_ms(M, rows, N, False), device_ms=dev2m,
+           profiler_retries=re2m, host_us=launch_us["external_product_mm"],
            **mm_fields(mlay, "external_product_mm_kernel"))
     err = same("cmux_round_mm", K.cmux_round_mm(acc, t, mbk0, P, plan),
                K.cmux_round_mm_plain(acc, t, mbk0, P, plan))
     ms = cuda_ms(lambda: K.cmux_round_mm(acc, t, mbk0, P, plan), 20)
     pms = cuda_ms(lambda: K.cmux_round_mm_plain(acc, t, mbk0, P, plan), 3)
+    dev3m, _, _, re3m = device_ms(lambda: K.cmux_round_mm(acc, t, mbk0, P, plan),
+                                  "cmux_round_mm_kernel", required=False)
+    launch_us["cmux_round_mm"] = host_us(lambda: K.cmux_round_mm(acc, t, mbk0, P, plan))
     report("cmux_round_mm", [M, 2, N], err, ms, pms,
            2 * acc.numel() * 4 + M * 4 + mbk0.numel() * 2, M * cmux_ops(rows, N),
            "redsec_tpu/crypto/pallas_round.py:254", "blind_mm.cu",
-           bound_four_step_ms=four_step_bound_ms(M, rows, N, True),
+           bound_four_step_ms=four_step_bound_ms(M, rows, N, True), device_ms=dev3m,
+           profiler_retries=re3m, host_us=launch_us["cmux_round_mm"],
            **mm_fields(mlay, "cmux_round_mm_kernel"))
     del mbk0
     _, cloud3 = kg.keygen(P3, seed=0)  # plain small_v2_tpu2 (10 digit rows)
@@ -1817,6 +1816,9 @@ def main() -> int:
             if Pm is P and B4 == pbs_chunk:
                 same("blind_rotate_mm against blind_rotate on the same raw key", got,
                      K.blind_rotate(acc0, abar, dkey.bk, P, plan))
+            if Pm is P and B4 == pbs_chunk:
+                launch_us["blind_rotate_mm"] = host_us(
+                    lambda: K.blind_rotate_mm(acc0, abar, mk.bk, Pm, mk.plan), 5)
             if B4 == pbs_chunk:
                 mm_ms[Pm.name] = dict(
                     err=err, pms=pms, lay=lay,
@@ -1837,7 +1839,7 @@ def main() -> int:
            params=(P.name, P3.name), counter="blind_rotate_mm",
            bound_four_step_ms=m1["four"], k4_ms_same_process=k4_ms[pbs_chunk],
            ms_small_v2_tpu2=m3["ms"], plain_ms_small_v2_tpu2=m3["pms"],
-           bound_four_step_ms_small_v2_tpu2=m3["four"],
+           bound_four_step_ms_small_v2_tpu2=m3["four"], host_us=launch_us["blind_rotate_mm"],
            **mm_fields(m1["lay"], "blind_rotate_mm_kernel"))
     print(f"kernel blind_rotate_mm {P.name} 512: {m1['ms']:.4f} ms against blind_rotate's "
           f"{k4_ms[pbs_chunk]:.4f} ms in this process ({m1['ms'] / k4_ms[pbs_chunk]:.3f}x)",
@@ -1869,24 +1871,27 @@ def main() -> int:
         rot_bytes, rot_ops = 2 * x5.numel() * 4 + t5.numel() * 4, 2 * x5.numel()
         pms = cuda_ms(lambda: PK.rotate_plain(x5, t5), 50, warmup=3)
         lms = cuda_ms(lambda: bench_schoolbook.rot_gather(x5, t5), 50, warmup=3)
-        ldev, ldev_re = kernel_device_ms(lambda: bench_schoolbook.rot_gather(x5, t5), "")
+        ldev, _, _, ldev_re = device_ms(lambda: bench_schoolbook.rot_gather(x5, t5), "",
+                                        per_call=None, required=False)
         ms = cuda_ms(lambda: PK.rotate_rows(x5, t5), 200, warmup=3)
         # these launches are short: CUDA events time the host's enqueue, so
         # the device's own time per launch is read from the profiler as well
         # profiler_retries: the traces taken again for this record's device times
-        dev5, re5 = kernel_device_ms(lambda: PK.rotate_rows(x5, t5), "rotate_rows_kernel")
+        dev5, _, _, re5 = device_ms(lambda: PK.rotate_rows(x5, t5), "rotate_rows_kernel")
+        launch_us["rotate_rows"] = host_us(lambda: PK.rotate_rows(x5, t5))
         report("rotate_rows", [B5, 2, N], err5, ms, pms, rot_bytes, rot_ops,
                "scripts/bench_rotate.py:87", "probes.cu", lms, library_device_ms=ldev,
-               device_ms=dev5, profiler_retries=ldev_re + re5)
+               device_ms=dev5, profiler_retries=ldev_re + re5, host_us=launch_us["rotate_rows"])
         ms64 = cuda_ms(lambda: PK.rotate_tile(x5, t5, 64), 200, warmup=3)
         ms256 = cuda_ms(lambda: PK.rotate_tile(x5, t5, 256), 200, warmup=3)
-        dev64, re64 = kernel_device_ms(lambda: PK.rotate_tile(x5, t5, 64), "rotate_tile_kernel")
-        dev256, re256 = kernel_device_ms(lambda: PK.rotate_tile(x5, t5, 256),
-                                         "rotate_tile_kernel")
+        dev64, _, _, re64 = device_ms(lambda: PK.rotate_tile(x5, t5, 64), "rotate_tile_kernel")
+        dev256, _, _, re256 = device_ms(lambda: PK.rotate_tile(x5, t5, 256),
+                                        "rotate_tile_kernel")
+        launch_us["rotate_tile"] = host_us(lambda: PK.rotate_tile(x5, t5, 64))
         report("rotate_tile", [B5, 2, N], err6, ms64, pms, rot_bytes, rot_ops,
                "scripts/bench_rotate.py:109", "probes.cu", lms, library_device_ms=ldev,
                tile=64, ms_tile256=ms256, device_ms=dev64, device_ms_tile256=dev256,
-               profiler_retries=ldev_re + re64 + re256)
+               profiler_retries=ldev_re + re64 + re256, host_us=launch_us["rotate_tile"])
         print(f"kernel rotate_tile tile 256: {ms256:.4f} ms, on the device alone "
               f"{rec['rotate_tile']['device_ms_tile256']:.4f} ms ({B5 // 256} tiles, their "
               f"rows dealt out over two blocks an SM)", flush=True)
@@ -1894,7 +1899,6 @@ def main() -> int:
     # K7: the Toeplitz tile, its one shape
     w7 = ri(-2**31, 2**31, (1, 2 * PK.TOEPLITZ_TILE))
     err = same("toeplitz_tile", PK.toeplitz_tile(w7), PK.toeplitz_tile_plain(w7))
-    ms = cuda_ms(lambda: PK.toeplitz_tile(w7), 200, warmup=3)
     pms = cuda_ms(lambda: PK.toeplitz_tile_plain(w7), 50, warmup=3)
     # the one PyTorch call: torch.take with the tile's fixed index table
     # (127 + k - j stays inside [0, 254], nothing wraps), built once
@@ -1902,13 +1906,25 @@ def main() -> int:
     idx7 = PK.TOEPLITZ_TILE - 1 + kk[None, :] - kk[:, None]
     if not torch.equal(torch.take(w7, idx7), PK.toeplitz_tile_plain(w7)):
         fail("torch.take over the fixed index table differs from the toeplitz_tile twin")
-    lms = cuda_ms(lambda: torch.take(w7, idx7), 200, warmup=3)
-    ldev7, lre7 = kernel_device_ms(lambda: torch.take(w7, idx7), "")
-    dev7, re7 = kernel_device_ms(lambda: PK.toeplitz_tile(w7), "toeplitz_tile_kernel")
+    # both are paced by the host: timed in turns (kernel, call, call, kernel),
+    # 200 back-to-back calls between two events each
+    k7_turns = {"kernel": [], "torch.take": []}
+    for tag in ("kernel", "torch.take", "torch.take", "kernel"):
+        k7_turns[tag].append(cuda_ms((lambda: PK.toeplitz_tile(w7)) if tag == "kernel"
+                                     else (lambda: torch.take(w7, idx7)), 200, warmup=3))
+    ms, lms = (sum(k7_turns[k]) / 2 for k in ("kernel", "torch.take"))
+    ldev7, _, _, lre7 = device_ms(lambda: torch.take(w7, idx7), "", required=False)
+    dev7, _, _, re7 = device_ms(lambda: PK.toeplitz_tile(w7), "toeplitz_tile_kernel")
+    launch_us["toeplitz_tile"] = host_us(lambda: PK.toeplitz_tile(w7))
+    launch_us["torch.take (library)"] = host_us(lambda: torch.take(w7, idx7))
     report("toeplitz_tile", [1, 2 * PK.TOEPLITZ_TILE], err, ms, pms,
            w7.numel() * 4 + PK.TOEPLITZ_TILE ** 2 * 4, PK.TOEPLITZ_TILE ** 2,
            "scripts/bench_schoolbook.py:254", "probes.cu", lms, library_device_ms=ldev7,
-           device_ms=dev7, profiler_retries=lre7 + re7)
+           device_ms=dev7, profiler_retries=lre7 + re7, ms_in_turns=k7_turns,
+           host_us=launch_us["toeplitz_tile"], library_host_us=launch_us["torch.take (library)"])
+    print(f"kernel toeplitz_tile against torch.take in turns (events, 200 calls each): kernel "
+          f"{', '.join(f'{v:.4f}' for v in k7_turns['kernel'])} ms, torch.take "
+          f"{', '.join(f'{v:.4f}' for v in k7_turns['torch.take'])} ms on {card}", flush=True)
 
     # the PBS's test-vector rotation at a full chunk: one vector broadcast
     # (sign) against one vector per ciphertext (relu)
@@ -1921,6 +1937,8 @@ def main() -> int:
     print(f"test-vector rotate [{pbs_chunk}, {N}]: one broadcast vector "
           f"{tv_rot['broadcast']:.4f} ms, one per ciphertext "
           f"{tv_rot['per_ciphertext']:.4f} ms on {card}", flush=True)
+    print(f"launch path, host us a call ({', '.join(f'{k} {v:.2f}' for k, v in launch_us.items())}"
+          f"; calls with no synchronize between them) on {card}", flush=True)
     print(f"kernel phase: {time.perf_counter() - t_kernels:.1f} s", flush=True)
 
     # ---- phase 4: the sign slice through the port's entry points
@@ -2532,6 +2550,8 @@ def main() -> int:
             if (Bs == 512 and Ns >= 1024) or (is_v2 and Bs in sb_path):
                 sb_ms[(Ns, rs, Bs)] = cuda_ms(lambda: K.schoolbook_product(dg, bk_s, hb), 5)
             if is_v2 and Bs == 512:
+                launch_us["schoolbook_product [512, 8, 4096]"] = host_us(
+                    lambda: K.schoolbook_product(dg, bk_s, hb), 5)
                 sb_rec = dict(err=err, pms=cuda_ms(
                     lambda: K.schoolbook_product_plain(dg, bk_s, hb), 5),
                     bytes_=dg.numel() * 4 + bk_s.numel() * 4 + Bs * 2 * Ns * 4)
@@ -2659,7 +2679,7 @@ def main() -> int:
         r_regs[f"registers_{inst}"], r_regs[f"spill_bytes_{inst}"] = ptxas_usage(ptxas, inst)
         r_regs[f"cluster_{inst}"] = r_inst[inst]["cluster"]
         r_regs[f"ciphertexts_per_cluster_{inst}"] = r_inst[inst]["ciphertexts"]
-    r_ms, r_turns = {}, {}
+    r_ms, r_turns, r_dev = {}, {}, {}
     for name, Bs in (("medium_v2", 512), ("medium", 512), ("large_v2", 512), ("large", 512),
                      ("medium_v2", 4)):
         Pr = get_params(name)
@@ -2684,6 +2704,11 @@ def main() -> int:
         key = f"{name}_{Bs}"
         r_turns[key] = turns
         r_ms[key] = min(turns["round"])
+        if name == "medium_v2":  # the launch path beside the device at a gate's 4 and at 512
+            launch_us[f"schoolbook_round [{Bs}, {rr}, {Nr}]"] = host_us(
+                lambda: K.schoolbook_round(acc_r, t_r, spec, Pr, out=out_r))
+            r_dev[key] = device_ms(lambda: K.schoolbook_round(acc_r, t_r, spec, Pr, out=out_r),
+                                   "schoolbook_round_kernel", required=False)
         if (name, Bs) == ("medium_v2", 512):
             r_twin = cuda_ms(lambda: K.schoolbook_round_plain(acc_r, t_r, spec, Pr), 3)
             r_bytes = schoolbook_round_bytes(Bs, rr, Nr)
@@ -2701,6 +2726,35 @@ def main() -> int:
               f"bytes {by_ms:.4f}; the 2N-FFT flops {b2n:.4f}), "
               f"{max(tw_ms, by_ms) / r_ms[key]:.4f} of it, on {card}", flush=True)
         del bk_s, spec, acc_r, out_r, dg
+    # the n rounds of a PBS from one C loop (schoolbook_rounds, the paths'
+    # door) at a gate's 4, n cut to 16: against the twin's loop, 16 launches
+    # at the door, and each round's events against its device time
+    Pr, nr = PV, 16
+    acc_r, ts_r = ri(-2**31, 2**31, (4, 2, Pr.N)), ri(0, 2 * Pr.N, (nr, 4))
+    spec = K.key_spectra(ri(-2**31, 2**31, (nr, Pr.decomp_rows, 2, Pr.N)))
+    before = launches.get("schoolbook_round")
+    got_r = K.schoolbook_rounds(acc_r, ts_r, spec, Pr)
+    if launches.get("schoolbook_round") != before + nr:
+        fail(f"schoolbook_rounds counted {launches.get('schoolbook_round') - before} launches "
+             f"for {nr} rounds")
+    r_err = max(r_err, same(f"schoolbook_rounds {Pr.name} [4, {Pr.decomp_rows}, {Pr.N}] x {nr}",
+                            got_r, K.schoolbook_rounds_plain(acc_r, ts_r, spec, Pr)))
+    rounds_ms = cuda_ms(lambda: K.schoolbook_rounds(acc_r, ts_r, spec, Pr), 20, warmup=2) / nr
+    launch_us[f"schoolbook_rounds [4, {Pr.decomp_rows}, {Pr.N}] x {nr}, a round"] = host_us(
+        lambda: K.schoolbook_rounds(acc_r, ts_r, spec, Pr), 20) / nr
+    rd_ms, _, rd_n, _ = device_ms(lambda: K.schoolbook_rounds(acc_r, ts_r, spec, Pr),
+                                  "schoolbook_round_kernel", reps=5, per_call=nr, required=False)
+    r_dev["rounds_medium_v2_4"] = (rd_ms and rd_ms / nr, None, rd_n)  # a round
+    print(f"schoolbook_rounds {Pr.name} [4, {Pr.decomp_rows}, {Pr.N}] x {nr}: bit-identical to "
+          f"the twin's loop, {nr} launches at the door; {rounds_ms:.4f} ms a round by events "
+          f"(one call, 20 back to back), {ms_text(r_dev['rounds_medium_v2_4'][0])} a round on "
+          f"the device ({rd_n} launches traced in 5 calls); a single round's events "
+          f"{r_ms[f'{Pr.name}_4']:.4f} ms, device {ms_text(r_dev[f'{Pr.name}_4'][0])} "
+          f"({r_dev[f'{Pr.name}_4'][2]} launches traced in 20 calls) on {card}", flush=True)
+    print(f"launch path, host us a call, phase 11 "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in launch_us.items() if 'schoolbook' in k)}) "
+          f"on {card}", flush=True)
+    del acc_r, ts_r, spec, got_r
     Bm, Pv = 512, PV
     r_key = f"{Pv.name}_{Bm}"
     rf_flops = schoolbook_round_flops(Bm, Pv.decomp_rows, Pv.N)
@@ -2714,6 +2768,9 @@ def main() -> int:
            fp64_vector_flops_per_s=PEAK_FP64_FLOPS, fp64_dmma_flops_per_s=PEAK_FP64_TENSOR_FLOPS,
            bound_fp64_fft_2n_ms=fp64_ms(schoolbook_fft_flops(Bm, Pv.decomp_rows, Pv.N)),
            ms_in_turns=r_turns, ms_by_shape=r_ms,
+           host_us={k: v for k, v in launch_us.items() if k.startswith("schoolbook_round")},
+           device_ms_traced={k: v[0] for k, v in r_dev.items()},
+           rounds_a_launch_ms=rounds_ms,
            layout={k: v for k, v in K.schoolbook_round_layout(Pv.N, Pv.decomp_rows).items()
                    if k in ("cluster", "ciphertexts", "threads", "shared_bytes", "instance")},
            shared_bytes={i: lay_["shared_bytes"] for i, lay_ in r_inst.items()}, **r_regs)
@@ -2751,7 +2808,7 @@ def main() -> int:
         rout = bs.make_batched_bootstrap(rkey)(rct, rtv)
         torch.cuda.synchronize()
         by_path[f"reduced/{name}"] = (name, dict(launches.counts))
-        with mock.patch.object(K, "schoolbook_round", K.schoolbook_round_plain):
+        with mock.patch.object(K, "schoolbook_rounds", K.schoolbook_rounds_plain):
             rplain = bs.make_batched_bootstrap(rkey)(rct, rtv)
         if launches.get("schoolbook_round") != Pr.n or not torch.equal(rout, rplain):
             fail(f"{Pr.name}: the PBS through the schoolbook round kernel differs from the "
@@ -2786,9 +2843,10 @@ def main() -> int:
             return out_
         return kept_run
 
-    def door_round(acc, t, spectra_round, params, out=None, _real=K.schoolbook_round):
-        sb_door.append(acc.shape[0])
-        return _real(acc, t, spectra_round, params, out=out)
+    def door_round(acc, ts, spectra, params, _real=K.schoolbook_rounds):
+        # one call carries a PBS chunk's rounds: each round's batch at the door
+        sb_door.extend([acc.shape[0]] * ts.shape[0])
+        return _real(acc, ts, spectra, params)
 
     launches.reset()
     t0 = time.perf_counter()
@@ -2799,7 +2857,7 @@ def main() -> int:
             "--image-ptxt", os.path.join(vdir, "image.ptxt"),
             "--out", os.path.join(vdir, "image.ctxt.npz"))
     with mock.patch.object(renc, "make_chunked_bootstrap", keeping), \
-            mock.patch.object(K, "schoolbook_round", door_round):
+            mock.patch.object(K, "schoolbook_rounds", door_round):
         _, vrec = run_cli("run-encrypted", "--model", model.name, "--weights", weights,
                           "--eval", os.path.join(vdir, "eval.key.npz"),
                           "--image", os.path.join(vdir, "image.ctxt.npz"),
@@ -2827,7 +2885,7 @@ def main() -> int:
              f"{int(vscores[0].argmax())}")
     # layer 0's first 8 ciphertexts through the twin path, 3,072 rounds
     t0 = time.perf_counter()
-    with mock.patch.object(K, "schoolbook_round", K.schoolbook_round_plain):
+    with mock.patch.object(K, "schoolbook_rounds", K.schoolbook_rounds_plain):
         vtwin = bs.make_batched_bootstrap(kept["dkey"])(kept["ct"], kept["tv"])
     torch.cuda.synchronize()
     t_twin = time.perf_counter() - t0
@@ -2847,7 +2905,7 @@ def main() -> int:
         prof_run(kept["ct512"], kept["tv512"])
         torch.cuda.synchronize()
         # the tracer can miss launches right after it starts, and now and then
-        # drops one of a long run (as in kernel_device_ms): it starts a step
+        # drops one of a long run (as in device.device_ms): it starts a step
         # early, and a trace short of the n launches is taken again
         for p_try in range(3):
             p_wall, p_busy, p_rows = profile_forward(
@@ -2900,6 +2958,32 @@ def main() -> int:
         by_path[f"gates/{gname}"] = (gname, dict(launches.counts))
         print(f"gates/{gname}: {', '.join(names)} truth tables right on the card "
               f"({time.perf_counter() - t0:.1f} s, launches {dict(launches.counts)})", flush=True)
+        if gname != PV.name:
+            continue
+        # the AND's wall (host clock around a call and a synchronize) beside
+        # the device time of its n rounds and of every kernel (one traced
+        # call, which must see all n round launches)
+        and_walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            gs.AND(enc[0], enc[1])
+            torch.cuda.synchronize()
+            and_walls.append((time.perf_counter() - t1) * 1e3)
+        r_all, busy, r_seen, _ = device_ms(lambda: gs.AND(enc[0], enc[1]),
+                                           "schoolbook_round_kernel", reps=1, per_call=gp.n,
+                                           required=False)
+        wall = sum(and_walls) / len(and_walls)
+        slices[f"gates/{gname}/AND"] = {
+            "wall_ms": and_walls, "rounds_device_ms": r_all, "rounds_traced": r_seen,
+            "device_busy_ms": busy, "wall_over_rounds": r_all and wall / r_all,
+            "idle_share": busy and 1 - busy / wall}
+        traced = ("not measured (the profiler never saw all its launches)" if r_all is None else
+                  f"{r_all:.3f} ms on the device ({r_seen} launches traced), every kernel "
+                  f"{busy:.3f} ms; wall {wall / r_all:.3f}x the rounds' device time, idle share "
+                  f"{1 - busy / wall:.4f}")
+        print(f"gates/{gname} AND [4 ciphertexts]: wall {', '.join(f'{w:.3f}' for w in and_walls)} "
+              f"ms; its {gp.n} rounds {traced} on {card}", flush=True)
     del kept, vtwin
     shutil.rmtree(work2)
     torch.cuda.empty_cache()

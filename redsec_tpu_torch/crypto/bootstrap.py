@@ -14,11 +14,12 @@ package).
 
 The parameter sets without NTT primes (N >= 4096: ``medium``, ``large``,
 ``medium_v2``, ``large_v2``), and any set prepared with ``schoolbook=True``,
-run the JAX package's schoolbook branch instead: n CMUX rounds, each one
-call of ``kernels.schoolbook_round`` (csrc/schoolbook_fft.cu: rotate,
-difference, decompose, exact float64 transforms against the key's prepared
-spectra, the add; its plain twin, the same transforms in torch, on a CPU
-tensor).  Its output is the exact product, as the JAX package's
+run the JAX package's schoolbook branch instead: n CMUX rounds in one call
+of ``kernels.schoolbook_rounds``, each round one launch of the round kernel
+from a loop in C (csrc/schoolbook_fft.cu: rotate, difference, decompose,
+exact float64 transforms against the key's prepared spectra, the add) or,
+on a CPU tensor, one call of ``kernels.schoolbook_round``'s plain twin, the
+same transforms in torch.  Its output is the exact product, as the JAX package's
 ``bootstrap_host`` has it, and equals the loop of the JAX package's own
 formulation (rotate, difference and decompose around S1,
 ``kernels.schoolbook_product`` on the raw BK), which the tests keep as a
@@ -353,21 +354,18 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
     key is; for ``ntt_flavor="matmul"`` it is ``kernels.blind_rotate_mm``
     where ``kernels.supported_mm`` takes the set and the key's bundling, else
     the torch loop ``kernels.blind_rotate_mm_plain``.  Without
-    one (``plan`` None) it is the JAX package's schoolbook body: n calls of
-    ``kernels.schoolbook_round`` on the key's spectra (two accumulator
-    buffers in turn).  The impl checks every key it is given against
-    ``ntt_flavor``."""
+    one (``plan`` None) it is the JAX package's schoolbook body: its n
+    rounds on the key's spectra in one call of ``kernels.schoolbook_rounds``
+    (on CUDA one C loop of n launches of the round kernel; on the CPU n calls
+    of ``kernels.schoolbook_round``).  The impl checks every key it is given
+    against ``ntt_flavor``."""
     N, n = p.N, p.n
     ops = RoundOps(p)
 
     def blind_rotate_schoolbook(acc: torch.Tensor, abar: torch.Tensor,
                                 dkey: DeviceCloudKey) -> torch.Tensor:
-        # one schoolbook round a key bit, on two buffers in turn
-        ts = abar.t().contiguous()
-        spare = torch.empty_like(acc)
-        for i in range(n):
-            acc, spare = kernels.schoolbook_round(acc, ts[i], dkey.spectra[i], p, out=spare), acc
-        return acc
+        # one schoolbook round a key bit: round i's exponents in row i
+        return kernels.schoolbook_rounds(acc, abar.t().contiguous(), dkey.spectra, p)
 
     want = "schoolbook" if plan is None else ntt_flavor
 

@@ -1,4 +1,4 @@
-"""The blind-rotation kernels: ctypes loader, wrappers and plain twins.
+"""The blind-rotation kernels: their loader, wrappers and plain twins.
 
 Four CUDA kernels for ``sm_90a`` live in ``csrc/pbs.cu`` (design notes and
 the TPU kernel each replaces are at its top):
@@ -15,16 +15,33 @@ wrapper                       replaces (JAX package)
 Each wrapper takes the plain PyTorch twin (``*_plain``, same function, built
 from ``ntt``'s torch transform and ``bootstrap.RoundOps``) only because its
 tensor lies on the CPU.  On a CUDA tensor it checks device, dtype, shape and
-contiguity, allocates the output with ``torch.empty``, launches on the
-current stream, raises on a non-zero ``cudaGetLastError()``, and adds one to
-its count in ``device.launches``.  Nothing falls back to the twin.
+contiguity, allocates the output with ``torch.empty`` (or its ``new_empty``
+and ``empty_like`` forms, which skip parsing a dtype and a device), launches
+on the current stream, raises on a non-zero ``cudaGetLastError()``, and
+adds one to its count in ``device.launches``.  Nothing falls back to the
+twin.
 
-The shared library is built with ``nvcc`` into ``build/kernels/`` at the
-root of the checkout on first use (``build_library``, shared with
-``probe_kernels.py``); importing this module needs no compiler.  The
-NTT-domain order of every key tensor these take is the radix-2 bit-reversed
-order of ``ntt.ntt_device`` (flavour "radix2"), and BK residues are 16-bit
-patterns of int16 (``residues`` zero-extends them).
+The launch path is kept short, since a kernel of a few microseconds is
+paced by the host's work around it.  Each library is a CPython extension
+module of its C entries (``csrc/py_entries.cuh``: METH_FASTCALL, no
+PyTorch header), each entry bound once by ``Library``, which takes the
+current stream's raw handle (``torch._C._cuda_getCurrentRawStream``, as
+Triton's launcher does) without building a ``torch.cuda.Stream``.  The
+wrappers test each tensor in one expression (``_require_all``) and read a
+parameter set's and a plan's constants from caches (``_gadget_args``,
+``kernel_tables``, ``fft_tables`` with its addresses, ``_fft_entry``,
+``ntt_matmul.kernel_tables_mm``, ``_mm_shape_ok``); the C entries opt each
+kernel in to its shared memory and read the SM count once per instance and
+device (``csrc/launch_once.cuh``).  ``schoolbook_rounds`` runs a PBS's n
+rounds of the schoolbook round kernel from one C loop.
+
+The library is built with ``nvcc`` (and Python's headers) into
+``build/kernels/`` at the root of the checkout on first use
+(``build_library``, shared with ``probe_kernels.py``); importing this
+module needs no compiler.  The NTT-domain order of every key tensor these
+take is the radix-2 bit-reversed order of ``ntt.ntt_device`` (flavour
+"radix2"), and BK residues are 16-bit patterns of int16 (``residues``
+zero-extends them).
 
 ``ntt`` and ``blind_rotate`` take every NTT plan of the JAX package (two or
 three primes below 2^16, N = 256 .. 2048), plain and bundled keys
@@ -57,10 +74,14 @@ cores; its twin is an exact float64 FFT product.
 from __future__ import annotations
 
 import ctypes
+import functools
+import glob
+import importlib.util
 import math
 import os
 import shutil
 import subprocess
+import sysconfig
 
 import numpy as np
 import torch
@@ -75,6 +96,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG, "csrc", "pbs.cu")
 SCHOOLBOOK_SOURCE = os.path.join(_PKG, "csrc", "schoolbook.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+CSRC = os.path.join(_PKG, "csrc")  # the shared headers (launch_once.cuh, py_entries.cuh)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 KERNEL_N = (256, 512, 1024, 2048)  # N the kernels are instantiated for
@@ -122,17 +144,20 @@ def library_path(source: str) -> str:
 
 def build_library(source: str, force: bool = False) -> str:
     """Compile one CUDA source into its ``library_path`` unless that is up to
-    date (``force`` compiles anyway).  Returns the compiler's messages
-    (``-Xptxas -v``: registers, shared memory, spills per kernel), empty when
-    nothing was built.  Raises with the compiler's output if nvcc fails."""
+    date with the source and the headers beside it (``force`` compiles
+    anyway).  Returns the compiler's messages (``-Xptxas -v``: registers,
+    shared memory, spills per kernel), empty when nothing was built.  Raises
+    with the compiler's output if nvcc fails."""
     lib = library_path(source)
+    inputs = [source, *glob.glob(os.path.join(CSRC, "*.cuh"))]
     if (not force and os.path.exists(lib)
-            and os.path.getmtime(lib) >= os.path.getmtime(source)):
+            and os.path.getmtime(lib) >= max(map(os.path.getmtime, inputs))):
         return ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
-                         capture_output=True, text=True)
+    includes = {CSRC, sysconfig.get_paths()["include"], sysconfig.get_paths()["platinclude"]}
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, *(f"-I{d}" for d in sorted(includes)), "-o",
+                          tmp, source], capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}) on {source}:\n"
                            f"{res.stdout}\n{res.stderr}")
@@ -140,52 +165,57 @@ def build_library(source: str, force: bool = False) -> str:
     return res.stdout + res.stderr
 
 
-class Library:
-    """A built and loaded shared library of one CUDA source.  ``entries`` maps
-    each C function's name to its argtypes (all return int); an entry that
-    launches a kernel takes the stream last and returns the
-    ``cudaGetLastError()`` of its launch, and the source exports
-    ``redsec_error_string``."""
+# the raw handle of a device's current stream, read without building a
+# torch.cuda.Stream (Triton's launcher reads it so); a build without CUDA,
+# which launches nothing, has no such reader
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+OTHER_DEVICE = -1  # a launch entry's answer when its device is not the current one
 
-    def __init__(self, source: str, entries: dict):
+
+class Library:
+    """A built and loaded library of one CUDA source, which is a CPython
+    extension module of its extern "C" entries (``csrc/py_entries.cuh``:
+    plain C API, one METH_FASTCALL function an entry, arguments as Python
+    ints, an array by its ``ctypes.addressof``).  ``entries`` names the
+    entries, each bound once here; each returns an int.  One that launches a
+    kernel takes the device index first and the stream last, and returns
+    ``OTHER_DEVICE`` without launching where that device is not the current
+    one, else the ``cudaGetLastError()`` of its launch.
+    ``redsec_error_string`` gives a code's text."""
+
+    def __init__(self, source: str, entries):
         build_library(source)
-        lib = ctypes.CDLL(library_path(source))
-        lib.redsec_error_string.argtypes = [ctypes.c_int]
-        lib.redsec_error_string.restype = ctypes.c_char_p
-        self.fn = {}
-        for name, argtypes in entries.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            self.fn[name] = fn
+        path = library_path(source)
+        spec = importlib.util.spec_from_file_location(
+            os.path.splitext(os.path.basename(path))[0], path)
+        lib = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(lib)
+        self.fn = {name: getattr(lib, name) for name in entries}
         self.lib = lib
 
-    def launch(self, entry: str, kernel: str, dev: torch.device, *args) -> None:
-        """Call ``entry(*args, stream)`` on ``dev``'s current stream, raise on
-        a non-zero ``cudaGetLastError()`` and add one to ``kernel``'s launch
-        count.  The device guard is entered only when ``dev`` is not already
-        the current device."""
+    def launch(self, entry: str, kernel: str, dev: int, *args, count: int = 1,
+               failed: ctypes.c_int | None = None) -> None:
+        """Call ``entry(dev, *args, stream)`` on the current stream of CUDA
+        device ``dev`` (an index), raise on a non-zero ``cudaGetLastError()``
+        and add ``count`` to ``kernel``'s launch count.  The entry holds
+        ``dev`` against the current device in C; the device guard is entered,
+        and the entry called again, only when it is another.  ``failed``: the
+        cell an entry that launches several times writes the failing launch's
+        round to, named in the error."""
         fn = self.fn[entry]
-        if dev.index == torch.cuda.current_device():
-            code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-        else:
+        code = fn(dev, *args, _raw_stream(dev))
+        if code == OTHER_DEVICE:
             with torch.cuda.device(dev):
-                code = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-        if code != 0:
-            msg = self.lib.redsec_error_string(code).decode()
-            raise RuntimeError(f"CUDA kernel {kernel} failed: {msg} ({code})")
-        launches.bump(kernel)
+                code = fn(dev, *args, _raw_stream(dev))
+        if code:
+            msg = self.lib.redsec_error_string(code)
+            where = "" if failed is None else f" at round {failed.value}"
+            raise RuntimeError(f"CUDA kernel {kernel} failed{where}: {msg} ({code})")
+        launches.bump(kernel, count)
 
 
-_P, _I, _L, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint32
-_ENTRIES = {
-    "redsec_ntt": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "redsec_external_product": [_P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P],
-    "redsec_cmux_round": [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
-    "redsec_blind_rotate": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _I, _I, _I,
-                            _P],
-    "redsec_blind_rotate_config": [_I, _I, _I, _I, _I, _I, ctypes.POINTER(_I)],
-}
+_ENTRIES = ("redsec_ntt", "redsec_external_product", "redsec_cmux_round", "redsec_blind_rotate",
+            "redsec_blind_rotate_config")
 _loaded: list[Library] = []
 
 
@@ -205,6 +235,16 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _require_all(dev: int, *specs) -> None:
+    """``_require`` of each (tensor, name, dtype, shape) on CUDA device
+    ``dev`` (an index), each tensor tested in one expression; ``_require``
+    runs only to name the first check that fails, with its own error."""
+    for t, name, dtype, shape in specs:
+        if not (t.dtype is dtype and t.shape == shape and t.get_device() == dev
+                and t.is_contiguous()):
+            _require(t, name, dtype, shape, torch.device("cuda", dev))
 
 
 def _require_cuda_plan(plan: ntt_mod.NttPlan) -> None:
@@ -248,7 +288,7 @@ def shoup_tables(plan: ntt_mod.NttPlan) -> np.ndarray:
 _TABLES: dict = {}
 
 
-def kernel_tables(plan: ntt_mod.NttPlan, device) -> torch.Tensor:
+def kernel_tables(plan: ntt_mod.NttPlan, device: torch.device) -> torch.Tensor:
     """``shoup_tables(plan)`` on ``device`` as int32 [P, 4, N, 2] (the bit
     patterns of the uint32 pairs), built once per plan and device."""
     key = (plan.N, plan.primes, device)
@@ -273,15 +313,15 @@ def ntt(x: torch.Tensor, plan: ntt_mod.NttPlan, pi: int,
         inverse: bool = False) -> torch.Tensor:
     """Negacyclic NTT (or inverse) mod ``plan.primes[pi]`` of int32 [M, N]
     rows with values in [0, p); bit-reversed order in the NTT domain."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return ntt_plain(x, plan, pi, inverse)
     _require_cuda_plan(plan)
-    M = x.shape[0]
-    _require(x, "x", torch.int32, (M, plan.N), x.device)
+    M, dev = x.shape[0], x.get_device()
+    _require_all(dev, (x, "x", torch.int32, (M, plan.N)))
     tabs = kernel_tables(plan, x.device)
     y = torch.empty_like(x)
     tab = tabs.data_ptr() + pi * 4 * plan.N * 8  # this prime's [4, N, 2] int32
-    _lib().launch("redsec_ntt", "ntt", x.device, x.data_ptr(), y.data_ptr(), tab, M,
+    _lib().launch("redsec_ntt", "ntt", dev, x.data_ptr(), y.data_ptr(), tab, M,
                   plan.N, plan.primes[pi], int(inverse))
     return y
 
@@ -346,15 +386,15 @@ def recombine_limbs(conv, plan: ntt_mod.NttPlan) -> torch.Tensor:
 def external_product(digits: torch.Tensor, bk_round: torch.Tensor,
                      plan: ntt_mod.NttPlan) -> torch.Tensor:
     """K2: see ``external_product_plain`` (two primes, N up to 1024)."""
-    if digits.device.type == "cpu":
+    if digits.is_cpu:
         return external_product_plain(digits, bk_round, plan)
     _require_round_plan(plan)
     M, rows, N = digits.shape
-    dev = digits.device
-    _require(digits, "digits", torch.int32, (M, rows, plan.N), dev)
-    _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, N), dev)
-    tabs = kernel_tables(plan, dev)
-    delta = torch.empty((M, 2, N), dtype=torch.int32, device=dev)
+    dev = digits.get_device()
+    _require_all(dev, (digits, "digits", torch.int32, (M, rows, plan.N)),
+                 (bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, N)))
+    tabs = kernel_tables(plan, digits.device)
+    delta = digits.new_empty((M, 2, N))  # int32, as the digits (checked)
     _lib().launch("redsec_external_product", "external_product", dev, digits.data_ptr(),
                   bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs.data_ptr(),
                   delta.data_ptr(), M, N, rows, plan.primes[0], plan.primes[1])
@@ -394,22 +434,30 @@ def bundled_round_plain(acc: torch.Tensor, ti: torch.Tensor, tj: torch.Tensor,
                                         bk_round, plan, *transforms)
 
 
-def _gadget_args(params: TfheParams):
-    return params.l, params.bg_bit, bs.gadget_offset(params)
+_GADGET: dict = {}
+
+
+def _gadget_args(params: TfheParams) -> tuple[int, int, int]:
+    """(l, bg_bit, ``bs.gadget_offset``) of a parameter set, computed once a
+    (l, bg_bit): the offset depends on nothing else."""
+    args = _GADGET.get((params.l, params.bg_bit))
+    if args is None:
+        args = _GADGET[params.l, params.bg_bit] = (params.l, params.bg_bit,
+                                                   bs.gadget_offset(params))
+    return args
 
 
 def cmux_round(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
                params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
     """K3: see ``cmux_round_plain`` (two primes, N up to 1024)."""
-    if acc.device.type == "cpu":
+    if acc.is_cpu:
         return cmux_round_plain(acc, t, bk_round, params, plan)
     _require_round_plan(plan)
     M, N, rows = acc.shape[0], params.N, params.decomp_rows
-    dev = acc.device
-    _require(acc, "acc", torch.int32, (M, 2, N), dev)
-    _require(t, "t", torch.int32, (M,), dev)
-    _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, N), dev)
-    tabs = kernel_tables(plan, dev)
+    dev = acc.get_device()
+    _require_all(dev, (acc, "acc", torch.int32, (M, 2, N)), (t, "t", torch.int32, (M,)),
+                 (bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, N)))
+    tabs = kernel_tables(plan, acc.device)
     out = torch.empty_like(acc)
     _lib().launch("redsec_cmux_round", "cmux_round", dev, acc.data_ptr(), t.data_ptr(),
                   bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs.data_ptr(),
@@ -463,19 +511,18 @@ def blind_rotate(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
                  params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
     """K4: see ``blind_rotate_plain``.  One launch runs all rounds, laid out
     as ``k4_layout`` says."""
-    if acc0.device.type == "cpu":
+    if acc0.is_cpu:
         return blind_rotate_plain(acc0, abar, bk, params, plan)
     bundle = key_bundle(bk, params)
     if not supported(params, plan, bundle):
         raise ValueError(f"{params.name}: primes {plan.primes} at N={plan.N}, bundle "
                          f"{bundle}: outside what blind_rotate_kernel is built for")
     B, N, n, rows = acc0.shape[0], params.N, params.n, params.decomp_rows
-    dev = acc0.device
-    _require(acc0, "acc0", torch.int32, (B, 2, N), dev)
-    _require(abar, "abar", torch.int32, (B, n), dev)
-    _require(bk, "bk", torch.int16, (len(plan.primes), n // bundle,
-                                     rows * (3 if bundle == 2 else 1), 2 * bs.BK_LIMBS, N), dev)
-    tabs = kernel_tables(plan, dev)
+    dev = acc0.get_device()
+    _require_all(dev, (acc0, "acc0", torch.int32, (B, 2, N)), (abar, "abar", torch.int32, (B, n)),
+                 (bk, "bk", torch.int16, (len(plan.primes), n // bundle,
+                                          rows * (3 if bundle == 2 else 1), 2 * bs.BK_LIMBS, N)))
+    tabs = kernel_tables(plan, acc0.device)
     out = torch.empty_like(acc0)
     pr = tuple(plan.primes) + (0,) * (3 - len(plan.primes))
     _lib().launch("redsec_blind_rotate", "blind_rotate", dev, acc0.data_ptr(),
@@ -497,8 +544,8 @@ def blind_rotate_config(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | 
         sm_count = torch.cuda.get_device_properties(torch.cuda.current_device()) \
             .multi_processor_count
     out = (ctypes.c_int * 7)()
-    code = _lib().fn["redsec_blind_rotate_config"](batch, params.N, params.l,
-                                                   len(plan.primes), bundle, sm_count, out)
+    code = _lib().fn["redsec_blind_rotate_config"](batch, params.N, params.l, len(plan.primes),
+                                                   bundle, sm_count, ctypes.addressof(out))
     if code != 0:
         raise ValueError(f"blind_rotate_kernel has no instance for N={params.N}, "
                          f"{len(plan.primes)} primes, bundle {bundle}")
@@ -626,10 +673,7 @@ def k4_layout(batch: int, params: TfheParams, plan: ntt_mod.NttPlan | None = Non
 # S1: the schoolbook external product (the sets without NTT primes)           #
 # --------------------------------------------------------------------------- #
 
-_SB_ENTRIES = {
-    "redsec_schoolbook_product": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "redsec_schoolbook_tile": [_I, _I, _I, _I, ctypes.POINTER(_I)],
-}
+_SB_ENTRIES = ("redsec_schoolbook_product", "redsec_schoolbook_tile")
 _sb_loaded: list[Library] = []
 SCHOOLBOOK_MAX_HALF_BG = 512  # two s8 limbs of a digit: lo in [-128, 127], hi in [-2, 2]
 SCHOOLBOOK_MAX_ROWS = 64
@@ -673,7 +717,7 @@ def schoolbook_tile(B: int, N: int, half_bg: int, device=None) -> dict:
     dev = torch.device(device if device is not None else "cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = (ctypes.c_int * 3)()
-    if _sb_lib().fn["redsec_schoolbook_tile"](B, N, half_bg, sms, out) != 0:
+    if _sb_lib().fn["redsec_schoolbook_tile"](B, N, half_bg, sms, ctypes.addressof(out)) != 0:
         raise ValueError(f"schoolbook_kernel has no tile for B={B}, N={N}, Bg/2={half_bg}")
     nt, mt, limbs = out
     return {"nt": nt, "mt": mt, "limbs": limbs,
@@ -752,7 +796,7 @@ def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor,
     kernel's limb plan: it does not check the digits, and outside that range
     its result is not the product), N in ``SCHOOLBOOK_N``, 1 ..
     ``SCHOOLBOOK_MAX_ROWS`` digit rows, any batch."""
-    if digits.device.type == "cpu":
+    if digits.is_cpu:
         return schoolbook_product_plain(digits, bk_round, half_bg)
     if digits.ndim != 3:
         raise ValueError(f"digits has shape {tuple(digits.shape)}, expected [B, rows, N]")
@@ -762,10 +806,10 @@ def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor,
                          f"1..{SCHOOLBOOK_MAX_ROWS} digit rows; "
                          f"got digits of shape {tuple(digits.shape)}")
     flush_rows = schoolbook_flush_rows(N, half_bg)
-    dev = digits.device
-    _require(digits, "digits", torch.int32, (B, rows, N), dev)
-    _require(bk_round, "bk_round", torch.int32, (rows, 2, N), dev)
-    out = torch.empty((B, 2, N), dtype=torch.int32, device=dev)
+    dev = digits.get_device()
+    _require_all(dev, (digits, "digits", torch.int32, (B, rows, N)),
+                 (bk_round, "bk_round", torch.int32, (rows, 2, N)))
+    out = digits.new_empty((B, 2, N))  # int32, as the digits (checked)
     for name, t in (("digits", digits), ("bk_round", bk_round)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
@@ -781,11 +825,9 @@ def schoolbook_product(digits: torch.Tensor, bk_round: torch.Tensor,
 
 SBFFT_SOURCE = os.path.join(_PKG, "csrc", "schoolbook_fft.cu")
 SBFFT_N = (256, 512, 1024, 2048, 4096, 8192)  # N the round kernel is instantiated for
-_SBF_ENTRIES = {
-    "redsec_schoolbook_round": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _P],
-}
+_SBF_ENTRIES = ("redsec_schoolbook_round", "redsec_schoolbook_rounds")
 _sbf_loaded: list[Library] = []
-_fft_cache: dict = {}
+_fft_cache: dict = {}  # (N, device index; -1 the CPU) -> _fft_entry
 _LIBRARY_TWIDDLE_ERROR = 4 * _E  # what the bounds take for torch.fft's own twiddles
 
 
@@ -835,18 +877,29 @@ def fft_pass_index(N: int) -> np.ndarray:
     return np.array(idx, dtype=np.int64)
 
 
+def _fft_entry(N: int, index: int) -> tuple:
+    """(twiddles, twist, their two addresses) on CUDA device ``index`` (-1:
+    the CPU), built once a (N, device index) and kept; the tensors stay alive
+    in the cache, so the addresses stay good."""
+    ent = _fft_cache.get((N, index))
+    if ent is None:
+        dev = torch.device("cpu") if index < 0 else torch.device("cuda", index)
+        tw, twist, _ = _fft_tables_host(N)
+        tabs = (torch.as_tensor(tw[fft_pass_index(N)], device=dev),
+                torch.as_tensor(twist, device=dev))
+        ent = _fft_cache[N, index] = tabs + (tabs[0].data_ptr(), tabs[1].data_ptr())
+    return ent
+
+
 def fft_tables(N: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     """(the round kernel's twiddles W_M^m in its passes' order,
-    ``fft_pass_index``; zeta^j) as complex128 tensors on ``device``, built
-    once per N and device (``_fft_tables_host``: the same values, rounded
-    once from long double)."""
+    ``fft_pass_index``; zeta^j) as complex128 tensors on ``device``
+    (``_fft_tables_host``: the same values, rounded once from long double),
+    built once per N and device (``_fft_entry``)."""
     dev = torch.device(device)
-    key = (N, str(dev))
-    if key not in _fft_cache:
-        tw, twist, _ = _fft_tables_host(N)
-        _fft_cache[key] = (torch.as_tensor(tw[fft_pass_index(N)], device=dev),
-                           torch.as_tensor(twist, device=dev))
-    return _fft_cache[key]
+    if dev.type == "cpu":
+        return _fft_entry(N, -1)[:2]
+    return _fft_entry(N, torch.cuda.current_device() if dev.index is None else dev.index)[:2]
 
 
 def fft_twiddle_error(N: int) -> float:
@@ -1059,30 +1112,90 @@ def schoolbook_round(acc: torch.Tensor, t: torch.Tensor, spectra_round: torch.Te
     ``SBFFT_N`` with rows = 2 l; raises on anything else, and on a key
     without spectra."""
     _require_spectra(spectra_round)
-    if acc.device.type == "cpu":
+    if acc.is_cpu:
         return schoolbook_round_plain(acc, t, spectra_round, params, out)
     B, N, rows = acc.shape[0], params.N, params.decomp_rows
-    if N not in SBFFT_N or params.l * params.bg_bit > 32:
-        raise ValueError(f"{params.name}: the schoolbook round kernel takes N in {SBFFT_N} "
-                         f"and l * bg_bit <= 32")
-    dev = acc.device
-    _require(acc, "acc", torch.int32, (B, 2, N), dev)
-    _require(t, "t", torch.int32, (B,), dev)
-    _require(spectra_round, "spectra_round", torch.complex128, (rows, 2, 2, N // 2), dev)
+    _require_round_set(params)
+    dev = acc.get_device()
     if out is None:
         out = torch.empty_like(acc)
-    else:
-        _require(out, "out", torch.int32, (B, 2, N), dev)
-    for name, x in (("acc", acc), ("spectra_round", spectra_round), ("out", out)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
+    _require_all(dev, (acc, "acc", torch.int32, (B, 2, N)), (t, "t", torch.int32, (B,)),
+                 (spectra_round, "spectra_round", torch.complex128, (rows, 2, 2, N // 2)),
+                 (out, "out", torch.int32, (B, 2, N)))
+    pa, ps, po = acc.data_ptr(), spectra_round.data_ptr(), out.data_ptr()
+    if (pa | ps | po) % 16:
+        _require_aligned(("acc", pa), ("spectra_round", ps), ("out", po))
     if B == 0:
         return out
-    tw, twist = fft_tables(N, dev)
-    _sbf_lib().launch("redsec_schoolbook_round", "schoolbook_round", dev, acc.data_ptr(),
-                      t.data_ptr(), spectra_round.data_ptr(), tw.data_ptr(), twist.data_ptr(),
-                      out.data_ptr(), B, N, rows, *_gadget_args(params))
+    _sbf_lib().launch("redsec_schoolbook_round", "schoolbook_round", dev, pa, t.data_ptr(), ps,
+                      *_fft_entry(N, dev)[2:], po, B, N, rows, *_gadget_args(params))
     return out
+
+
+def _require_round_set(params: TfheParams) -> None:
+    if params.N not in SBFFT_N or params.l * params.bg_bit > 32:
+        raise ValueError(f"{params.name}: the schoolbook round kernel takes N in {SBFFT_N} "
+                         f"and l * bg_bit <= 32")
+
+
+def _require_aligned(*ptrs) -> None:
+    """Raise for the first (name, address) not on a 16-byte boundary."""
+    for name, ptr in ptrs:
+        if ptr % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def schoolbook_rounds_plain(acc: torch.Tensor, ts: torch.Tensor, spectra: torch.Tensor,
+                            params: TfheParams) -> torch.Tensor:
+    """``schoolbook_rounds``' function in torch on any device: round i is
+    ``schoolbook_round_plain(acc, ts[i], spectra[i], params)``."""
+    _require_spectra(spectra)
+    out = acc.clone()
+    for i in range(ts.shape[0]):
+        out = schoolbook_round_plain(out, ts[i], spectra[i], params)
+    return out
+
+
+def schoolbook_rounds(acc: torch.Tensor, ts: torch.Tensor, spectra: torch.Tensor,
+                      params: TfheParams) -> torch.Tensor:
+    """The n = ``ts.shape[0]`` schoolbook CMUX rounds of a PBS: round i is
+    ``schoolbook_round`` on the accumulator round i - 1 left (``acc`` for
+    round 0), the exponents ``ts[i]`` (int32 [n, B]: round i's in row i)
+    and the key's spectra ``spectra[i]`` ([n, rows, 2, 2, N/2],
+    ``DeviceCloudKey.spectra``), on two buffers in turn; ``acc`` is not
+    written and the result is a new tensor.
+
+    On the CPU each round is a call of ``schoolbook_round``, looked up on
+    this module at call time.  On CUDA the batch and the key are checked
+    once, and one C entry launches the n round kernels from a loop in C on
+    the current stream, reading ``cudaGetLastError()`` after each launch: the
+    first error raises with the round it came from.  ``device.launches``
+    counts n launches of ``schoolbook_round``.  This is the counterpart of
+    the JAX package's loop over the rounds inside one program."""
+    _require_spectra(spectra)
+    n = ts.shape[0]
+    if acc.is_cpu:
+        bufs = (torch.empty_like(acc), torch.empty_like(acc))
+        for i in range(n):
+            acc = schoolbook_round(acc, ts[i], spectra[i], params, out=bufs[i % 2])
+        return acc.clone() if n == 0 else acc
+    B, N, rows = acc.shape[0], params.N, params.decomp_rows
+    _require_round_set(params)
+    dev = acc.get_device()
+    bufs = (torch.empty_like(acc), torch.empty_like(acc))
+    _require_all(dev, (acc, "acc", torch.int32, (B, 2, N)), (ts, "ts", torch.int32, (n, B)),
+                 (spectra, "spectra", torch.complex128, (n, rows, 2, 2, N // 2)))
+    pa, ps = acc.data_ptr(), spectra.data_ptr()
+    if (pa | ps) % 16:
+        _require_aligned(("acc", pa), ("spectra", ps))
+    if B == 0 or n == 0:
+        return acc.clone()
+    failed = ctypes.c_int(-1)
+    _sbf_lib().launch("redsec_schoolbook_rounds", "schoolbook_round", dev, pa, ts.data_ptr(), ps,
+                      *_fft_entry(N, dev)[2:], bufs[0].data_ptr(), bufs[1].data_ptr(),
+                      B, N, rows, *_gadget_args(params), n, ctypes.addressof(failed), count=n,
+                      failed=failed)
+    return bufs[(n - 1) % 2]
 
 
 # --------------------------------------------------------------------------- #
@@ -1092,12 +1205,8 @@ def schoolbook_round(acc: torch.Tensor, t: torch.Tensor, spectra_round: torch.Te
 MM_SOURCE = os.path.join(_PKG, "csrc", "blind_mm.cu")
 MM_KERNEL_N = (256, 1024)  # N = R * 128 the four-step kernels are instantiated for
 MATMUL = (ntt_matmul.ntt_device_mm, ntt_matmul.intt_device_mm)  # the twins' transform pair
-_MM_ENTRIES = {
-    "redsec_mm_layout": [_I, _I, ctypes.POINTER(_I)],
-    "redsec_external_product_mm": [_P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "redsec_cmux_round_mm": [_P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _I, _U, _I, _I, _P],
-    "redsec_blind_rotate_mm": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _U, _I, _I, _P],
-}
+_MM_ENTRIES = ("redsec_mm_layout", "redsec_external_product_mm", "redsec_cmux_round_mm",
+               "redsec_blind_rotate_mm")
 _mm_loaded: list[Library] = []
 
 
@@ -1162,11 +1271,16 @@ def k4mm_shared_bytes(N: int, rows: int) -> int:
 def _mm_shape_ok(plan: ntt_mod.NttPlan, N: int, rows: int) -> bool:
     """The JAX package's ``pallas_blind.supported`` (two primes below 2^15,
     the (R, 128) split) on an N the four-step kernels are built for, primes
-    ascending, and ``rows`` digit rows fitting a block."""
-    pr = plan.primes
+    ascending, and ``rows`` digit rows fitting a block; computed once a
+    (primes, plan's N, N, rows)."""
+    return _mm_shape_ok_at(tuple(plan.primes), plan.N, N, rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _mm_shape_ok_at(pr: tuple, plan_n: int, N: int, rows: int) -> bool:
     return (len(pr) == 2 and all(p < (1 << 15) for p in pr)
             and ntt_matmul.supported(N) and ntt_matmul._split_rc(N)[1] == 128
-            and N == plan.N and N in MM_KERNEL_N and 256 < pr[0] < pr[1]
+            and N == plan_n and N in MM_KERNEL_N and 256 < pr[0] < pr[1]
             and 0 < rows and k4mm_shared_bytes(N, rows) <= K4_MAX_SHARED)
 
 
@@ -1205,7 +1319,7 @@ def mm_layout(params: TfheParams) -> dict:
     """The built library's own answer for ``k4mm_layout``'s numbers (its C
     entry ``redsec_mm_layout``)."""
     out = (ctypes.c_int * 6)()
-    if _mm_lib().fn["redsec_mm_layout"](params.N, params.decomp_rows, out) != 0:
+    if _mm_lib().fn["redsec_mm_layout"](params.N, params.decomp_rows, ctypes.addressof(out)) != 0:
         raise ValueError(f"{params.name}: no four-step kernel instance")
     return {"shared_bytes": out[0], "rows_padded": out[1], "u_bytes": out[2], "threads": out[3],
             "ring_rows": out[4], "ring_aliased": bool(out[5])}
@@ -1261,18 +1375,18 @@ def external_product_mm(digits: torch.Tensor, bk_round: torch.Tensor,
                         plan: ntt_mod.NttPlan) -> torch.Tensor:
     """K2-mm: see ``external_product_mm_plain``."""
     _require_mm_key(bk_round, 5, digits.shape[-1])
-    if digits.device.type == "cpu":
+    if digits.is_cpu:
         return external_product_mm_plain(digits, bk_round, plan)
     M, rows, N = digits.shape
     _require_mm_shape(plan, N, rows, "external_product_mm_kernel")
-    dev = digits.device
+    dev = digits.get_device()
     R, C = ntt_matmul._split_rc(N)
-    _require(digits, "digits", torch.int32, (M, rows, N), dev)
-    _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C), dev)
+    _require_all(dev, (digits, "digits", torch.int32, (M, rows, N)),
+                 (bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C)))
     if digits.data_ptr() % 16:
         raise ValueError("digits must start on a 16-byte boundary")
-    tabs = ntt_matmul.kernel_tables_mm(plan, dev)
-    delta = torch.empty((M, 2, N), dtype=torch.int32, device=dev)
+    tabs = ntt_matmul.kernel_tables_mm(plan, digits.device)
+    delta = digits.new_empty((M, 2, N))  # int32, as the digits (checked)
     _mm_lib().launch("redsec_external_product_mm", "external_product_mm", dev, digits.data_ptr(),
                      bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs["tw"].data_ptr(),
                      tabs["wc"].data_ptr(), delta.data_ptr(), M, N, rows, plan.primes[0],
@@ -1284,16 +1398,15 @@ def cmux_round_mm(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
                   params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
     """K3-mm: see ``cmux_round_mm_plain``."""
     _require_mm_key(bk_round, 5, params.N)
-    if acc.device.type == "cpu":
+    if acc.is_cpu:
         return cmux_round_mm_plain(acc, t, bk_round, params, plan)
     M, N, rows = acc.shape[0], params.N, params.decomp_rows
     _require_mm_shape(plan, N, rows, "cmux_round_mm_kernel", params)
-    dev = acc.device
+    dev = acc.get_device()
     R, C = ntt_matmul._split_rc(N)
-    _require(acc, "acc", torch.int32, (M, 2, N), dev)
-    _require(t, "t", torch.int32, (M,), dev)
-    _require(bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C), dev)
-    tabs = ntt_matmul.kernel_tables_mm(plan, dev)
+    _require_all(dev, (acc, "acc", torch.int32, (M, 2, N)), (t, "t", torch.int32, (M,)),
+                 (bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C)))
+    tabs = ntt_matmul.kernel_tables_mm(plan, acc.device)
     out = torch.empty_like(acc)
     _mm_lib().launch("redsec_cmux_round_mm", "cmux_round_mm", dev, acc.data_ptr(), t.data_ptr(),
                      bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs["tw"].data_ptr(),
@@ -1308,16 +1421,15 @@ def blind_rotate_mm(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
     one ciphertext a block (``k4mm_layout``); a bundled "matmul" key is
     outside ``supported_mm`` and raises here on CUDA."""
     _require_mm_key(bk, 6, params.N)
-    if acc0.device.type == "cpu":
+    if acc0.is_cpu:
         return blind_rotate_mm_plain(acc0, abar, bk, params, plan)
     B, N, n, rows = acc0.shape[0], params.N, params.n, params.decomp_rows
     _require_mm_shape(plan, N, rows, "blind_rotate_mm_kernel", params)
-    dev = acc0.device
+    dev = acc0.get_device()
     R, C = ntt_matmul._split_rc(N)
-    _require(acc0, "acc0", torch.int32, (B, 2, N), dev)
-    _require(abar, "abar", torch.int32, (B, n), dev)
-    _require(bk, "bk", torch.int16, (2, n, rows, 2 * bs.BK_LIMBS, R, C), dev)
-    tabs = ntt_matmul.kernel_tables_mm(plan, dev)
+    _require_all(dev, (acc0, "acc0", torch.int32, (B, 2, N)), (abar, "abar", torch.int32, (B, n)),
+                 (bk, "bk", torch.int16, (2, n, rows, 2 * bs.BK_LIMBS, R, C)))
+    tabs = ntt_matmul.kernel_tables_mm(plan, acc0.device)
     out = torch.empty_like(acc0)
     _mm_lib().launch("redsec_blind_rotate_mm", "blind_rotate_mm", dev, acc0.data_ptr(),
                      abar.data_ptr(), bk.data_ptr(), tabs["tw"].data_ptr(), tabs["wc"].data_ptr(),

@@ -223,16 +223,17 @@ def kernel_tables_mm_host(N: int, p: int, psi: int) -> dict:
 _KERNEL_TABLES: dict = {}
 
 
-def kernel_tables_mm(plan: NttPlan, device) -> dict:
+def kernel_tables_mm(plan: NttPlan, device: torch.device) -> dict:
     """``kernel_tables_mm_host`` of every prime of ``plan`` on ``device``:
     ``"tw"`` int32 [P, 2 R C + 2 R, 2] (bit patterns of the uint32 pairs) and
-    ``"wc"`` uint8 [P, 2, C, C]; built once per plan and device."""
-    key = (plan.N, plan.primes, str(device))
-    if key not in _KERNEL_TABLES:
+    ``"wc"`` uint8 [P, 2, C, C]; built once per plan and device and kept
+    under (N, primes, device)."""
+    tabs = _KERNEL_TABLES.get((plan.N, plan.primes, device))
+    if tabs is None:
         host = [kernel_tables_mm_host(plan.N, p, int(plan.twist[pi][1]))
                 for pi, p in enumerate(plan.primes)]
-        _KERNEL_TABLES[key] = {
+        tabs = _KERNEL_TABLES[plan.N, plan.primes, device] = {
             "tw": torch.as_tensor(np.stack([h["tw"] for h in host]).view(np.int32), device=device),
             "wc": torch.as_tensor(np.stack([h["wc"] for h in host]), device=device),
         }
-    return _KERNEL_TABLES[key]
+    return tabs

@@ -27,16 +27,14 @@ import os
 
 import torch
 
-from .kernels import _I, _P, _PKG, Library, _require
+from .kernels import _PKG, Library, _require_all
 
 SOURCE = os.path.join(_PKG, "csrc", "probes.cu")
 TOEPLITZ_TILE = 128  # the tile is [128, 128], cut from one doubled row of 256
+_W_SHAPE, _TILE_SHAPE = (1, 2 * TOEPLITZ_TILE), (TOEPLITZ_TILE, TOEPLITZ_TILE)
+_tile_like: dict = {}  # device index -> an int32 [128, 128] tile, never written
 
-_ENTRIES = {
-    "redsec_rotate_rows": [_P, _P, _P, _I, _I, _P],
-    "redsec_rotate_tile": [_P, _P, _P, _I, _I, _I, _P],
-    "redsec_toeplitz_tile": [_P, _P, _P],
-}
+_ENTRIES = ("redsec_rotate_rows", "redsec_rotate_tile", "redsec_toeplitz_tile")
 _loaded: list[Library] = []
 
 
@@ -65,20 +63,23 @@ def rotate_plain(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.where(neg, -g, g)  # int32 negation wraps
 
 
-def _check_rotation(x: torch.Tensor, t: torch.Tensor) -> None:
+def _check_rotation(x: torch.Tensor, t: torch.Tensor) -> int:
+    """Raise unless x is int32 [B, 2, N] and t int32 [B], contiguous, on one
+    CUDA device; return that device's index."""
     if x.ndim != 3 or x.shape[1] != 2:
         raise ValueError(f"x has shape {tuple(x.shape)}, expected [B, 2, N]")
-    _require(x, "x", torch.int32, tuple(x.shape), x.device)
-    _require(t, "t", torch.int32, (x.shape[0],), x.device)
+    dev = x.get_device()
+    _require_all(dev, (x, "x", torch.int32, x.shape), (t, "t", torch.int32, (x.shape[0],)))
+    return dev
 
 
 def rotate_rows(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """K5: see ``rotate_plain``.  One block per batch row."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return rotate_plain(x, t)
-    _check_rotation(x, t)
+    dev = _check_rotation(x, t)
     out = torch.empty_like(x)
-    _lib().launch("redsec_rotate_rows", "rotate_rows", x.device, x.data_ptr(), t.data_ptr(),
+    _lib().launch("redsec_rotate_rows", "rotate_rows", dev, x.data_ptr(), t.data_ptr(),
                   out.data_ptr(), x.shape[0], x.shape[2])
     return out
 
@@ -90,11 +91,11 @@ def rotate_tile(x: torch.Tensor, t: torch.Tensor, tile: int = 64) -> torch.Tenso
     The batch must be a multiple of ``tile`` (on either device)."""
     if tile <= 0 or x.shape[0] % tile != 0:
         raise ValueError(f"batch {x.shape[0]} is not a multiple of the tile {tile}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return rotate_plain(x, t)
-    _check_rotation(x, t)
+    dev = _check_rotation(x, t)
     out = torch.empty_like(x)
-    _lib().launch("redsec_rotate_tile", "rotate_tile", x.device, x.data_ptr(), t.data_ptr(),
+    _lib().launch("redsec_rotate_tile", "rotate_tile", dev, x.data_ptr(), t.data_ptr(),
                   out.data_ptr(), x.shape[0], x.shape[2], tile)
     return out
 
@@ -115,10 +116,13 @@ def toeplitz_tile_plain(w: torch.Tensor) -> torch.Tensor:
 
 def toeplitz_tile(w: torch.Tensor) -> torch.Tensor:
     """K7: see ``toeplitz_tile_plain``.  One launch, one element a thread."""
-    if w.device.type == "cpu":
+    if w.is_cpu:
         return toeplitz_tile_plain(w)
-    _require(w, "w", torch.int32, (1, 2 * TOEPLITZ_TILE), w.device)
-    out = torch.empty((TOEPLITZ_TILE, TOEPLITZ_TILE), dtype=torch.int32, device=w.device)
-    _lib().launch("redsec_toeplitz_tile", "toeplitz_tile", w.device, w.data_ptr(),
-                  out.data_ptr())
+    dev = w.get_device()
+    _require_all(dev, (w, "w", torch.int32, _W_SHAPE))
+    like = _tile_like.get(dev)
+    if like is None:  # a tile kept a device only as the form of each output
+        like = _tile_like[dev] = w.new_empty(_TILE_SHAPE)
+    out = torch.empty_like(like)  # one tensor to parse: the cheapest allocation call
+    _lib().launch("redsec_toeplitz_tile", "toeplitz_tile", dev, w.data_ptr(), out.data_ptr())
     return out

@@ -1,5 +1,6 @@
-// Four-step ("matmul") blind-rotation kernels for Hopper (sm_90a), bound to
-// PyTorch with ctypes (redsec_tpu_torch/crypto/kernels.py, the "_mm" wrappers).
+// Four-step ("matmul") blind-rotation kernels for Hopper (sm_90a), a Python
+// module of C entries (py_entries.cuh) under redsec_tpu_torch/crypto/kernels.py's
+// "_mm" wrappers.
 //
 // The JAX package's Pallas round and blind-rotation kernels read the BK in
 // the four-step [k1, k2] order of crypto/ntt_matmul.py (its REDSEC_NTT=matmul
@@ -101,6 +102,9 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "launch_once.cuh"
+#include "py_entries.cuh"
 
 namespace {
 
@@ -851,13 +855,12 @@ ConstsMM make_consts(int p0, int p1) {
   return c;
 }
 
-// Opt the kernel in to `bytes` of dynamic shared memory; false if the card
-// does not give a block that much.
+// Whether a launch of the kernel with `bytes` of dynamic shared memory may
+// go ahead: at most kMaxSmem, and within the limit the kernel was opted in
+// to on this device (once; `state` is the instance's own, launch_once.cuh).
 template <class Kernel>
-bool allow_smem(Kernel kernel, size_t bytes) {
-  return bytes <= kMaxSmem &&
-         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes)) == cudaSuccess;
+bool allow_smem(redsec::PerDevice& state, Kernel kernel, size_t bytes) {
+  return bytes <= kMaxSmem && redsec::opt_in_smem(state, kernel, bytes) == cudaSuccess;
 }
 
 bool n_ok(int N) { return N == 256 || N == 1024; }
@@ -876,10 +879,6 @@ bool bk_ok(const int16_t* bk) { return reinterpret_cast<uintptr_t>(bk) % 16 == 0
   }
 
 extern "C" {
-
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // The layout of a launch at N and `rows` digit rows: out[0] dynamic shared
 // bytes, out[1] rows of the C-steps' operands and results (Mr), out[2]
@@ -909,7 +908,8 @@ int redsec_external_product_mm(const int32_t* digits, const int16_t* bk, long lo
   const ConstsMM cs = make_consts(p0, p1);
   const size_t bytes = mm_smem_bytes(N, rows);
   REDSEC_DISPATCH_MM(N, {
-    if (!allow_smem(external_product_mm_kernel<NN>, bytes))
+    static redsec::PerDevice smem;
+    if (!allow_smem(smem, external_product_mm_kernel<NN>, bytes))
       return static_cast<int>(cudaErrorInvalidValue);
     external_product_mm_kernel<NN><<<M, GeoMM<NN>::T, bytes, stream>>>(
         digits, bk, prime_stride, tabs, wc, delta, rows, cs);
@@ -929,7 +929,8 @@ int redsec_cmux_round_mm(const int32_t* acc, const int32_t* t, const int16_t* bk
   const Gadget g{l, bg_bit, offset};
   const size_t bytes = mm_smem_bytes(N, 2 * l);
   REDSEC_DISPATCH_MM(N, {
-    if (!allow_smem(cmux_round_mm_kernel<NN>, bytes))
+    static redsec::PerDevice smem;
+    if (!allow_smem(smem, cmux_round_mm_kernel<NN>, bytes))
       return static_cast<int>(cudaErrorInvalidValue);
     cmux_round_mm_kernel<NN><<<M, GeoMM<NN>::T, bytes, stream>>>(acc, t, bk, prime_stride, tabs,
                                                                  wc, out, g, cs);
@@ -950,7 +951,8 @@ int redsec_blind_rotate_mm(const int32_t* acc0, const int32_t* abar, const int16
   const Gadget g{l, bg_bit, offset};
   const size_t bytes = mm_smem_bytes(N, 2 * l);
   REDSEC_DISPATCH_MM(N, {
-    if (!allow_smem(blind_rotate_mm_kernel<NN>, bytes))
+    static redsec::PerDevice smem;
+    if (!allow_smem(smem, blind_rotate_mm_kernel<NN>, bytes))
       return static_cast<int>(cudaErrorInvalidValue);
     blind_rotate_mm_kernel<NN><<<B, GeoMM<NN>::T, bytes, stream>>>(acc0, abar, bk, tabs, wc, out,
                                                                    n, g, cs);
@@ -959,3 +961,9 @@ int redsec_blind_rotate_mm(const int32_t* acc0, const int32_t* abar, const int16
 }
 
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(blind_mm, REDSEC_PY_FN(redsec_mm_layout),
+                 REDSEC_PY_LAUNCH(redsec_external_product_mm),
+                 REDSEC_PY_LAUNCH(redsec_cmux_round_mm),
+                 REDSEC_PY_LAUNCH(redsec_blind_rotate_mm))

@@ -1,5 +1,6 @@
 // Blind-rotation kernels for Hopper (sm_90a): the programmable bootstrap's hot
-// loop, bound to PyTorch with ctypes (redsec_tpu_torch/crypto/kernels.py).
+// loop, a Python module of C entries (py_entries.cuh) under
+// redsec_tpu_torch/crypto/kernels.py.
 //
 // Four thin __global__ entries over one set of device functions; each
 // replaces a Pallas TPU kernel of the JAX package and computes the same
@@ -184,12 +185,16 @@
 // floor it gives at 64 int32 lanes an SM, and the measured times.
 //
 // Each extern "C" entry returns cudaGetLastError() after its launch; the
-// Python wrapper raises if it is not 0.
+// Python wrapper raises if it is not 0.  A kernel's shared-memory opt-in and
+// the SM count are asked once per instance and device (launch_once.cuh).
 
 #include <cstdint>
 #include <type_traits>
 
 #include <cuda_runtime.h>
+
+#include "launch_once.cuh"
+#include "py_entries.cuh"
 
 namespace {
 
@@ -1319,22 +1324,12 @@ Crt make_crt(int P, const int* pr) {
   return c;
 }
 
-// SMs of the current device (the launch's stream belongs to it).
-int sm_count() {
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return sms;
-}
-
-// Opt the kernel in to `bytes` of dynamic shared memory; false if the card
-// does not give a block that much.
+// Whether a launch of the kernel with `bytes` of dynamic shared memory may
+// go ahead: at most kMaxSmem, and within the limit the kernel was opted in
+// to on this device (once; `state` is the instance's own).
 template <class Kernel>
-bool allow_smem(Kernel kernel, size_t bytes) {
-  return bytes <= kMaxSmem &&
-         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes)) == cudaSuccess;
+bool allow_smem(redsec::PerDevice& state, Kernel kernel, size_t bytes) {
+  return bytes <= kMaxSmem && redsec::opt_in_smem(state, kernel, bytes) == cudaSuccess;
 }
 
 // Whether blind_rotate_kernel<N, G, P, D> is built: its shared memory fits
@@ -1395,7 +1390,8 @@ int launch_blind_rotate(const K4Config& cf, const int32_t* acc0, const int32_t* 
                         const int16_t* bk, const uint2* tabs, int32_t* out, int B, int n,
                         Gadget g, Crt crt, cudaStream_t stream) {
   if constexpr (k4_built<N, G, P, D>()) {
-    if (!allow_smem(blind_rotate_kernel<N, G, P, D>, cf.bytes))
+    static redsec::PerDevice smem;
+    if (!allow_smem(smem, blind_rotate_kernel<N, G, P, D>, cf.bytes))
       return static_cast<int>(cudaErrorInvalidValue);
     blind_rotate_kernel<N, G, P, D><<<(B + G - 1) / G, Geo<N>::T, cf.bytes, stream>>>(
         acc0, abar, bk, tabs, out, B, n, cf.cr, g, crt);
@@ -1409,7 +1405,7 @@ int dispatch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_
                           const uint2* tabs, int32_t* out, int B, int n, Gadget g, Crt crt,
                           cudaStream_t stream) {
   K4Config cf;
-  if (!k4_config<N, P, D>(B, D * 2 * g.l, sm_count(), &cf))
+  if (!k4_config<N, P, D>(B, D * 2 * g.l, redsec::sm_count(), &cf))
     return static_cast<int>(cudaErrorInvalidValue);
   return cf.G == 2
              ? launch_blind_rotate<N, 2, P, D>(cf, acc0, abar, bk, tabs, out, B, n, g, crt, stream)
@@ -1451,10 +1447,6 @@ int dispatch_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_
 
 extern "C" {
 
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // K1: y[M, N] = NTT (or inverse) of x[M, N] mod p; tab = this prime's uint2 [4][N].
 int redsec_ntt(const int32_t* x, int32_t* y, const uint2* tab, int M, int N, int p, int inverse,
                cudaStream_t stream) {
@@ -1463,7 +1455,8 @@ int redsec_ntt(const int32_t* x, int32_t* y, const uint2* tab, int M, int N, int
     constexpr int NN = decltype(nn)::value;
     using Ge = Geo<NN>;
     const size_t bytes = sizeof(uint2) * NN + sizeof(uint32_t) * Ge::POLYS * 2 * Ge::XW;
-    if (!allow_smem(ntt_kernel<NN>, bytes)) return static_cast<int>(cudaErrorInvalidValue);
+    static redsec::PerDevice smem;
+    if (!allow_smem(smem, ntt_kernel<NN>, bytes)) return static_cast<int>(cudaErrorInvalidValue);
     ntt_kernel<NN><<<(M + Ge::POLYS - 1) / Ge::POLYS, Ge::T, bytes, stream>>>(
         x, y, tab, static_cast<uint32_t>(p), inverse, M);
     return static_cast<int>(cudaGetLastError());
@@ -1487,7 +1480,8 @@ int redsec_external_product(const int32_t* digits, const int16_t* bk, long long 
   const Crt crt = make_crt(2, pr);
   REDSEC_DISPATCH_N(N, {
     const size_t bytes = Smem<NN, 1, 2, 1>::bytes(rows);
-    if (!allow_smem(external_product_kernel<NN>, bytes))
+    static redsec::PerDevice smem;
+    if (!allow_smem(smem, external_product_kernel<NN>, bytes))
       return static_cast<int>(cudaErrorInvalidValue);
     external_product_kernel<NN><<<M, Geo<NN>::T, bytes, stream>>>(digits, bk, prime_stride, tabs,
                                                                   delta, rows, crt);
@@ -1506,7 +1500,9 @@ int redsec_cmux_round(const int32_t* acc, const int32_t* t, const int16_t* bk,
   const Gadget g = make_gadget(l, bg_bit, offset, p1, N);
   REDSEC_DISPATCH_N(N, {
     const size_t bytes = Smem<NN, 1, 2, 1>::bytes(2 * l);
-    if (!allow_smem(cmux_round_kernel<NN>, bytes)) return static_cast<int>(cudaErrorInvalidValue);
+    static redsec::PerDevice smem;
+    if (!allow_smem(smem, cmux_round_kernel<NN>, bytes))
+      return static_cast<int>(cudaErrorInvalidValue);
     cmux_round_kernel<NN><<<M, Geo<NN>::T, bytes, stream>>>(acc, t, bk, prime_stride, tabs, out,
                                                             g, crt);
   });
@@ -1564,3 +1560,10 @@ int redsec_blind_rotate(const int32_t* acc0, const int32_t* abar, const int16_t*
 }
 
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(pbs, REDSEC_PY_LAUNCH(redsec_ntt),
+                 REDSEC_PY_LAUNCH(redsec_external_product),
+                 REDSEC_PY_LAUNCH(redsec_cmux_round),
+                 REDSEC_PY_FN(redsec_blind_rotate_config),
+                 REDSEC_PY_LAUNCH(redsec_blind_rotate))

@@ -1,7 +1,7 @@
-// Rotation and Toeplitz probe kernels for Hopper (sm_90a), bound to PyTorch
-// with ctypes (redsec_tpu_torch/crypto/probe_kernels.py).  They serve the
-// port's microbenchmarks (redsec_tpu_torch/scripts/bench_rotate.py and
-// bench_schoolbook.py); no model path launches them.
+// Rotation and Toeplitz probe kernels for Hopper (sm_90a), a Python module of
+// C entries (py_entries.cuh) under redsec_tpu_torch/crypto/probe_kernels.py.
+// They serve the port's microbenchmarks (redsec_tpu_torch/scripts/
+// bench_rotate.py and bench_schoolbook.py); no model path launches them.
 //
 // Each replaces a Pallas TPU kernel of the JAX package's bench scripts and
 // computes the same function (outputs bit-identical), not the same blocks:
@@ -41,10 +41,14 @@
 // cost of a launch.
 //
 // Each extern "C" entry returns cudaGetLastError() after its launch; the
-// Python wrapper raises if it is not 0.
+// Python wrapper raises if it is not 0.  The SM count is read once a device
+// (launch_once.cuh).
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch_once.cuh"
+#include "py_entries.cuh"
 
 namespace {
 
@@ -129,10 +133,6 @@ __global__ void toeplitz_tile_kernel(const int32_t* __restrict__ w, int32_t* __r
 
 extern "C" {
 
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // K5: out[B, 2, N] = X^t[b] * x[b] (negacyclic), one block per row.
 int redsec_rotate_rows(const int32_t* x, const int32_t* t, int32_t* out, int B, int N,
                        cudaStream_t stream) {
@@ -148,10 +148,8 @@ int redsec_rotate_tile(const int32_t* x, const int32_t* t, int32_t* out, int B, 
                        cudaStream_t stream) {
   if (B <= 0 || N <= 0 || N > (1 << 29) || T <= 0 || B % T != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess || sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int sms = redsec::sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = B / T;
   int S = (2 * sms + tiles - 1) / tiles;  // at least two blocks an SM, at most one a row
   S = S > T ? T : S;
@@ -169,3 +167,8 @@ int redsec_toeplitz_tile(const int32_t* w, int32_t* out, cudaStream_t stream) {
 }
 
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(probes, REDSEC_PY_LAUNCH(redsec_rotate_rows),
+                 REDSEC_PY_LAUNCH(redsec_rotate_tile),
+                 REDSEC_PY_LAUNCH(redsec_toeplitz_tile))

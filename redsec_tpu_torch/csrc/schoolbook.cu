@@ -1,6 +1,6 @@
 // The schoolbook external product (S1) for Hopper (sm_90a) on the int8
-// tensor cores (wgmma), bound to PyTorch with ctypes
-// (redsec_tpu_torch/crypto/kernels.py::schoolbook_product).
+// tensor cores (wgmma), a Python module of C entries (py_entries.cuh) under
+// redsec_tpu_torch/crypto/kernels.py::schoolbook_product.
 //
 // It is one CMUX round's external product for the parameter sets without
 // NTT primes (N >= 4096: medium, large, medium_v2, large_v2), and for any
@@ -110,6 +110,9 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch_once.cuh"
+#include "py_entries.cuh"
 
 namespace {
 
@@ -506,9 +509,9 @@ cudaError_t launch(const int32_t* digits, const uint32_t* bk, uint32_t* out, int
                    int N, int flush_rows, cudaStream_t stream) {
   using T = Tile<NT, MT, LIMBS>;
   const size_t bytes = T::shared_bytes(N);
-  cudaError_t err = cudaFuncSetAttribute(schoolbook_mma_kernel<NT, MT, LIMBS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  static redsec::PerDevice smem;  // the opt-in, once a device (launch_once.cuh)
+  const cudaError_t err =
+      redsec::opt_in_smem(smem, schoolbook_mma_kernel<NT, MT, LIMBS>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(N / T::TK, (B + T::TB - 1) / T::TB);
   schoolbook_mma_kernel<NT, MT, LIMBS>
@@ -542,10 +545,6 @@ cudaError_t launch_nt_mt(int nt, int mt, const int32_t* d, const uint32_t* k, ui
 
 extern "C" {
 
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // The tile of a launch: out[0] = NT (8 NT ciphertexts a block), out[1] = MT
 // (16 MT coefficients), out[2] = digit limbs.  NT: the fewest tiles of 8 that
 // cover the batch, at most 4 (2 with two limbs); MT: the largest of 8, 4, 2
@@ -577,10 +576,9 @@ int redsec_schoolbook_tile(int B, int N, int half_bg, int sms, int* out) {
 // 16-byte aligned.
 int redsec_schoolbook_product(const int32_t* digits, const int32_t* bk, int32_t* out, int B,
                               int rows, int N, int half_bg, int flush_rows, cudaStream_t stream) {
-  int dev = 0, sms = 0, tile[3];
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  int tile[3];
+  const int sms = redsec::sm_count();  // once a device (launch_once.cuh)
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (rows <= 0 || flush_rows <= 0 || N > 8192 ||
       redsec_schoolbook_tile(B, N, half_bg, sms, tile) != 0 || (B + 7) / 8 > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -594,3 +592,7 @@ int redsec_schoolbook_product(const int32_t* digits, const int32_t* bk, int32_t*
 }
 
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(schoolbook, REDSEC_PY_FN(redsec_schoolbook_tile),
+                 REDSEC_PY_LAUNCH(redsec_schoolbook_product))

@@ -1,6 +1,6 @@
 // The schoolbook CMUX round for Hopper (sm_90a) through exact float64
-// transforms, bound to PyTorch with ctypes
-// (redsec_tpu_torch/crypto/kernels.py::schoolbook_round).
+// transforms, a Python module of C entries (py_entries.cuh) under
+// redsec_tpu_torch/crypto/kernels.py::schoolbook_round and schoolbook_rounds.
 //
 // One launch is one whole CMUX round of the parameter sets without NTT primes
 // (N >= 4096: medium, large, medium_v2, large_v2), and of any set prepared
@@ -102,11 +102,18 @@
 // what it waits on (PERF.md, tools/sbfft_spans.py).
 //
 // The extern "C" round entry returns cudaGetLastError() after its launch;
-// the Python wrapper raises if it is not 0.
+// the Python wrapper raises if it is not 0.  The rounds entry runs a PBS's
+// n rounds from a loop in C, one launch a round on two buffers in turn,
+// reads cudaGetLastError() after each and returns the first error with its
+// round.  The opt-in to the kernel's shared memory is asked once per
+// instance and device (launch_once.cuh).
 
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "launch_once.cuh"
+#include "py_entries.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -535,10 +542,12 @@ template <int M, bool MULTI>
 cudaError_t launch_as(const RoundArgs& a, cudaStream_t stream) {
   const int smem = (Shape<M>::MP + 2 * M) * static_cast<int>(sizeof(double2));
   constexpr int C = Shape<M>::C, CT = Shape<M>::CT;
-  cudaError_t e = cudaFuncSetAttribute(schoolbook_round_kernel<M, MULTI>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const long long blocks = static_cast<long long>(C) * ((a.B + CT - 1) / CT);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;  // past the grid's reach
+  static redsec::PerDevice opted;
+  const cudaError_t e = redsec::opt_in_smem(opted, schoolbook_round_kernel<M, MULTI>, smem);
   if (e != cudaSuccess) return e;
-  schoolbook_round_kernel<M, MULTI><<<dim3(C * ((a.B + CT - 1) / CT)), Shape<M>::T, smem,
+  schoolbook_round_kernel<M, MULTI><<<dim3(static_cast<unsigned>(blocks)), Shape<M>::T, smem,
                                       stream>>>(a.acc, a.t, a.spec, a.tw, a.twist, a.out, a.B,
                                                 a.rows, a.l, a.bg_bit, a.offset);
   return cudaGetLastError();
@@ -549,13 +558,33 @@ cudaError_t launch(const RoundArgs& a, cudaStream_t stream) {
   return a.rows > kR * kSlots ? launch_as<M, true>(a, stream) : launch_as<M, false>(a, stream);
 }
 
+// n rounds: round i takes exponents ts + i B and spectra spec + i rows 4 M,
+// reads acc0 (i = 0) or the buffer round i - 1 wrote, and writes buf[i % 2].
+// Stops at the first launch that fails and puts its round in *failed (-1
+// when every launch went out).
+template <int M>
+cudaError_t launch_rounds(RoundArgs a, const int32_t* ts, const double2* spec,
+                          int32_t* const buf[2], int n, int* failed, cudaStream_t stream) {
+  const int32_t* acc0 = a.acc;
+  const long long spec_stride = static_cast<long long>(a.rows) * 4 * M;
+  *failed = -1;
+  for (int i = 0; i < n; ++i) {
+    a.acc = i == 0 ? acc0 : buf[(i - 1) % 2];
+    a.t = ts + static_cast<long long>(i) * a.B;
+    a.spec = spec + i * spec_stride;
+    a.out = buf[i % 2];
+    const cudaError_t e = launch<M>(a, stream);
+    if (e != cudaSuccess) {
+      *failed = i;
+      return e;
+    }
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
-
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 // out[B, 2, N] = acc + the round's external product (see the top); spec is
 // the round's spectra [rows][2][2][N/2] complex128, tw the table W_M^m in
@@ -579,4 +608,35 @@ int redsec_schoolbook_round(const int32_t* acc, const int32_t* t, const void* sp
   }
 }
 
+// The n rounds of a PBS (kernels.py::schoolbook_rounds): ts int32 [n][B],
+// spec the key's spectra [n][rows][2][2][N/2] complex128, buf0 and buf1
+// int32 [B, 2, N]; acc is not written.  The result is in buf[(n - 1) % 2].
+// Returns the first launch's error with its round in *failed (-1 if none).
+int redsec_schoolbook_rounds(const int32_t* acc, const int32_t* ts, const void* spec,
+                             const void* tw, const void* twist, int32_t* buf0, int32_t* buf1,
+                             int B, int N, int rows, int l, int bg_bit, uint32_t offset, int n,
+                             int* failed, cudaStream_t stream) {
+  if (failed == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  *failed = -1;
+  if (B <= 0 || n <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || rows != 2 * l)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* sp = static_cast<const double2*>(spec);
+  const RoundArgs a{acc, nullptr, sp, static_cast<const double2*>(tw),
+                    static_cast<const double2*>(twist), nullptr, B, rows, l, bg_bit, offset};
+  int32_t* const buf[2] = {buf0, buf1};
+  switch (N) {
+    case 256: return static_cast<int>(launch_rounds<128>(a, ts, sp, buf, n, failed, stream));
+    case 512: return static_cast<int>(launch_rounds<256>(a, ts, sp, buf, n, failed, stream));
+    case 1024: return static_cast<int>(launch_rounds<512>(a, ts, sp, buf, n, failed, stream));
+    case 2048: return static_cast<int>(launch_rounds<1024>(a, ts, sp, buf, n, failed, stream));
+    case 4096: return static_cast<int>(launch_rounds<2048>(a, ts, sp, buf, n, failed, stream));
+    case 8192: return static_cast<int>(launch_rounds<4096>(a, ts, sp, buf, n, failed, stream));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(schoolbook_fft, REDSEC_PY_LAUNCH(redsec_schoolbook_round),
+                 REDSEC_PY_LAUNCH(redsec_schoolbook_rounds))

@@ -1,5 +1,5 @@
 // A layout check of the int8 wgmma that S1 (csrc/schoolbook.cu) issues on
-// Hopper (sm_90a), bound to PyTorch with ctypes by its test
+// Hopper (sm_90a), a Python module of one C entry (py_entries.cuh) loaded by its test
 // (tests/test_torch_cuda.py::test_wgmma_layouts_hold_on_the_card).  No TPU
 // kernel is replaced.
 //
@@ -16,6 +16,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "py_entries.cuh"
 
 namespace {
 
@@ -88,10 +90,6 @@ __global__ void wgmma_check(const uint8_t* A, const int8_t* B, int* out, int kc_
 
 extern "C" {
 
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // A [64][32] u8, B [n][32] s8, out [64][n] int32 for n 32 or 64; strides in
 // bytes (multiples of 16, the staged cores inside 8 KB)
 int redsec_wgmma_check(int n, const uint8_t* A, const int8_t* B, int* out, int kc_stride,
@@ -105,3 +103,6 @@ int redsec_wgmma_check(int n, const uint8_t* A, const int8_t* B, int* out, int k
 }
 
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(wgmma_check, REDSEC_PY_LAUNCH(redsec_wgmma_check))

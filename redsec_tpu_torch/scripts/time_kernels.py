@@ -33,16 +33,32 @@ schoolbook CMUX round at 512 instead of K4: S1 with its torch glue (rotate,
 difference, decompose, the add), and, where the checkout has it, the
 schoolbook round kernel (``schoolbook_round``) beside it in turns, each held
 against the other; ``--rounds-only`` times only those rounds, each item
-``name@B`` at batch B (default 512), and the command line.  ``--cli SET`` times ``run-encrypted`` of the checkout's
-command line on one ``mnist/sign1024x1`` image at SET (its JSON record:
-seconds, PBS/s, launches); the key files are made by the command line into
-``--work`` on first use and reused, so two checkouts run on the same key.
-One JSON line per run ends the output.
+``name@B`` at batch B (default 512), and the command line.  ``--cli SET``
+times ``run-encrypted`` of the checkout's command line on one
+``mnist/sign1024x1`` image at SET (its JSON record: seconds, PBS/s,
+launches); the key files are made by the command line into ``--work`` on
+first use and reused, so two checkouts run on the same key.  ``--paths``
+times only the 512-batch paths: the forward of ``--forward``,
+``run-encrypted`` of ``--cli medium_v2`` and of one ``cifar/binarynet``
+image at ``small_v2_tpu`` with its trained weights and calibration (as
+``chip_smoke.py`` runs it).  ``--launch``
+times only the host path of a launch: for each wrapper (K1 at its smallest
+main-path shape, K2, K3, K2-mm and K3-mm on 64 ciphertexts, K5 and K6 at
+[512, 2, 1024], K7 beside ``torch.take`` over its fixed index table, the
+schoolbook round kernel at ``medium_v2`` at a gate's 4 and at 512, and
+``schoolbook_rounds`` at both where the checkout has it) the host
+microseconds a call (``time.perf_counter_ns`` around calls with no
+synchronize between them), that call by step (each step in a loop of its
+own), CUDA events of back-to-back calls and the device time (profiler);
+and the AND gate at full ``medium_v2``: its wall time, its rounds' device
+time and the idle share.  One JSON line per run ends the output.
 
     python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent \
         --sets medium_v2,large --cli medium_v2
     python redsec_tpu_torch/scripts/time_kernels.py --rounds-only \
         --sets medium_v2,medium,large_v2,large,medium_v2@4 --cli medium_v2
+    python redsec_tpu_torch/scripts/time_kernels.py --launch --root build/parent --tag parent
+    python redsec_tpu_torch/scripts/time_kernels.py --launch
 """
 
 from __future__ import annotations
@@ -86,6 +102,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds-only", action="store_true",
                     help="time only the schoolbook rounds of --sets (set@batch, default batch "
                          "512) and --cli: no K1-K4, no S1 list")
+    ap.add_argument("--launch", action="store_true",
+                    help="time only the host path of a launch: each wrapper's host us a call and "
+                         "by step, its events and device time, K7 beside torch.take, and the AND "
+                         "gate at full medium_v2")
+    ap.add_argument("--paths", action="store_true",
+                    help="time only the 512-batch paths: the sign1024x1 forward at small_v2_tpu "
+                         "(8 images), run-encrypted on one sign1024x1 image at medium_v2 and "
+                         "on one cifar/binarynet image at small_v2_tpu")
     ap.add_argument("--work", default=os.path.join(os.path.dirname(os.path.dirname(HERE)),
                                                    "build", "time_kernels_cli"),
                     help="where --cli keeps its key and image files")
@@ -124,11 +148,25 @@ def main(argv=None) -> dict:
         if not torch.equal(got, want):
             raise SystemExit(f"{args.tag}: {name} differs from its plain twin")
 
+    if args.paths:
+        _, cloud = kg.keygen(P, seed=0)
+        out = {"tag": args.tag, "card": card}
+        _time_forward(args, out, P, bs.prepare_cloud_key(cloud, device="cuda"))
+        _time_cli(args, out, get_params("medium_v2"))
+        _time_cli(args, out, P, "cifar/binarynet")
+        print(json.dumps(out), flush=True)
+        return out
+    if args.launch:
+        out = {"tag": args.tag, "card": card}
+        _time_launch(args, out, own_device, ri, same)
+        _time_gate(args, out, own_device)
+        print(json.dumps(out), flush=True)
+        return out
     if args.rounds_only:
         out = {"tag": args.tag, "card": card}
         for item in filter(None, args.sets.split(",")):
             name, _, b = item.partition("@")
-            _time_schoolbook_round(args, out, K, bs, get_params(name), ri, same, ms,
+            _time_schoolbook_round(args, out, K, bs, get_params(name), ri, same, own_device,
                                    int(b or 512))
         if args.cli:
             _time_cli(args, out, get_params(args.cli))
@@ -168,7 +206,7 @@ def main(argv=None) -> dict:
         for name, bundle, B in runs:
             Pk = get_params(name)
             if bs.bootstrap_plan(Pk) is None:
-                _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms)
+                _time_schoolbook_round(args, out, K, bs, Pk, ri, same, own_device)
                 continue
             if (name, bundle) != ("small_v2_tpu", 1):
                 _, cl = kg.keygen(Pk, seed=0, bundle=bundle)
@@ -222,7 +260,7 @@ def main(argv=None) -> dict:
     return out
 
 
-def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms, B: int = 512) -> None:
+def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, dv, B: int = 512) -> None:
     """One schoolbook CMUX round at ``Pk`` on ``B`` random accumulators and
     exponents and a random raw BK round: S1 with the torch glue around it,
     and the checkout's round kernel where it has one, in turns (glue, kernel,
@@ -231,6 +269,7 @@ def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms, B: int = 512) -> 
     timed three times."""
     import torch
 
+    ms = dv.cuda_ms
     N, rows = Pk.N, Pk.decomp_rows
     acc, t = ri(-2**31, 2**31, (B, 2, N)), ri(0, 2 * N, (B,))
     bk = ri(-2**31, 2**31, (rows, 2, N))
@@ -245,7 +284,8 @@ def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms, B: int = 512) -> 
             K.schoolbook_round(acc, t, spectra, Pk, out=spare)
 
         out[key] = [ms(one, 20, warmup=3) for _ in range(3)]
-        out[f"round_device_ms_{Pk.name}_{B}"] = dev = _device_ms(one, "schoolbook_round_kernel")
+        out[f"round_device_ms_{Pk.name}_{B}"] = dev = dv.device_ms(
+            one, "schoolbook_round_kernel")[0]
         print(f"{args.tag} schoolbook round {Pk.name} [{B}, {rows}, {N}]: "
               f"{', '.join(f'{v:.4f}' for v in out[key])} ms (events); device {dev:.4f} ms",
               flush=True)
@@ -269,37 +309,231 @@ def _time_schoolbook_round(args, out, K, bs, Pk, ri, same, ms, B: int = 512) -> 
                       for tag, _ in turns), flush=True)
 
 
-def _device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time a call of ``fn`` of the CUDA kernels whose name holds
-    ``kernel`` (torch.profiler; CUDA events around a launch shorter than the
-    wrapper's host time time the host).  The tracer starts a step early (it
-    can miss the first launch after it starts) and must see ``reps``
-    launches; a trace that saw fewer is taken again, up to 5 in all."""
+LAUNCH_CALLS = 200  # calls of one host loop (no synchronize inside)
+LAUNCH_ROUNDS = 16  # rounds of the schoolbook_rounds case
+
+
+def _launch_steps(K, host_us, fn, calls: int = LAUNCH_CALLS) -> dict:
+    """A wrapper call's host microseconds by step, each step in a loop of its
+    own: ``body``, the wrapper with ``Library.launch`` made a no-op (its
+    checks, constants, output allocation and pointers); ``launch``, the
+    checkout's ``Library.launch`` on the arguments that call gave it (device
+    check, stream handle, the C entry, the error check and the count); and
+    ``entry``, the C entry alone through the checkout's binding on the
+    arguments ``Library.launch`` gave it (argument conversion, the entry's
+    own checks and set-up, the kernel launch).  Empty where the wrapper
+    reaches no ``Library.launch``."""
+    seen, c_args = [], []
+    real = K.Library.launch
+
+    def record(lib, entry, kernel, dev, *a, **kw):
+        seen.append((lib, entry, kernel, dev, a, kw))
+
+    K.Library.launch = record
+    try:
+        body = host_us(fn, calls)
+    finally:
+        K.Library.launch = real
+    if not seen:
+        return {}
+    lib, entry, kernel, dev, a, kw = seen[0]
+    c_fn = lib.fn[entry]
+
+    def keep(*args):  # the C entry's own arguments, as launch passes them
+        c_args.append(args)
+        return c_fn(*args)
+
+    lib.fn[entry] = keep
+    try:
+        lib.launch(entry, kernel, dev, *a, **kw)
+    finally:
+        lib.fn[entry] = c_fn
+    return {"body": body,
+            "launch": host_us(lambda: lib.launch(entry, kernel, dev, *a, **kw), calls),
+            "entry": host_us(lambda: c_fn(*c_args[0]), calls)}
+
+
+def _time_launch(args, out, dv, ri, same) -> None:
+    """The host path of a launch, wrapper by wrapper, at the shapes of
+    ``--launch``'s list: host microseconds a call (``device.host_us``, three
+    loops), the same call by step (``_launch_steps``), CUDA events of
+    back-to-back calls and the device time (profiler); K7 beside
+    ``torch.take`` over the fixed index table; and the steps every launch
+    shares (``torch.cuda.current_device``, the stream handle both ways, a
+    call of the binding that reaches no CUDA, the launch count, an output's
+    allocation three ways)."""
+    import inspect
+
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
-    for _ in range(5):
-        fn()
+    from redsec_tpu_torch.crypto import bootstrap as bs
+    from redsec_tpu_torch.crypto import kernels as K
+    from redsec_tpu_torch.crypto import keygen as kg
+    from redsec_tpu_torch.crypto import probe_kernels as PK
+    from redsec_tpu_torch.crypto.params import SMALL_V2_TPU as P
+    from redsec_tpu_torch.crypto.params import get_params
+    from redsec_tpu_torch.device import launches
+
+    dev = torch.device("cuda", 0)
+    _, cloud = kg.keygen(P, seed=0)
+    dkey = bs.prepare_cloud_key(cloud, device="cuda")
+    mkey = bs.prepare_cloud_key(cloud, device="cuda", ntt_flavor="matmul")
+    plan, N, n, rows = dkey.plan, P.N, P.n, P.decomp_rows
+    chunk = inspect.signature(bs.prepare_cloud_key).parameters["chunk"].default
+    m1 = ((n - 1) % chunk + 1) * rows * 2 * bs.BK_LIMBS  # K1's smallest main-path rows
+    x1 = ri(0, plan.primes[0], (m1, N))
+    bk0, mbk0 = dkey.bk[:, 0].contiguous(), mkey.bk[:, 0].contiguous()
+    digits = ri(-P.half_bg, P.half_bg, (64, rows, N))
+    acc, t = ri(-2**31, 2**31, (64, 2, N)), ri(0, 2 * N, (64,))
+    x5, t5 = ri(-2**31, 2**31, (512, 2, N)), ri(0, 2 * N, (512,))
+    w7 = ri(-2**31, 2**31, (1, 2 * PK.TOEPLITZ_TILE))
+    kk = torch.arange(PK.TOEPLITZ_TILE, device=dev)
+    idx7 = PK.TOEPLITZ_TILE - 1 + kk[None, :] - kk[:, None]
+    PV = get_params("medium_v2")
+    NV, rv = PV.N, PV.decomp_rows
+    spec = K.key_spectra(ri(-2**31, 2**31, (LAUNCH_ROUNDS, rv, 2, NV)))
+    cases = [  # (name, kernel as the profiler names it, launches a call, call, its twin)
+        (f"ntt [{m1}, {N}]", "ntt_kernel", 1, lambda: K.ntt(x1, plan, 0),
+         lambda: K.ntt_plain(x1, plan, 0)),
+        (f"external_product [64, {rows}, {N}]", "external_product_kernel", 1,
+         lambda: K.external_product(digits, bk0, plan),
+         lambda: K.external_product_plain(digits, bk0, plan)),
+        (f"cmux_round [64, 2, {N}]", "cmux_round_kernel", 1,
+         lambda: K.cmux_round(acc, t, bk0, P, plan),
+         lambda: K.cmux_round_plain(acc, t, bk0, P, plan)),
+        (f"external_product_mm [64, {rows}, {N}]", "external_product_mm_kernel", 1,
+         lambda: K.external_product_mm(digits, mbk0, plan),
+         lambda: K.external_product_mm_plain(digits, mbk0, plan)),
+        (f"cmux_round_mm [64, 2, {N}]", "cmux_round_mm_kernel", 1,
+         lambda: K.cmux_round_mm(acc, t, mbk0, P, plan),
+         lambda: K.cmux_round_mm_plain(acc, t, mbk0, P, plan)),
+        (f"rotate_rows [512, 2, {N}]", "rotate_rows_kernel", 1, lambda: PK.rotate_rows(x5, t5),
+         lambda: PK.rotate_plain(x5, t5)),
+        (f"rotate_tile [512, 2, {N}] tile 64", "rotate_tile_kernel", 1,
+         lambda: PK.rotate_tile(x5, t5, 64), lambda: PK.rotate_plain(x5, t5)),
+        ("toeplitz_tile [1, 256]", "toeplitz_tile_kernel", 1, lambda: PK.toeplitz_tile(w7),
+         lambda: PK.toeplitz_tile_plain(w7)),
+        ("torch.take [1, 256] -> [128, 128]", "", 1, lambda: torch.take(w7, idx7),
+         lambda: PK.toeplitz_tile_plain(w7)),
+    ]
+    for B in (4, 512):
+        accv, tv = ri(-2**31, 2**31, (B, 2, NV)), ri(0, 2 * NV, (B,))
+        spare = torch.empty_like(accv)
+        cases.append((f"schoolbook_round {PV.name} [{B}, {rv}, {NV}]", "schoolbook_round_kernel",
+                      1, lambda a=accv, t_=tv, o=spare: K.schoolbook_round(a, t_, spec[0], PV,
+                                                                           out=o),
+                      lambda a=accv, t_=tv: K.schoolbook_round_plain(a, t_, spec[0], PV)))
+        if hasattr(K, "schoolbook_rounds"):
+            ts = ri(0, 2 * NV, (LAUNCH_ROUNDS, B))  # round i's exponents in row i
+
+            def twin(a=accv, ts=ts):
+                for i in range(LAUNCH_ROUNDS):
+                    a = K.schoolbook_round_plain(a, ts[i], spec[i], PV)
+                return a
+
+            cases.append((f"schoolbook_rounds {PV.name} [{B}, {rv}, {NV}] x {LAUNCH_ROUNDS}",
+                          "schoolbook_round_kernel", LAUNCH_ROUNDS,
+                          lambda a=accv, ts=ts: K.schoolbook_rounds(a, ts, spec, PV), twin))
+    res = {}
+    for name, kernel, per_call, fn, twin in cases:
+        same(name, fn(), twin())
+        calls = max(5, 2 * LAUNCH_CALLS // per_call)  # at most 400 launches queued a loop
+        r = {"host_us": [dv.host_us(fn, calls) for _ in range(3)],
+             "steps_us": _launch_steps(K, dv.host_us, fn, calls),
+             "events_ms": dv.cuda_ms(fn, calls, warmup=3),
+             "device_ms": dv.device_ms(fn, kernel, per_call=per_call)[0]}
+        res[name] = r
+        st = ", ".join(f"{k} {v:.2f}" for k, v in r["steps_us"].items())
+        print(f"{args.tag} launch {name}: host {', '.join(f'{v:.2f}' for v in r['host_us'])} us "
+              f"a call (by step: {st or 'no Library.launch'}); events {r['events_ms']:.4f} ms, "
+              f"device {r['device_ms']:.5f} ms", flush=True)
+    out["launch"] = res
+    lib = PK._lib()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    shared = {"current_device": dv.host_us(torch.cuda.current_device),
+              "current_device_raw": dv.host_us(torch._C._cuda_getDevice),
+              "current_stream_object": dv.host_us(
+                  lambda: torch.cuda.current_stream(dev).cuda_stream),
+              "raw_stream": dv.host_us(lambda: raw(0)) if raw else None,
+              "binding_no_cuda": dv.host_us(lambda: lib.lib.redsec_error_string(0)),
+              "bump": dv.host_us(lambda: launches.bump("time_kernels_probe")),
+              "empty_128x128": dv.host_us(lambda: torch.empty((128, 128), dtype=torch.int32,
+                                                            device=dev)),
+              "empty_like_128x128": dv.host_us(lambda: torch.empty_like(idx7)),
+              "new_empty_128x128": dv.host_us(lambda: w7.new_empty((128, 128)))}
+    launches.counts.pop("time_kernels_probe", None)
+    out["launch_shared_steps_us"] = shared
+    print(f"{args.tag} launch steps shared by every wrapper (us): "
+          + ", ".join(f"{k} {'absent' if v is None else f'{v:.3f}'}" for k, v in shared.items()),
+          flush=True)
+    k7, take = res["toeplitz_tile [1, 256]"], res["torch.take [1, 256] -> [128, 128]"]
+    print(f"{args.tag} K7 against torch.take: events {k7['events_ms']:.4f} / "
+          f"{take['events_ms']:.4f} ms, device {k7['device_ms']:.5f} / {take['device_ms']:.5f} "
+          f"ms, host {min(k7['host_us']):.2f} / {min(take['host_us']):.2f} us a call", flush=True)
+
+
+def _time_gate(args, out, dv, reps: int = 5) -> None:
+    """The AND gate (``GateSet.AND``) at full ``medium_v2`` on a gate's 4
+    ciphertexts: wall ms of ``reps`` calls (host clock around each call and
+    a ``synchronize()``), its schoolbook round launches, and one traced call
+    (``device.device_ms``, which must see every round): the rounds' device
+    time, every kernel's device time, and the idle share 1 - busy / untraced
+    wall.  The key files are made by the command line into ``--work`` once."""
+    import numpy as np
+    import torch
+
+    from redsec_tpu_torch import cli
+    from redsec_tpu_torch.crypto import bootstrap as bs
+    from redsec_tpu_torch.crypto import gates
+    from redsec_tpu_torch.crypto.params import get_params
+    from redsec_tpu_torch.device import launches
+    from redsec_tpu_torch.formats import keys as kio
+
+    Pg = get_params("medium_v2")
+    work = os.path.join(args.work, Pg.name)
+    if not os.path.exists(os.path.join(work, "eval.key.npz")):
+        cli.main(["keygen", "--params", Pg.name, "--seed", "0", "--out-dir", work])
+    sk = kio.load_secret_key(os.path.join(work, "secret.key.npz"))
+    dkey = bs.prepare_cloud_key(kio.load_cloud_key(os.path.join(work, "eval.key.npz")),
+                                device="cuda")
+    gs = gates.GateSet(dkey)
+    a2, b2 = np.array([0, 0, 1, 1]), np.array([0, 1, 0, 1])
+    a, b = (torch.as_tensor(gates.gate_encrypt_host(sk.lwe_key, v, Pg, np.random.default_rng(i)),
+                            device="cuda") for i, v in enumerate((a2, b2)))
+    launches.reset()
+    res = gs.AND(a, b)
+    rounds = launches.get("schoolbook_round")
+    if not np.array_equal(gates.gate_decrypt_host(sk.lwe_key, res.cpu().numpy(), Pg), a2 & b2):
+        raise SystemExit(f"{args.tag}: the AND gate at {Pg.name} is wrong")
+    walls = []
+    for _ in range(reps):
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = [e for e in prof.key_averages()
-               if kernel in e.key and e.device_type == torch.autograd.DeviceType.CUDA]
-        if sum(e.count for e in evs) == reps:
-            return sum(e.self_device_time_total for e in evs) / reps / 1e3
-    raise SystemExit(f"the profiler saw {sum(e.count for e in evs)} launches of {kernel} "
-                     f"in {reps} calls, 5 times")
+        t0 = time.perf_counter()
+        gs.AND(a, b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    rounds_ms, busy, seen, _ = dv.device_ms(lambda: gs.AND(a, b), "schoolbook_round_kernel",
+                                            reps=1, per_call=rounds)
+    wall = sum(walls) / len(walls)
+    out[f"gate_and_{Pg.name}"] = {
+        "wall_ms": walls, "round_launches": rounds, "rounds_device_ms": rounds_ms,
+        "rounds_traced": seen, "device_busy_ms": busy,
+        "idle_share": 1 - busy / wall, "wall_over_rounds": wall / rounds_ms}
+    print(f"{args.tag} AND gate {Pg.name} [4 ciphertexts]: wall "
+          f"{', '.join(f'{w:.3f}' for w in walls)} ms; {rounds} round launches; traced: rounds "
+          f"{rounds_ms:.3f} ms on the device (x{seen}), every kernel "
+          f"{busy:.3f} ms, idle share {1 - busy / wall:.4f}, wall / rounds' device time "
+          f"{wall / rounds_ms:.3f}", flush=True)
 
 
-def _time_cli(args, out, Pc) -> None:
-    """``run-encrypted`` of the checkout's command line on one sign1024x1
-    image at ``Pc`` (keygen and encrypt-image into ``--work`` once)."""
+CIFAR = os.path.join(os.path.dirname(os.path.dirname(HERE)), "nets_trained", "cifar", "binarynet")
+
+
+def _time_cli(args, out, Pc, model: str = "mnist/sign1024x1") -> None:
+    """``run-encrypted`` of the checkout's command line on one image of
+    ``model`` at ``Pc`` (keygen and encrypt-image into ``--work`` once;
+    ``cifar/binarynet`` with its trained weights and calibration, as
+    ``chip_smoke.py`` runs it)."""
     import contextlib
     import io
 
@@ -308,23 +542,29 @@ def _time_cli(args, out, Pc) -> None:
     from redsec_tpu_torch import cli
     from redsec_tpu_torch.formats.image_io import write_image_ptxt
 
+    cifar = model == "cifar/binarynet"
     work = os.path.join(args.work, Pc.name)
+    name = "cifar." if cifar else ""
     files = {k: os.path.join(work, f) for k, f in (
-        ("secret", "secret.key.npz"), ("eval", "eval.key.npz"), ("ptxt", "image.ptxt"),
-        ("ctxt", "image.ctxt.npz"), ("out", f"out.{args.tag}.ctxt.npz"))}
+        ("secret", "secret.key.npz"), ("eval", "eval.key.npz"), ("ptxt", f"{name}image.ptxt"),
+        ("ctxt", f"{name}image.ctxt.npz"), ("out", f"{name}out.{args.tag}.ctxt.npz"))}
+    model_args = (["--model", model, "--calib", os.path.join(CIFAR, "calibration.npz")]
+                  if cifar else [])
     if not os.path.exists(files["ctxt"]):
-        cli.main(["keygen", "--params", Pc.name, "--seed", "0", "--out-dir", work])
-        raw = np.random.default_rng(1).integers(0, 256, size=(28, 28, 1))
+        if not os.path.exists(files["eval"]):
+            cli.main(["keygen", "--params", Pc.name, "--seed", "0", "--out-dir", work])
+        raw = np.random.default_rng(1).integers(0, 256, size=(32, 32, 3) if cifar else (28, 28, 1))
         write_image_ptxt(files["ptxt"], 0, raw)
         cli.main(["encrypt-image", "--secret", files["secret"], "--image-ptxt", files["ptxt"],
-                  "--out", files["ctxt"]])
+                  *model_args, "--out", files["ctxt"]])
+    weights = os.path.join(CIFAR, "var_prep.dat") if cifar else WEIGHTS
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        cli.main(["run-encrypted", "--model", "mnist/sign1024x1", "--weights", WEIGHTS,
-                  "--eval", files["eval"], "--image", files["ctxt"], "--out", files["out"]])
+        cli.main(["run-encrypted", "--model", model, "--weights", weights, "--eval", files["eval"],
+                  "--image", files["ctxt"], *model_args[2:], "--out", files["out"]])
     rec = json.loads(buf.getvalue().strip().splitlines()[-1])
-    out[f"cli_{Pc.name}"] = rec
-    print(f"{args.tag} cli run-encrypted {Pc.name}: {rec}", flush=True)
+    out[f"cli_{Pc.name}" + ("_cifar" if cifar else "")] = rec
+    print(f"{args.tag} cli run-encrypted {model} {Pc.name}: {rec}", flush=True)
 
 
 def _time_forward(args, out, P, dkey) -> None:

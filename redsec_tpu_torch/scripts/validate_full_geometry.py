@@ -8,9 +8,10 @@ decode budget.
         [--device cpu] [--engine native]
 
 The PBS runs on ``--device`` (default ``cuda``) through ``prepare_cloud_key``
-and ``make_chunked_bootstrap``: one schoolbook round kernel launch a round
-(``kernels.schoolbook_round``).  ``--engine native`` runs it on the native CGGI core on the host, the
-engine of the JAX package's script.  The inputs are the JAX script's: values
+and ``make_chunked_bootstrap``: one schoolbook round kernel launch a round,
+a PBS's rounds launched from one C loop (``kernels.schoolbook_rounds``).
+``--engine native`` runs it on the native CGGI core on the host, the engine
+of the JAX package's script.  The inputs are the JAX script's: values
 drawn from numpy's ``default_rng(seed + 1)`` in the quarter message space,
 the first two pinned to 37 and -414.  Key generation and encryption are
 seeded numpy in both packages and a PBS is exact, so the ``RESULT`` dict

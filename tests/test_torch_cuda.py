@@ -9,6 +9,7 @@ skips ``tests/conftest.py``, which pins JAX to the CPU):
 Tolerance: exact equality (integer arithmetic mod p and mod 2^32).
 """
 
+import contextlib
 import ctypes
 import dataclasses
 import os
@@ -542,6 +543,102 @@ def test_schoolbook_round_wrapper_rejects_what_the_kernel_does_not_take(card):
     assert K.launches.get("schoolbook_round") == before
 
 
+@pytest.mark.parametrize("batch", [4, 513])
+def test_schoolbook_rounds_equal_single_round_launches(card, batch):
+    """``schoolbook_rounds`` at ``medium_v2`` over n = 16 rounds (one C loop
+    of 16 launches) against 16 launches of ``schoolbook_round`` on two
+    buffers: bit-identical, counted 16 times, ``acc`` left as it was."""
+    Pr, n = _round_params("medium_v2"), 16
+    rng = np.random.default_rng(batch + n)
+    acc = _ri(rng, -2**31, 2**31, (batch, 2, Pr.N))
+    ts = _ri(rng, 0, 2 * Pr.N, (n, batch))
+    spectra = K.key_spectra(_ri(rng, -2**31, 2**31, (n, Pr.decomp_rows, 2, Pr.N)))
+    want, spare = acc.clone(), torch.empty_like(acc)
+    for i in range(n):
+        want, spare = K.schoolbook_round(want, ts[i], spectra[i], Pr, out=spare), want
+    kept = acc.clone()
+    before = K.launches.get("schoolbook_round")
+    got = K.schoolbook_rounds(acc, ts, spectra, Pr)
+    assert K.launches.get("schoolbook_round") == before + n
+    assert torch.equal(got, want)
+    assert torch.equal(acc, kept)
+
+
+def test_launches_go_to_the_current_stream(card):
+    """K7, S1-fft and the rounds' loop launched on a side stream, and under
+    ``torch.cuda.device``, run on that stream: their inputs are written on it
+    after the stream has spun for a while (``torch.cuda._sleep``), so a
+    launch placed on another stream would read them too early.  The launch
+    reads the stream's raw handle with PyTorch's raw reader, building no
+    ``torch.cuda.Stream``."""
+    assert K._raw_stream is torch._C._cuda_getCurrentRawStream
+    Pr = _round_params("medium_v2")
+    rng = np.random.default_rng(21)
+    w_src = _ri(rng, -2**31, 2**31, (1, 256))
+    acc_src, t, spectra, _ = _round_inputs(rng, Pr, 4)
+    ts = _ri(rng, 0, 2 * Pr.N, (3, 4))
+    spec3 = K.key_spectra(_ri(rng, -2**31, 2**31, (3, Pr.decomp_rows, 2, Pr.N)))
+    want7 = PK.toeplitz_tile_plain(w_src)
+    want = K.schoolbook_round_plain(acc_src, t, spectra, Pr)
+    want3 = acc_src
+    for i in range(3):
+        want3 = K.schoolbook_round_plain(want3, ts[i], spec3[i], Pr)
+    side = torch.cuda.Stream()
+    for ctx in (contextlib.nullcontext(), torch.cuda.device(0)):
+        w, acc = torch.zeros_like(w_src), torch.zeros_like(acc_src)
+        torch.cuda.synchronize()
+        with ctx, torch.cuda.stream(side):
+            torch.cuda._sleep(20_000_000)
+            w.copy_(w_src)
+            acc.copy_(acc_src)
+            got7 = PK.toeplitz_tile(w)
+            got = K.schoolbook_round(acc, t, spectra, Pr)
+            got3 = K.schoolbook_rounds(acc, ts, spec3, Pr)
+        side.synchronize()
+        assert torch.equal(got7, want7)
+        assert torch.equal(got, want)
+        assert torch.equal(got3, want3)
+
+
+def test_a_refused_launch_in_the_rounds_loop_names_its_round(card):
+    """The rounds' C entry stops at the first launch that fails and the
+    wrapper's error names its round; nothing is counted.  Round 0 here asks
+    for 8 * 2^29 blocks, past a grid's reach, so it never starts."""
+    Pr = _round_params("medium_v2")
+    tw, twist = K.fft_tables(Pr.N, torch.device("cuda", 0))
+    buf = torch.zeros((1, 2, Pr.N), dtype=torch.int32, device="cuda")
+    ts = torch.zeros((3, 1), dtype=torch.int32, device="cuda")
+    spec = K.key_spectra(torch.zeros((3, Pr.decomp_rows, 2, Pr.N), dtype=torch.int32,
+                                     device="cuda"))
+    failed = ctypes.c_int(-1)
+    before = K.launches.get("schoolbook_round")
+    with pytest.raises(RuntimeError, match="schoolbook_round failed at round 0"):
+        K._sbf_lib().launch("redsec_schoolbook_rounds", "schoolbook_round", 0, buf.data_ptr(),
+                            ts.data_ptr(), spec.data_ptr(), tw.data_ptr(), twist.data_ptr(),
+                            buf.data_ptr(), buf.data_ptr(), 2**30, Pr.N, Pr.decomp_rows,
+                            *K._gadget_args(Pr), 3, ctypes.addressof(failed), count=3,
+                            failed=failed)
+    assert failed.value == 0
+    assert K.launches.get("schoolbook_round") == before
+    torch.cuda.synchronize()  # nothing was left running
+
+
+def test_device_ms_takes_no_time_from_a_partial_trace(card):
+    """``device.device_ms`` sees every launch of a short trace (K7, 20
+    calls), and raises rather than answer when a trace sees fewer launches
+    than the calls make (here, told each call makes two), or answers None
+    where the time is not required."""
+    from redsec_tpu_torch.device import device_ms
+
+    w = _ri(np.random.default_rng(7), -2**31, 2**31, (1, 2 * PK.TOEPLITZ_TILE))
+    ms, busy, seen, _ = device_ms(lambda: PK.toeplitz_tile(w), "toeplitz_tile_kernel")
+    assert seen == 20 and 0 < ms <= busy
+    with pytest.raises(RuntimeError, match="saw 20 launches"):
+        device_ms(lambda: PK.toeplitz_tile(w), "toeplitz_tile_kernel", per_call=2, tries=2)
+    assert device_ms(lambda: PK.toeplitz_tile(w), "toeplitz_tile_kernel", per_call=2, tries=1,
+                     required=False) == (None, None, 20, 0)
+
+
 def test_schoolbook_pbs_without_spectra_raises(key):
     _, cloud, _ = key
     sb = bs.prepare_cloud_key(cloud, device="cuda", schoolbook=True)
@@ -560,8 +657,7 @@ def test_wgmma_layouts_hold_on_the_card(card, n, kc, ng):
     product): LBO the K-direction stride between core columns and SBO the
     stride between 8-row groups; the other reading must not match."""
     lib = K.Library(os.path.join(os.path.dirname(K.SCHOOLBOOK_SOURCE), "wgmma_check.cu"),
-                    {"redsec_wgmma_check": [ctypes.c_int, *[ctypes.c_void_p] * 3,
-                                            *[ctypes.c_int] * 4, ctypes.c_void_p]})
+                    ("redsec_wgmma_check",))
     rng = np.random.default_rng(n + kc)
     A = torch.as_tensor(rng.integers(0, 256, (64, 32)).astype(np.uint8), device="cuda")
     B = torch.as_tensor(rng.integers(-128, 128, (n, 32)).astype(np.int8), device="cuda")
@@ -569,7 +665,7 @@ def test_wgmma_layouts_hold_on_the_card(card, n, kc, ng):
     matches = {}
     for reading, (lbo, sbo) in (("lbo_k", (kc, ng)), ("lbo_mn", (ng, kc))):
         got = torch.zeros((64, n), dtype=torch.int32, device="cuda")
-        lib.launch("redsec_wgmma_check", "wgmma_check", torch.device("cuda", 0), n,
+        lib.launch("redsec_wgmma_check", "wgmma_check", 0, n,
                    A.data_ptr(), B.data_ptr(), got.data_ptr(), kc, ng, lbo, sbo)
         matches[reading] = bool(np.array_equal(got.cpu().numpy(), want))
     assert matches == {"lbo_k": True, "lbo_mn": False}

@@ -169,7 +169,8 @@ def main(argv=None) -> dict:
         return {}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
-    lib = K._lib().lib
+    K._lib()  # builds and loads the probed library
+    lib = ctypes.CDLL(K.library_path(K.SOURCE))  # the same loaded file: its probe entry
     lib.redsec_spans.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.redsec_spans.restype = ctypes.c_int
     buf = (ctypes.c_ulonglong * 24)()

@@ -1,6 +1,6 @@
 // Rate probes of the bootstrapping key's path from L2 into shared memory, as
 // K4 (redsec_tpu_torch/csrc/pbs.cu, blind_rotate_kernel) reads it, on Hopper
-// (sm_90a), bound to PyTorch with ctypes (tools/l2_rate.py).  No TPU kernel
+// (sm_90a), a Python module of C entries (tools/l2_rate.py).  No TPU kernel
 // is replaced and no path of the port runs these: they measure how fast the
 // card can feed K4's MAC with key rows, which chose K4's layouts.
 //
@@ -24,6 +24,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "py_entries.cuh"
 
 namespace {
 
@@ -339,10 +341,6 @@ int launch_ring(Kernel kernel, size_t bytes, int blocks, const uint32_t* src, in
 
 extern "C" {
 
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 // mode 0: ring_async, 1: ring_bulk, 2: ring_multicast (clusters of two
 // blocks; an odd block count is cut to even), 3: ring_wide; N 1024 (a ring of 4 rows) or
 // 2048 (2 rows), as K4's ring.  src: int16 [slices][rows][8][N].
@@ -388,3 +386,7 @@ int redsec_l2_stream(int blocks, const uint4* src, int slices, long long slice_v
 }
 
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(l2_rate, REDSEC_PY_LAUNCH(redsec_l2_ring),
+                 REDSEC_PY_LAUNCH(redsec_l2_stream))

@@ -19,7 +19,6 @@ path of the port runs this.  Prints one JSON line.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -34,11 +33,7 @@ from redsec_tpu_torch.device import cuda_ms  # noqa: E402
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "l2_rate.cu")
 ROWS = 20
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-ENTRIES = {
-    "redsec_l2_ring": [_I, _I, _I, _P, _I, _I, _I, _P, _P],
-    "redsec_l2_stream": [_I, _P, _I, _L, _I, _P, _P],
-}
+ENTRIES = ("redsec_l2_ring", "redsec_l2_stream")
 
 
 def main(argv=None) -> dict:
@@ -62,16 +57,16 @@ def main(argv=None) -> dict:
             rounds = args.rounds if slices == 16 else min(args.rounds, 350)
             moved = blocks * rounds * slice_bytes
             for name, mode in (("async", 0), ("bulk", 1), ("multicast", 2), ("wide", 3)):
-                ms = cuda_ms(lambda: lib.launch("redsec_l2_ring", f"l2_ring_{name}", dev, mode, N,
-                                                blocks, src.data_ptr(), slices, ROWS, rounds,
-                                                sink.data_ptr()), 3)
+                ms = cuda_ms(lambda: lib.launch("redsec_l2_ring", f"l2_ring_{name}", dev.index,
+                                                mode, N, blocks, src.data_ptr(), slices, ROWS,
+                                                rounds, sink.data_ptr()), 3)
                 key = f"ring_{name}_N{N}_slices{slices}_bytes_per_s"
                 out[key] = moved / ms * 1e3
                 # multicast: each row read from L2 once for the two blocks of a cluster
                 l2 = "" if mode != 2 else f", {out[key] / 2:.4e} B/s read from L2"
                 print(f"ring ({name}) N {N}, {slices} slices of {slice_bytes} B: {ms:.4f} ms, "
                       f"{out[key]:.4e} B/s into shared memory{l2} on {card}", flush=True)
-            ms = cuda_ms(lambda: lib.launch("redsec_l2_stream", "l2_stream", dev, blocks,
+            ms = cuda_ms(lambda: lib.launch("redsec_l2_stream", "l2_stream", dev.index, blocks,
                                             src.data_ptr(), slices, slice_bytes // 16, rounds,
                                             sink.data_ptr()), 3)
             key = f"stream_N{N}_slices{slices}_bytes_per_s"

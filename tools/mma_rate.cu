@@ -1,6 +1,6 @@
 // Rate probes of the int8 tensor-core instructions S1 (in
 // redsec_tpu_torch/csrc/schoolbook.cu) can use on Hopper (sm_90a), bound to
-// PyTorch with ctypes (tools/mma_rate.py).  No TPU kernel is replaced and no
+// a Python module of C entries (tools/mma_rate.py).  No TPU kernel is replaced and no
 // path of the port runs these: they measure the ceiling of each instruction
 // and how the tensor cores overlap other work, which chose S1's design.
 //
@@ -16,6 +16,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "py_entries.cuh"
 
 namespace {
 
@@ -177,10 +179,6 @@ __global__ void __launch_bounds__(256, 1) wgmma_overlap(int iters, int work, int
 
 extern "C" {
 
-const char* redsec_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
 int redsec_mma_sync_rate(int blocks, int iters, int* sink, cudaStream_t stream) {
   mma_sync_rate<<<blocks, 256, 0, stream>>>(iters, sink);
   return static_cast<int>(cudaGetLastError());
@@ -207,3 +205,8 @@ int redsec_wgmma_overlap(int kind, int mma, int work, int blocks, int iters, int
 }
 
 }  // extern "C"
+
+// the library's Python module (py_entries.cuh)
+REDSEC_PY_MODULE(mma_rate, REDSEC_PY_LAUNCH(redsec_mma_sync_rate),
+                 REDSEC_PY_LAUNCH(redsec_wgmma_rate),
+                 REDSEC_PY_LAUNCH(redsec_wgmma_overlap))

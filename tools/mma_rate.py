@@ -20,7 +20,6 @@ Prints one JSON line.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import subprocess
@@ -35,12 +34,7 @@ from redsec_tpu_torch.device import cuda_ms  # noqa: E402
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mma_rate.cu")
 PEAK_INT8_MACS = 1979e12 / 2
-_P, _I = ctypes.c_void_p, ctypes.c_int
-ENTRIES = {
-    "redsec_mma_sync_rate": [_I, _I, _P, _P],
-    "redsec_wgmma_rate": [_I, _I, _I, _P, _P],
-    "redsec_wgmma_overlap": [_I, _I, _I, _I, _I, _P, _P],
-}
+ENTRIES = ("redsec_mma_sync_rate", "redsec_wgmma_rate", "redsec_wgmma_overlap")
 
 
 def main(argv=None) -> dict:
@@ -56,14 +50,14 @@ def main(argv=None) -> dict:
     out = {"card": card}
     sink = torch.zeros(1, dtype=torch.int32, device=dev)
     blocks = 4 * torch.cuda.get_device_properties(dev).multi_processor_count
-    ms = cuda_ms(lambda: lib.launch("redsec_mma_sync_rate", "mma_sync_rate", dev, blocks,
+    ms = cuda_ms(lambda: lib.launch("redsec_mma_sync_rate", "mma_sync_rate", dev.index, blocks,
                                     args.iters, sink.data_ptr()), 3)
     macs = blocks * 8 * args.iters * 16 * 16 * 8 * 32
     out["mma_sync_macs_per_s"] = macs / ms * 1e3
     print(f"mma.sync m16n8k32 u8.s8: {ms:.4f} ms, {macs / ms * 1e3:.4e} MAC/s, "
           f"{macs / ms * 1e3 / PEAK_INT8_MACS:.4f} of the dense int8 peak on {card}", flush=True)
     for n in (32, 64, 128):
-        ms = cuda_ms(lambda: lib.launch("redsec_wgmma_rate", "wgmma_rate", dev, n, blocks,
+        ms = cuda_ms(lambda: lib.launch("redsec_wgmma_rate", "wgmma_rate", dev.index, n, blocks,
                                         args.iters, sink.data_ptr()), 3)
         macs = blocks * 2 * args.iters * 4 * 64 * n * 32
         out[f"wgmma_n{n}_macs_per_s"] = macs / ms * 1e3
@@ -78,8 +72,8 @@ def main(argv=None) -> dict:
             row = {}
             for mma in (1, 0):
                 row[mma] = cuda_ms(lambda: lib.launch(
-                    "redsec_wgmma_overlap", "wgmma_overlap", dev, kind, mma, work, blocks, trips,
-                    sink.data_ptr()), 3) / trips * 1e6 / (blocks / (blocks // 4))
+                    "redsec_wgmma_overlap", "wgmma_overlap", dev.index, kind, mma, work, blocks,
+                    trips, sink.data_ptr()), 3) / trips * 1e6 / (blocks / (blocks // 4))
             out[f"overlap_kind{kind}_work{work}_ns_per_trip"] = row
             print(f"overlap, {work} {what} a trip: {row[1]:.2f} ns a trip with the wgmmas, "
                   f"{row[0]:.2f} without (per SM, {blocks // 4} SMs) on {card}", flush=True)
