@@ -43,7 +43,12 @@ Phases (any failure exits non-zero):
    kernel's place: that holds K1 at exactly the row counts each preparation
    launches it at.
    The four-step kernels of ``csrc/blind_mm.cu`` on "matmul" keys prepared
-   from the same raw keys (K2-mm and K3-mm on 64 ciphertexts; K4-mm at
+   from the same raw keys (K2-mm and K3-mm on 64 and 512 ciphertexts, at the
+   split the wrapper picks, each record with its layout (blocks a
+   ciphertext, cluster, shared bytes, registers, spills, ciphertexts at
+   once: the library's held to ``kernels.round_mm_layout``) and its bound
+   also priced on the SMs its grid occupies, ``bound_ms_occupied_sms``;
+   the ``round_kernel`` paths of phase 12 launch them; K4-mm at
    ``small_v2_tpu`` at batches 512, 133, 5 and 1, its 512 output also equal
    to K4's on the radix-2 key, and at ``small_v2`` and plain
    ``small_v2_tpu2`` at 512 and 1; timed at 512 beside K4 in this process),
@@ -201,9 +206,14 @@ Phases (any failure exits non-zero):
    through K4-mm exactly as often as K4 runs on the radix-2 path (20
    launches, counted at the kernel's door and by the counters) and K4
    never, bit-identical to K4's forward; a 512-chunk PBS through K4-mm timed
-   beside K4's in the same process; one image through ``run-encrypted
-   --ntt-flavor matmul`` at ``small_v2``, whose score file must equal the
-   ``--ntt-flavor radix2`` run's, each run's launches exact at the door.
+   beside K4's in the same process; the same forward with
+   ``round_kernel="full"`` and ``"partial"`` (the JAX package's
+   ``REDSEC_ROUND_KERNEL=1`` / ``=partial``): 20 chunks x 350 rounds = 7,000
+   launches of K3-mm (K2-mm) counted at the door and by the counters, no
+   blind-rotation kernel, scores bit-identical to K4's; one image through
+   ``run-encrypted --ntt-flavor matmul`` at ``small_v2``, whose score file
+   must equal the ``--ntt-flavor radix2`` run's, and again with
+   ``--round-kernel full``, each run's launches exact at the door.
 13. ``phase13``: the BYON trainers and the native oracle.
    - The sign trainer at full ``cifar/binarynet`` on 100 synthetic images
      (numpy seed 1): one loss and gradient without noise on the card against
@@ -537,6 +547,7 @@ def phase12(c: dict) -> None:
 
     from redsec_tpu_torch.crypto import bootstrap as bs
     from redsec_tpu_torch.crypto import kernels as K
+    from redsec_tpu_torch.crypto.params import get_params
     from redsec_tpu_torch.device import launches
     from redsec_tpu_torch.formats import keys as kio
     from redsec_tpu_torch.formats.image_io import pixel_transform_for, write_image_ptxt
@@ -746,6 +757,44 @@ def phase12(c: dict) -> None:
     rec["matmul"] = {"prepare_s": t_mprep, f"forward_{batch}_images_s": t_mfwd,
                      "k4mm_launches": mdoor[0], "pbs_512_ms": mm_ms, "k4_512_ms": k4_ms,
                      "ms": times}
+
+    # -- the JAX package's per-round path (REDSEC_ROUND_KERNEL=1 / =partial)
+    # as round_kernel="full" / "partial": the same forward on the same key
+    # and ciphertexts, each blind rotation n launches of K3-mm (K2-mm and the
+    # torch round around it), counted at the kernel's door and by the
+    # counters, no K4-mm; the scores bit-identical to K4's forward
+    for rk, kname in (("full", "cmux_round_mm"), ("partial", "external_product_mm")):
+        rfwd = build_encrypted_forward(mplan, mkey, round_kernel=rk)
+        rdoor = [0]
+
+        def door_rk(*args, _real=getattr(K, kname), **kw):
+            rdoor[0] += 1
+            return _real(*args, **kw)
+
+        launches.reset()
+        sync()
+        t0 = time.perf_counter()
+        with mock.patch.object(K, kname, door_rk):
+            rout = rfwd(mct)
+        sync()
+        t_rfwd = time.perf_counter() - t0
+        rcounts = dict(launches.counts)
+        by_path[f"round_{rk}/sign1024x1"] = (P.name, rcounts)
+        want_rk = want_k4 * P.n
+        if dev.type == "cuda" and (rdoor[0], rcounts.get(kname), rcounts.get("blind_rotate_mm", 0),
+                                   rcounts.get("blind_rotate", 0)) != (want_rk, want_rk, 0, 0):
+            fail(f"round_{rk}/sign1024x1: {rdoor[0]} {kname} calls at the door, counters "
+                 f"{rcounts}; expected {want_rk} ({want_k4} chunks x {P.n} rounds) and no "
+                 "blind rotation kernel")
+        if not torch.equal(rout, kout):
+            fail(f"round_{rk}/sign1024x1: the round_kernel={rk!r} forward differs from K4's")
+        print(f"round_kernel={rk!r}/sign1024x1 ({P.name}): {batch} images x "
+              f"{summarize(mplan)['total_bootstraps']} PBS in {t_rfwd:.3f} s (K4-mm's forward "
+              f"{t_mfwd:.3f} s), {rdoor[0]} {kname} launches at the door, counters {rcounts}; "
+              f"scores bit-identical to K4's and K4-mm's forward on {card}", flush=True)
+        rec["matmul"][f"round_{rk}_forward_{batch}_images_s"] = t_rfwd
+        rec["matmul"][f"round_{rk}_launches"] = rdoor[0]
+        del rfwd, rout
     del mfwd, mout, kout, mct
 
     # -- one image through the CLI at small_v2 (the CLI's default set), with
@@ -799,6 +848,39 @@ def phase12(c: dict) -> None:
              "the radix2 run's")
     print("cli_matmul/sign1024x1: --ntt-flavor matmul wrote the radix2 run's score file, "
           "bit for bit", flush=True)
+    # the same with --round-kernel full: n K3-mm launches a chunk at 20 digit
+    # rows, counted at the door and in the JSON line, the same score file
+    rdoor = [0]
+
+    def door_k3(*args, _real=K.cmux_round_mm, **kw):
+        rdoor[0] += 1
+        return _real(*args, **kw)
+
+    launches.reset()
+    with mock.patch.object(K, "cmux_round_mm", door_k3):
+        _, crec = run_cli("run-encrypted", "--model", "mnist/sign1024x1", "--weights", weights,
+                          "--eval", os.path.join(cdir, "eval.key.npz"),
+                          "--image", os.path.join(cdir, "image.ctxt.npz"),
+                          "--out", os.path.join(cdir, "out_round.ctxt.npz"),
+                          "--ntt-flavor", "matmul", "--round-kernel", "full")
+    sync()
+    counts = dict(launches.counts)
+    by_path["cli_round_full/sign1024x1"] = ("small_v2", counts)
+    want_r = want1 * get_params("small_v2").n
+    if dev.type == "cuda" and (crec["k3mm_launches"], rdoor[0], counts.get("cmux_round_mm"),
+                               crec["k4mm_launches"]) != (want_r, want_r, want_r, 0):
+        fail(f"cli_round_full/sign1024x1: run-encrypted reports {crec}, {rdoor[0]} calls at "
+             f"the door, counters {counts}; expected {want_r} of cmux_round_mm and no K4-mm")
+    b = np.load(os.path.join(cdir, "out_round.ctxt.npz"))
+    if sorted(a.files) != sorted(b.files) or any(not np.array_equal(a[k], b[k])
+                                                 for k in a.files):
+        fail("cli_round_full/sign1024x1: the score file of --round-kernel full differs from "
+             "the radix2 run's")
+    cli_rec["round_full"] = crec
+    print(f"cli_round_full/sign1024x1 (small_v2, --ntt-flavor matmul --round-kernel full): "
+          f"{crec['pbs']} PBS in {crec['seconds']:.3f} s, {rdoor[0]} K3-mm launches at the door "
+          f"({crec['k3mm_launches']} in its JSON line), the radix2 run's score file on {card}",
+          flush=True)
     rec["cli_matmul"] = cli_rec
     timer.mark("matmul")
 
@@ -1766,35 +1848,77 @@ def main() -> int:
 
     mlay = mm_layout_held(P, mkey.plan)
     mbk0 = mkey.bk[:, 0].contiguous()
-    digits = ri(-P.half_bg, P.half_bg, (M, rows, N))
-    err = same("external_product_mm", K.external_product_mm(digits, mbk0, plan),
-               K.external_product_mm_plain(digits, mbk0, plan))
-    ms = cuda_ms(lambda: K.external_product_mm(digits, mbk0, plan), 20)
-    pms = cuda_ms(lambda: K.external_product_mm_plain(digits, mbk0, plan), 3)
-    # one round of about 33 us: events time the host's path beside it, so the
-    # device time is read from the profiler too
-    dev2m, _, _, re2m = device_ms(lambda: K.external_product_mm(digits, mbk0, plan),
-                                  "external_product_mm_kernel", required=False)
-    launch_us["external_product_mm"] = host_us(lambda: K.external_product_mm(digits, mbk0, plan))
-    report("external_product_mm", [M, rows, N], err, ms, pms,
-           digits.numel() * 4 + mbk0.numel() * 2 + M * 2 * N * 4,
-           M * ext_product_ops(rows, N), "redsec_tpu/crypto/pallas_round.py:98", "blind_mm.cu",
-           bound_four_step_ms=four_step_bound_ms(M, rows, N, False), device_ms=dev2m,
-           profiler_retries=re2m, host_us=launch_us["external_product_mm"],
-           **mm_fields(mlay, "external_product_mm_kernel"))
-    err = same("cmux_round_mm", K.cmux_round_mm(acc, t, mbk0, P, plan),
-               K.cmux_round_mm_plain(acc, t, mbk0, P, plan))
-    ms = cuda_ms(lambda: K.cmux_round_mm(acc, t, mbk0, P, plan), 20)
-    pms = cuda_ms(lambda: K.cmux_round_mm_plain(acc, t, mbk0, P, plan), 3)
-    dev3m, _, _, re3m = device_ms(lambda: K.cmux_round_mm(acc, t, mbk0, P, plan),
-                                  "cmux_round_mm_kernel", required=False)
-    launch_us["cmux_round_mm"] = host_us(lambda: K.cmux_round_mm(acc, t, mbk0, P, plan))
-    report("cmux_round_mm", [M, 2, N], err, ms, pms,
-           2 * acc.numel() * 4 + M * 4 + mbk0.numel() * 2, M * cmux_ops(rows, N),
-           "redsec_tpu/crypto/pallas_round.py:254", "blind_mm.cu",
-           bound_four_step_ms=four_step_bound_ms(M, rows, N, True), device_ms=dev3m,
-           profiler_retries=re3m, host_us=launch_us["cmux_round_mm"],
-           **mm_fields(mlay, "cmux_round_mm_kernel"))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def round_mm_fields(Mx, full):
+        # the split the wrapper picks at Mx, its layout (the library's answer
+        # held against kernels.round_mm_layout), and the SMs its grid can
+        # occupy: min(SMs, blocks / blocks an SM)
+        kernel = "cmux_round_mm" if full else "external_product_mm"
+        split = K.round_mm_split_on(0, N, rows, Mx, full)
+        lay = K.round_mm_layout(P, split, mkey.plan, kernel)
+        built = K.round_mm_built(N, rows, split, full)
+        if any(built[k] != lay[k] for k in lay if k in built):
+            fail(f"{kernel} split {split}: the library's layout {built} is not "
+                 f"kernels.round_mm_layout's {lay}")
+        per_sm = max(1, built["at_once"] * split // sms)
+        occupied = min(sms, -(-Mx * split // per_sm))
+        regs, spill = ptxas_usage(ptxas, lay["instance"])
+        return dict(instance=lay["instance"], split=split, cluster=lay["cluster"],
+                    shared_bytes=lay["shared_bytes"], rows_padded=lay["rows_padded"],
+                    ring_rows=lay["ring_rows"],
+                    blocks=Mx * split, at_once=built["at_once"], blocks_per_sm=per_sm,
+                    occupied_sms=occupied, registers=regs, spill_bytes=spill,
+                    registers_runtime=built["registers"], local_bytes=built["local_bytes"])
+
+    # K2-mm and K3-mm at 64 ciphertexts and at a full chunk of 512 (the
+    # round_kernel paths launch 512 and 32), round 0's slice; the bound also
+    # priced on the SMs the grid occupies
+    for name, full in (("external_product_mm", False), ("cmux_round_mm", True)):
+        for Mx in (M, pbs_chunk):
+            accx, tx = ri(-2**31, 2**31, (Mx, 2, N)), ri(0, 2 * N, (Mx,))
+            digx = ri(-P.half_bg, P.half_bg, (Mx, rows, N))
+            if full:
+                def call(a=accx, t_=tx):
+                    return K.cmux_round_mm(a, t_, mbk0, P, plan)
+
+                def twin(a=accx, t_=tx):
+                    return K.cmux_round_mm_plain(a, t_, mbk0, P, plan)
+                bytes_ = 2 * accx.numel() * 4 + Mx * 4 + mbk0.numel() * 2
+                ops, replaces = Mx * cmux_ops(rows, N), "redsec_tpu/crypto/pallas_round.py:254"
+            else:
+                def call(d=digx):
+                    return K.external_product_mm(d, mbk0, plan)
+
+                def twin(d=digx):
+                    return K.external_product_mm_plain(d, mbk0, plan)
+                bytes_ = digx.numel() * 4 + mbk0.numel() * 2 + Mx * 2 * N * 4
+                ops, replaces = Mx * ext_product_ops(rows, N), "redsec_tpu/crypto/pallas_round.py:98"
+            err = same(f"{name} [{Mx}]", call(), twin())
+            ms = cuda_ms(call, 20)
+            pms = cuda_ms(twin, 3)
+            # a round of tens of us: events time the host's path beside it, so
+            # the device time is read from the profiler too
+            # (the name covers both designs: <N> and the pair kernel <N>)
+            devx, _, _, rex = device_ms(call, name, required=False)
+            fields = round_mm_fields(Mx, full)
+            b_ms = bound(bytes_, ops)[0]
+            at_shape = b_ms * sms / fields["occupied_sms"]
+            key = name if Mx == M else f"{name}_{Mx}"
+            if Mx == M:
+                launch_us[name] = host_us(call)
+            report(key, [Mx, 2 if full else rows, N], err, ms, pms, bytes_, ops, replaces,
+                   "blind_mm.cu", counter=name,
+                   bound_four_step_ms=four_step_bound_ms(Mx, rows, N, full),
+                   bound_ms_occupied_sms=at_shape, device_ms=devx, profiler_retries=rex,
+                   host_us=launch_us[name] if Mx == M else None, **fields)
+            print(f"kernel {name} [{Mx}]: split {fields['split']} ({fields['instance']}, "
+                  f"cluster {fields['cluster']}, {fields['shared_bytes']} B, "
+                  f"{fields['registers']} registers, {fields['spill_bytes']} B spilled, "
+                  f"{fields['at_once']} at once), {fields['blocks']} blocks on "
+                  f"{fields['occupied_sms']} SMs: device {ms_text(devx)}, bound {b_ms:.6f} ms "
+                  f"on the whole card, {at_shape:.6f} ms on the SMs the grid occupies "
+                  + (f"({at_shape / devx:.1%})" if devx else ""), flush=True)
     del mbk0
     _, cloud3 = kg.keygen(P3, seed=0)  # plain small_v2_tpu2 (10 digit rows)
     mm_ms = {}
@@ -2828,8 +2952,8 @@ def main() -> int:
     vdir = os.path.join(work2, PV.name)
     kept, sb_door = {}, []
 
-    def keeping(dkey_, chunk=512, _real=renc.make_chunked_bootstrap):
-        run = _real(dkey_, chunk=chunk)
+    def keeping(dkey_, chunk=512, round_kernel=None, _real=renc.make_chunked_bootstrap):
+        run = _real(dkey_, chunk=chunk, round_kernel=round_kernel)
 
         def kept_run(ct_, tv_):
             out_ = run(ct_, tv_)
@@ -3028,9 +3152,8 @@ def main() -> int:
                                  if c.get(counter) and (params is None or pn in sets)}
         r["launches"] = sum(r["launches_by_path"].values())
     never = [name for name, r in rec.items() if r["launches"] == 0 and name not in (
-        "external_product", "cmux_round", "external_product_mm", "cmux_round_mm",
-        "schoolbook_product")]
-    if never:  # the round kernels are the body of blind_rotate(_mm) on every path, and
+        "external_product", "cmux_round", "schoolbook_product")]
+    if never:  # the radix-2 round kernels are the body of blind_rotate on every path, and
         # the schoolbook round kernel took S1's place on the schoolbook paths
         fail(f"kernels never launched on any driven path: {never}")
 

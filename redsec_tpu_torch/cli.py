@@ -217,10 +217,11 @@ def cmd_run_encrypted(args):
     ct, params, label, _, _ = kio.load_ciphertexts(args.image)
     d = plan.in_dim
     ct = ct.reshape(-1, d.h, d.w, d.in_dep, ct.shape[-1])
-    fwd = build_encrypted_forward(plan, dkey, **opts)
+    fwd = build_encrypted_forward(plan, dkey, round_kernel=args.round_kernel, **opts)
     x = torch.as_tensor(ct, device=dev)
     k4_before, s1_before = launches.get("blind_rotate"), launches.get("schoolbook_product")
     mm_before, r_before = launches.get("blind_rotate_mm"), launches.get("schoolbook_round")
+    k3mm_before, k2mm_before = launches.get("cmux_round_mm"), launches.get("external_product_mm")
     t0 = time.time()
     scores = fwd(x).cpu().numpy()
     dt = time.time() - t0
@@ -228,6 +229,8 @@ def cmd_run_encrypted(args):
               "pbs": fwd.pbs_per_image * int(ct.shape[0]),
               "k4_launches": launches.get("blind_rotate") - k4_before,
               "k4mm_launches": launches.get("blind_rotate_mm") - mm_before,
+              "k3mm_launches": launches.get("cmux_round_mm") - k3mm_before,
+              "k2mm_launches": launches.get("external_product_mm") - k2mm_before,
               "round_launches": launches.get("schoolbook_round") - r_before,
               "s1_launches": launches.get("schoolbook_product") - s1_before, "seconds": dt}
     record["pbs_per_s"] = record["pbs"] / dt
@@ -373,6 +376,11 @@ def main(argv=None):
                    help="NTT-domain order of the prepared keys (the JAX package's REDSEC_NTT): "
                         "radix2 runs the radix-2 blind-rotation kernel, matmul the four-step "
                         "one where it takes the set (else the four-step loop in torch)")
+    p.add_argument("--round-kernel", choices=["full", "partial"],
+                   help="with --ntt-flavor matmul, run each blind rotation one launch a round "
+                        "(the JAX package's REDSEC_ROUND_KERNEL=1 / =partial): full the "
+                        "one-round CMUX kernel, partial rotate and decompose in torch around "
+                        "the external-product kernel; refused outside their envelope")
     device_arg(p)
     p.set_defaults(fn=cmd_run_encrypted)
 

@@ -43,6 +43,15 @@ primes), where the JAX package runs its XLA loop, run that loop in torch
 (``kernels.blind_rotate_mm_plain``: n rounds of rotate, decompose, four-step
 transforms per prime, the exact MAC, inverse, CRT).
 
+The JAX package's per-round Pallas kernels (its ``REDSEC_ROUND_KERNEL=1`` and
+``=partial``) are the argument ``round_kernel`` here: ``"full"`` runs the
+blind rotation as n launches of the one-round CMUX kernel
+(``kernels.cmux_round_mm``), ``"partial"`` as n rounds of rotate and decompose
+in torch, the external-product kernel (``kernels.external_product_mm``) and
+the add.  Both take a "matmul" key inside ``kernels.supported_mm`` (the JAX
+package's envelope for them on the sets the kernels are built for) and raise
+for any other key; the output is the same.
+
 A numpy oracle of the whole pipeline (``bootstrap_host``) is kept for tests.
 """
 
@@ -346,8 +355,35 @@ def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
     return tv.reshape(-1, N).expand(B, N)
 
 
+ROUND_KERNELS = (None, "full", "partial")
+
+
+def _check_round_kernel(round_kernel: Optional[str], p: TfheParams,
+                        plan: Optional[ntt_mod.NttPlan], ntt_flavor: str,
+                        bundle: Optional[int] = None) -> None:
+    """``round_kernel`` (None, "full" or "partial") must be None or lie inside
+    the envelope of the one-round kernels: a "matmul" key's flavour, a plan
+    ``kernels.supported_mm`` takes and, where known, bundle 1.  Raises
+    otherwise: the JAX package's ``REDSEC_ROUND_KERNEL`` falls quietly back
+    to its loop outside it, the argument does not."""
+    if round_kernel not in ROUND_KERNELS:
+        raise ValueError(f"round_kernel must be one of {ROUND_KERNELS}, got {round_kernel!r}")
+    if round_kernel is None:
+        return
+    if ntt_flavor != "matmul" or plan is None:
+        raise ValueError(f"round_kernel={round_kernel!r} runs the four-step one-round kernels, "
+                         f"which take 'matmul' keys only; this key's flavour is "
+                         f"{'schoolbook' if plan is None else ntt_flavor!r}")
+    if not kernels.supported_mm(p, plan, 1 if bundle is None else bundle):
+        raise ValueError(f"round_kernel={round_kernel!r}: {p.name} (N={p.N}, primes "
+                         f"{plan.primes}, {p.decomp_rows} digit rows, bundle "
+                         f"{1 if bundle is None else bundle}) lies outside the one-round "
+                         "kernels' envelope (kernels.supported_mm: bundle 1, two primes "
+                         f"< 2^15, N in {kernels.MM_KERNEL_N})")
+
+
 def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
-                        ntt_flavor: str = "radix2"):
+                        ntt_flavor: str = "radix2", round_kernel: Optional[str] = None):
     """``impl(dkey, ct [B, n+1], testvect [N]|[B, N]) -> [B, n+1]``.  With an
     NTT plan the blind rotation is ``kernels.blind_rotate`` (the CUDA kernel
     on a CUDA tensor, its plain twin on a CPU tensor), plain or bundled as the
@@ -358,9 +394,28 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
     rounds on the key's spectra in one call of ``kernels.schoolbook_rounds``
     (on CUDA one C loop of n launches of the round kernel; on the CPU n calls
     of ``kernels.schoolbook_round``).  The impl checks every key it is given
-    against ``ntt_flavor``."""
+    against ``ntt_flavor``.  ``round_kernel`` ("full" or "partial"; see the
+    module's docstring and ``_check_round_kernel``) runs a "matmul" key's n
+    rounds one launch a round, on a CPU tensor through the kernels' twins;
+    the set's envelope is checked here once, the key's bundling by the
+    builders that know the key (``make_batched_bootstrap``,
+    ``make_chunked_bootstrap``)."""
     N, n = p.N, p.n
     ops = RoundOps(p)
+    _check_round_kernel(round_kernel, p, plan, ntt_flavor)
+
+    def blind_rotate_rounds(acc: torch.Tensor, abar: torch.Tensor,
+                            dkey: DeviceCloudKey) -> torch.Tensor:
+        # round i reads the key's slice bk[:, i] in place (each prime's
+        # [rows, 8, R, C] contiguous) and the exponents abar[:, i]
+        ts = abar.t().contiguous()
+        for i in range(n):
+            if round_kernel == "full":
+                acc = kernels.cmux_round_mm(acc, ts[i], dkey.bk[:, i], p, plan)
+            else:
+                digits = ops.decompose(ops.rotate(acc, ts[i]) - acc)
+                acc = acc + kernels.external_product_mm(digits, dkey.bk[:, i], plan)
+        return acc
 
     def blind_rotate_schoolbook(acc: torch.Tensor, abar: torch.Tensor,
                                 dkey: DeviceCloudKey) -> torch.Tensor:
@@ -378,6 +433,8 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
         acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1).contiguous()
         if plan is None:
             acc = blind_rotate_schoolbook(acc, abar, dkey)
+        elif round_kernel is not None:
+            acc = blind_rotate_rounds(acc, abar, dkey)
         elif ntt_flavor == "matmul":
             # the shape rule: the four-step kernel takes what the JAX package's
             # Pallas kernel takes (two primes < 2^15, N = 256 or 1024, bundle
@@ -425,11 +482,13 @@ def _check_key(dkey: DeviceCloudKey, need: Optional[str] = None) -> None:
                          "medium/large parameter sets runs unbundled)")
 
 
-def make_batched_bootstrap(dkey: DeviceCloudKey):
+def make_batched_bootstrap(dkey: DeviceCloudKey, round_kernel: Optional[str] = None):
     """Batched PBS bound to a device key: ``(ct [B, n+1], testvect [N]|[B, N])
-    -> [B, n+1]`` int32 on the key's device."""
+    -> [B, n+1]`` int32 on the key's device.  ``round_kernel``: see
+    ``make_bootstrap_impl``; raises here for a key outside its envelope."""
     _check_key(dkey)
-    impl = make_bootstrap_impl(dkey.params, dkey.plan, dkey.ntt_flavor)
+    _check_round_kernel(round_kernel, dkey.params, dkey.plan, dkey.ntt_flavor, dkey.bundle)
+    impl = make_bootstrap_impl(dkey.params, dkey.plan, dkey.ntt_flavor, round_kernel)
 
     def bootstrap(ct, testvect):
         ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
@@ -438,12 +497,15 @@ def make_batched_bootstrap(dkey: DeviceCloudKey):
     return bootstrap
 
 
-def make_chunked_bootstrap(dkey: DeviceCloudKey, chunk: int = 512):
+def make_chunked_bootstrap(dkey: DeviceCloudKey, chunk: int = 512,
+                           round_kernel: Optional[str] = None):
     """Batched PBS that runs batches larger than ``chunk`` as consecutive
     ``chunk``-sized slices (bounds the working set of the plain path and of
-    the leveled glue around the kernel)."""
+    the leveled glue around the kernel); ``round_kernel`` as for
+    ``make_batched_bootstrap``."""
     _check_key(dkey)
-    impl = make_bootstrap_impl(dkey.params, dkey.plan, dkey.ntt_flavor)
+    _check_round_kernel(round_kernel, dkey.params, dkey.plan, dkey.ntt_flavor, dkey.bundle)
+    impl = make_bootstrap_impl(dkey.params, dkey.plan, dkey.ntt_flavor, round_kernel)
     N = dkey.params.N
 
     def run(ct, testvect):

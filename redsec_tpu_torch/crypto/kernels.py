@@ -61,7 +61,11 @@ Three more, in ``csrc/blind_mm.cu`` (a library of its own), take four-step
 with the twins ``*_mm_plain`` (the radix-2 twins with the four-step
 ``ntt_matmul`` pair), the envelope ``supported_mm`` (the JAX package's
 ``pallas_blind.supported``, unbundled) and the layout mirror
-``k4mm_layout``; a radix-2 key raises in them by its shape.
+``k4mm_layout``; a radix-2 key raises in them by its shape.  The two
+one-round kernels launch a ciphertext's round on one block or on a cluster
+pair, one prime a block (``round_mm_split``, from the batch and the card's occupancy; the layout
+mirror ``round_mm_layout``), and are the per-round path of
+``bootstrap.make_bootstrap_impl(round_kernel=...)``.
 
 A further kernel, ``schoolbook_product`` (S1, ``csrc/schoolbook.cu``), is the
 external product of the parameter sets without NTT primes (N >= 4096), and
@@ -1205,8 +1209,8 @@ def schoolbook_rounds(acc: torch.Tensor, ts: torch.Tensor, spectra: torch.Tensor
 MM_SOURCE = os.path.join(_PKG, "csrc", "blind_mm.cu")
 MM_KERNEL_N = (256, 1024)  # N = R * 128 the four-step kernels are instantiated for
 MATMUL = (ntt_matmul.ntt_device_mm, ntt_matmul.intt_device_mm)  # the twins' transform pair
-_MM_ENTRIES = ("redsec_mm_layout", "redsec_external_product_mm", "redsec_cmux_round_mm",
-               "redsec_blind_rotate_mm")
+_MM_ENTRIES = ("redsec_mm_layout", "redsec_round_mm_layout", "redsec_external_product_mm",
+               "redsec_cmux_round_mm", "redsec_blind_rotate_mm")
 _mm_loaded: list[Library] = []
 
 
@@ -1325,6 +1329,141 @@ def mm_layout(params: TfheParams) -> dict:
             "ring_rows": out[4], "ring_aliased": bool(out[5])}
 
 
+# The round kernels K2-mm and K3-mm (csrc/blind_mm.cu): a ciphertext's round
+# on ``split`` blocks, 1 (one a block, as K4-mm's round) or 2 (a prime a
+# block, a cluster pair: split_round); the rule that picks one at M
+# ciphertexts (``round_mm_split``) prices a pair's block at
+# ``ROUND_MM_PAIR_COST`` of a one-a-block block's time.
+ROUND_MM_SPLITS = (1, 2)
+ROUND_MM_PAIR_COST = 0.55
+MM_SPLIT_RING_MAX = 4
+
+
+def _pair_rows(N: int, rows: int) -> int:
+    """Mr of a pair block: its rows digit rows times R or its 8R inverse
+    rows, whichever is more, rounded up to a whole m16 tile."""
+    R = N // ntt_matmul.MM_C
+    return -(-max(rows * R, 8 * R) // 16) * 16
+
+
+def _pair_base_bytes(N: int, rows: int) -> int:
+    """A pair block without its ring: WC's limbs of one prime (uint8
+    [2][128][144]), accumulators and differences (uint32 [2][2][N]), U
+    [2][Mr][144], Z [Mr][136], and the residues of the 8 outputs at its half
+    of the coefficients with the CRT partner's of that half (uint16
+    [8][N / 2] each)."""
+    mr = _pair_rows(N, rows)
+    return 2 * 128 * MM_WS + 16 * N + 2 * mr * MM_WS + 2 * mr * MM_ZS + 16 * N
+
+
+def round_mm_ring(N: int, rows: int) -> int:
+    """Key rows in a pair block's ring (of its own): as many as fit, at most
+    ``MM_SPLIT_RING_MAX`` and its rows; 0 if none fits."""
+    depth = min(MM_SPLIT_RING_MAX, rows)
+    while depth >= 1 and _pair_base_bytes(N, rows) + depth * 16 * N > K4_MAX_SHARED:
+        depth -= 1
+    return depth
+
+
+@functools.lru_cache(maxsize=None)
+def round_mm_fits(N: int, rows: int, split: int) -> bool:
+    """Whether the round kernels run ``rows`` digit rows at ``split``."""
+    if split == 1:
+        return 0 < rows and k4mm_shared_bytes(N, rows) <= K4_MAX_SHARED
+    return split == 2 and 0 < rows and round_mm_ring(N, rows) >= 1
+
+
+def round_mm_shared_bytes(N: int, rows: int, split: int) -> int:
+    """Dynamic shared bytes of a round kernel's block at ``split``."""
+    if split == 1:
+        return k4mm_shared_bytes(N, rows)
+    return _pair_base_bytes(N, rows) + round_mm_ring(N, rows) * 16 * N
+
+
+def round_mm_split(M: int, at_once: dict) -> int:
+    """The split the round kernels launch M ciphertexts with, given the
+    ciphertexts the card runs at once at each split (``at_once``; the
+    library's occupancy answer): the least waves ``ceil(M / at_once[s])``
+    times a block's cost (1, ``ROUND_MM_PAIR_COST`` for the pair), ties to
+    one block a ciphertext."""
+    cost = {s: -(-M // n) * (1.0 if s == 1 else ROUND_MM_PAIR_COST)
+            for s, n in at_once.items() if n > 0}
+    return min(cost, key=lambda s: (cost[s], s))
+
+
+def round_mm_layout(params: TfheParams, split: int, plan: ntt_mod.NttPlan | None = None,
+                    kernel: str = "cmux_round_mm") -> dict:
+    """How K2-mm (``kernel="external_product_mm"``) and K3-mm lay out a
+    block at ``split`` blocks a ciphertext: ``cluster`` blocks launched
+    together (1 at split 1), ``threads``, ``shared_bytes``, ``rows_padded``
+    (Mr), ``ring_rows`` and the ``instance`` as the compiler's report names
+    it (its template arguments closed).  Raises for what ``supported_mm``
+    refuses or the split does not take."""
+    plan = plan or bs.bootstrap_plan(params)
+    N, rows = params.N, params.decomp_rows
+    if plan is None or not supported_mm(params, plan) or not round_mm_fits(N, rows, split):
+        raise ValueError(f"{params.name}: no {kernel} instance at split {split}")
+    if split == 1:
+        return {"split": 1, "cluster": 1, "threads": N // 2,
+                "shared_bytes": k4mm_shared_bytes(N, rows), "rows_padded": _mm_rows(N, rows),
+                "ring_rows": k4mm_ring(N, rows)[0], "instance": f"{kernel}_kernelILi{N}EE"}
+    return {"split": 2, "cluster": 2, "threads": N // 2,
+            "shared_bytes": round_mm_shared_bytes(N, rows, 2),
+            "rows_padded": _pair_rows(N, rows), "ring_rows": round_mm_ring(N, rows),
+            "instance": f"{kernel}_pair_kernelILi{N}EE"}
+
+
+def round_mm_built(N: int, rows: int, split: int, full: bool = True) -> dict:
+    """The built library's own answer for ``round_mm_layout`` (its C entry
+    ``redsec_round_mm_layout``) on the current CUDA device, with what only
+    the card tells: ``at_once`` (ciphertexts it runs at once: blocks, or
+    cluster pairs, from the occupancy calculator), ``registers`` and
+    ``local_bytes`` (spills) a thread of the instance."""
+    out = (ctypes.c_int * 7)()
+    code = _mm_lib().fn["redsec_round_mm_layout"](N, rows, split, int(full), ctypes.addressof(out))
+    if code:
+        raise ValueError(f"no round kernel at N={N}, {rows} rows, split {split}: "
+                         f"{_mm_lib().lib.redsec_error_string(code)} ({code})")
+    return {"shared_bytes": out[0], "rows_padded": out[1], "threads": out[2], "ring_rows": out[3],
+            "at_once": out[4], "registers": out[5], "local_bytes": out[6]}
+
+
+@functools.lru_cache(maxsize=None)
+def _round_mm_at_once(dev: int, N: int, rows: int, full: bool) -> dict:
+    with torch.cuda.device(dev):
+        return {s: round_mm_built(N, rows, s, full)["at_once"] for s in ROUND_MM_SPLITS
+                if round_mm_fits(N, rows, s)}
+
+
+@functools.lru_cache(maxsize=None)
+def round_mm_split_on(dev: int, N: int, rows: int, M: int, full: bool = True) -> int:
+    """``round_mm_split`` of M ciphertexts on CUDA device ``dev``."""
+    return round_mm_split(M, _round_mm_at_once(dev, N, rows, full))
+
+
+def _require_round_slice(bk_round: torch.Tensor, dev: int, shape: tuple) -> int:
+    """A round slice int16 ``shape`` = [2, rows, 8, R, C] on device ``dev``
+    whose two primes are each contiguous (a whole key's ``bk[:, j]`` is
+    one); returns the prime stride in elements."""
+    _, limbs, R, C = shape[1:]
+    inner = (limbs * R * C, R * C, C, 1)
+    if not (bk_round.dtype is torch.int16 and bk_round.shape == shape
+            and bk_round.get_device() == dev and bk_round.stride()[1:] == inner):
+        _require(bk_round, "bk_round", torch.int16, shape, torch.device("cuda", dev))
+        raise ValueError("bk_round: each prime's [rows, 8, R, C] must be contiguous")
+    return bk_round.stride(0)
+
+
+def _split_for(split: int | None, dev: int, N: int, rows: int, M: int, full: bool) -> int:
+    """``split`` as given (checked) or, for None, ``round_mm_split_on``'s."""
+    if split is None:
+        return round_mm_split_on(dev, N, rows, M, full)
+    if not round_mm_fits(N, rows, split):
+        raise ValueError(f"split {split} at N={N}, {rows} digit rows: not a round kernel "
+                         f"instance (splits {ROUND_MM_SPLITS})")
+    return split
+
+
 def _require_mm_key(bk: torch.Tensor, ndim: int, N: int) -> None:
     """A four-step key (tensor) is [..., R, C] with N = R * C; a radix-2 one
     ([..., N]) is refused by its shape."""
@@ -1373,7 +1512,17 @@ def _require_mm_shape(plan: ntt_mod.NttPlan, N: int, rows: int, what: str,
 
 def external_product_mm(digits: torch.Tensor, bk_round: torch.Tensor,
                         plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """K2-mm: see ``external_product_mm_plain``."""
+    """K2-mm: see ``external_product_mm_plain``.  ``bk_round`` may be a view
+    ``bk[:, j]`` of a whole key (each prime contiguous).  One block or a
+    cluster pair a ciphertext, as ``round_mm_split_on`` picks."""
+    return _external_product_mm(digits, bk_round, plan)
+
+
+def _external_product_mm(digits: torch.Tensor, bk_round: torch.Tensor, plan: ntt_mod.NttPlan,
+                         split: int | None = None) -> torch.Tensor:
+    """``external_product_mm`` at ``split`` blocks a ciphertext
+    (``ROUND_MM_SPLITS``; None: ``round_mm_split_on``'s), for the tests and
+    tools that hold or time each design."""
     _require_mm_key(bk_round, 5, digits.shape[-1])
     if digits.is_cpu:
         return external_product_mm_plain(digits, bk_round, plan)
@@ -1381,22 +1530,30 @@ def external_product_mm(digits: torch.Tensor, bk_round: torch.Tensor,
     _require_mm_shape(plan, N, rows, "external_product_mm_kernel")
     dev = digits.get_device()
     R, C = ntt_matmul._split_rc(N)
-    _require_all(dev, (digits, "digits", torch.int32, (M, rows, N)),
-                 (bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C)))
+    _require_all(dev, (digits, "digits", torch.int32, (M, rows, N)))
+    stride = _require_round_slice(bk_round, dev, (2, rows, 2 * bs.BK_LIMBS, R, C))
     if digits.data_ptr() % 16:
         raise ValueError("digits must start on a 16-byte boundary")
+    split = _split_for(split, dev, N, rows, M, False)
     tabs = ntt_matmul.kernel_tables_mm(plan, digits.device)
     delta = digits.new_empty((M, 2, N))  # int32, as the digits (checked)
     _mm_lib().launch("redsec_external_product_mm", "external_product_mm", dev, digits.data_ptr(),
-                     bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs["tw"].data_ptr(),
-                     tabs["wc"].data_ptr(), delta.data_ptr(), M, N, rows, plan.primes[0],
-                     plan.primes[1])
+                     bk_round.data_ptr(), stride, tabs["tw"].data_ptr(), tabs["wc"].data_ptr(),
+                     delta.data_ptr(), M, N, rows, plan.primes[0], plan.primes[1], split)
     return delta
 
 
 def cmux_round_mm(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
                   params: TfheParams, plan: ntt_mod.NttPlan) -> torch.Tensor:
-    """K3-mm: see ``cmux_round_mm_plain``."""
+    """K3-mm: see ``cmux_round_mm_plain``; ``bk_round`` and the design as for
+    ``external_product_mm``."""
+    return _cmux_round_mm(acc, t, bk_round, params, plan)
+
+
+def _cmux_round_mm(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
+                   params: TfheParams, plan: ntt_mod.NttPlan,
+                   split: int | None = None) -> torch.Tensor:
+    """``cmux_round_mm`` at ``split``, as ``_external_product_mm``."""
     _require_mm_key(bk_round, 5, params.N)
     if acc.is_cpu:
         return cmux_round_mm_plain(acc, t, bk_round, params, plan)
@@ -1404,14 +1561,15 @@ def cmux_round_mm(acc: torch.Tensor, t: torch.Tensor, bk_round: torch.Tensor,
     _require_mm_shape(plan, N, rows, "cmux_round_mm_kernel", params)
     dev = acc.get_device()
     R, C = ntt_matmul._split_rc(N)
-    _require_all(dev, (acc, "acc", torch.int32, (M, 2, N)), (t, "t", torch.int32, (M,)),
-                 (bk_round, "bk_round", torch.int16, (2, rows, 2 * bs.BK_LIMBS, R, C)))
+    _require_all(dev, (acc, "acc", torch.int32, (M, 2, N)), (t, "t", torch.int32, (M,)))
+    stride = _require_round_slice(bk_round, dev, (2, rows, 2 * bs.BK_LIMBS, R, C))
+    split = _split_for(split, dev, N, rows, M, True)
     tabs = ntt_matmul.kernel_tables_mm(plan, acc.device)
     out = torch.empty_like(acc)
     _mm_lib().launch("redsec_cmux_round_mm", "cmux_round_mm", dev, acc.data_ptr(), t.data_ptr(),
-                     bk_round.data_ptr(), rows * 2 * bs.BK_LIMBS * N, tabs["tw"].data_ptr(),
-                     tabs["wc"].data_ptr(), out.data_ptr(), M, N, *_gadget_args(params),
-                     plan.primes[0], plan.primes[1])
+                     bk_round.data_ptr(), stride, tabs["tw"].data_ptr(), tabs["wc"].data_ptr(),
+                     out.data_ptr(), M, N, *_gadget_args(params), plan.primes[0],
+                     plan.primes[1], split)
     return out
 
 

@@ -11,6 +11,13 @@
 //   cmux_round_mm_kernel        <- redsec_tpu/crypto/pallas_round.py::make_full_round_kernel
 //   blind_rotate_mm_kernel      <- redsec_tpu/crypto/pallas_blind.py::make_blind_rotate_kernel
 //
+// The two one-round kernels come in two designs, chosen by the wrapper from
+// the batch and the card's occupancy (kernels.round_mm_split): <N>, one
+// ciphertext a block as in K4-mm, for batches that fill the card; and the
+// pair kernels (split_round), a ciphertext's round on a cluster of two
+// blocks, one a prime, for batches that would leave SMs idle: a round alone
+// on one SM is latency, not throughput.
+//
 // This is a library of its own (csrc/pbs.cu keeps the radix-2 kernels, their
 // layout and registers).  Instances: the JAX kernels' own envelope
 // (pallas_blind.supported, bundle 1): two primes below 2^15, N = R * 128 with
@@ -88,6 +95,11 @@
 //   plain small_v2_tpu2 (10 rows, 3 rows): 216,832 B
 //   small_v2 (20 rows, 2 rows on U): 73,728 + 16,384 + 46,080 + 43,520 +
 //     32,768 = 212,480 B
+// A pair block (split_smem_bytes): WC of one prime 36,864 B, accumulators
+// and differences, U and Z at Mr = rows x R (at least 8R), residues
+// (split_res_bytes) and a ring of its own of up to 4 rows:
+//   small_v2_tpu: 36,864 + 16,384 + 27,648 + 26,112 + 16,384 + 65,536
+//     = 188,928 B; small_v2: 224,768 B
 //
 // Bound on this card: per round and ciphertext at small_v2_tpu the C-steps
 // are (96 + 64) rows x 2 primes x 128 x 128 x 4 limb products = 21.0e6 int8
@@ -99,12 +111,15 @@
 // Each extern "C" entry returns cudaGetLastError() after its launch; the
 // Python wrapper raises if it is not 0.
 
+#include <cooperative_groups.h>
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
 #include "launch_once.cuh"
 #include "py_entries.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -236,6 +251,35 @@ __host__ __device__ constexpr size_t mm_smem_bytes(int N, int rows) {
          (mm_ring_aliased(N, rows) ? 0 : mm_ring_rows(N, rows) * mm_row_bytes(N));
 }
 
+// The pair round kernels' block (K2-mm and K3-mm, split_round below; the
+// wrapper's mirror is kernels.round_mm_layout): one prime, WC's limbs of
+// that prime alone, and a ring of its own of up to kSplitRingMax rows (at
+// least one).
+constexpr int kSplitRingMax = 4;
+// Rows of the C-steps' operands and results: the rows digit rows times R,
+// or the 8R inverse rows, whichever is more, rounded up to a whole m16 tile.
+__host__ __device__ constexpr int split_mrows(int R, int rows) {
+  return ((rows * R > 8 * R ? rows * R : 8 * R) + 15) / 16 * 16;
+}
+// The residues' region: the block's own half of its outputs' coefficients
+// and the CRT partner's residues of that half, [8][N / 2] u16 each.
+__host__ __device__ constexpr size_t split_res_bytes(int N) { return size_t(16) * N; }
+__host__ __device__ constexpr size_t split_base_bytes(int N, int rows) {
+  return size_t(2) * kC * kWS + size_t(4) * 2 * 2 * N +
+         size_t(2) * split_mrows(N / kC, rows) * kWS +
+         size_t(2) * split_mrows(N / kC, rows) * kZS + split_res_bytes(N);
+}
+__host__ __device__ constexpr int split_ring_rows(int N, int rows) {
+  int d = rows < kSplitRingMax ? rows : kSplitRingMax;
+  while (d >= 1 && split_base_bytes(N, rows) + d * mm_row_bytes(N) > kMaxSmem) --d;
+  return d;
+}
+__host__ __device__ constexpr size_t split_smem_bytes(int N, int rows) {
+  return split_base_bytes(N, rows) + split_ring_rows(N, rows) * mm_row_bytes(N);
+}
+// The tag of SmemMM's pair-block layout.
+struct PairBlock {};
+
 template <int N>
 struct SmemMM {
   uint8_t* wc;      // [prime][limb][128][kWS]: WC's lo and hi bytes
@@ -259,6 +303,22 @@ struct SmemMM {
     r1 = z + static_cast<size_t>(mm_mrows(R, rows)) * kZS;
     r2 = r1 + 8 * N;
     ring = reinterpret_cast<uint32_t*>(aliased ? ulo : reinterpret_cast<uint8_t*>(r2 + 8 * N));
+  }
+  // A block of the pair round kernels (split_smem_bytes): WC of its prime
+  // only; r1 its own residues of the 8 outputs at the coefficients of its
+  // half [8][N / 2]; r2 the inbox of its CRT partner's residues of that half
+  // [8][N / 2]; the ring after r2.
+  __device__ SmemMM(unsigned char* base, int rows, PairBlock) {
+    const int mr = split_mrows(GeoMM<N>::R, rows);
+    wc = base;
+    acc = reinterpret_cast<uint32_t*>(base + size_t(2) * kC * kWS);
+    diff = acc + 2 * N;
+    ulo = reinterpret_cast<uint8_t*>(diff + 2 * N);
+    uhi = ulo + static_cast<size_t>(mr) * kWS;
+    z = reinterpret_cast<uint16_t*>(uhi + static_cast<size_t>(mr) * kWS);
+    r1 = z + static_cast<size_t>(mr) * kZS;
+    r2 = r1 + 8 * N / 2;
+    ring = reinterpret_cast<uint32_t*>(r2 + 8 * N / 2);
   }
 };
 
@@ -513,6 +573,13 @@ struct KeyStream {
       : bk(bk_), round_stride(round_stride_), prime_stride(prime_stride_), rows(rows_),
         total(2 * rows_ * rounds), depth(mm_ring_rows(N, rows_)),
         aliased(mm_ring_aliased(N, rows_)), ring(shared_address(sm.ring)),
+        off(4u * (((threadIdx.x & 31) >> 3) * (N / 2) + (threadIdx.x >> 5) * 32 +
+                  4 * (threadIdx.x & 7))) {}
+  // `rows_` rows from bk_ on (one prime's, of a pair round kernel's block)
+  // through a ring of its own of `depth_` rows.
+  __device__ KeyStream(const SmemMM<N>& sm, const int16_t* bk_, int rows_, int depth_)
+      : bk(bk_), round_stride(0), prime_stride(0), rows(rows_), total(rows_), depth(depth_),
+        aliased(false), ring(shared_address(sm.ring)),
         off(4u * (((threadIdx.x & 31) >> 3) * (N / 2) + (threadIdx.x >> 5) * 32 +
                   4 * (threadIdx.x & 7))) {}
 
@@ -789,6 +856,257 @@ __global__ void __launch_bounds__(GeoMM<N>::T, 1) cmux_round_mm_kernel(
   }
 }
 
+// ------------------------------------------- K2-mm and K3-mm over a cluster
+//
+// One round of one ciphertext is the work of a cluster of two blocks, block
+// rank = pi, one a prime: block pi stages only its prime's WC limbs
+// (36,864 B), streams only its prime's key rows, and runs that prime's
+// forward transforms, MAC and 8 inverse transforms; the two primes are
+// independent until the CRT.  The CRT needs both primes' residues: each
+// block stores the residues of the other half of the coefficients into its
+// partner's inbox by distributed shared memory, the cluster meets, and each
+// block writes the outputs of its half (half pi) from its own shared memory.
+// Both blocks form the digits of X^t acc - acc (cheap).  The arithmetic is
+// the parent design's: the same lazy Shoup reductions, int8 mma.sync C-steps
+// and CRT, so the outputs are bit-identical to external_product_mm_kernel<N>
+// / cmux_round_mm_kernel<N> above (one ciphertext a block, all of the round
+// on one SM), which the wrappers keep for batches that fill the card.
+//
+// kFull: K3-mm (acc in, acc + delta out); else K2-mm (digits in, delta out).
+
+// The two halves of cluster.sync(), and an arrival that orders nothing (the
+// launch's: every block of the cluster has started before a partner's
+// shared memory is written).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// Issue WC's limbs of one prime (uint8 [2][128][128]) into the padded rows
+// of shared memory, 16 bytes a cp.async, as one commit group (the caller
+// waits for it before the first C-step).
+template <int N>
+__device__ __forceinline__ void stage_wc_async(uint8_t* dst, const uint8_t* __restrict__ wc) {
+  const uint32_t to = shared_address(dst);
+  constexpr int pieces = 2 * kC * (kC / 16);
+  for (int i = threadIdx.x; i < pieces; i += GeoMM<N>::T)
+    cp_async16(to + (i / (kC / 16)) * kWS + 16 * (i % (kC / 16)), wc + 16 * i);
+  cp_async_commit();
+}
+
+// cp.async.wait_group d for d = 1 .. 4: all but the d latest groups landed.
+__device__ __forceinline__ void cp_async_wait_upto(int d) {
+  switch (d) {
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
+}
+
+// inverse_post of a pair block's 8 outputs, each result stored where the
+// CRT reads it: the coefficients of the block's half `pi` into `mine`
+// [8][N/2], those of the other half into the CRT partner's inbox `theirs`
+// [8][N/2] (distributed shared memory stores).  No barrier.
+template <int N>
+__device__ __forceinline__ void inverse_post_split(const uint2* tab, const SmemMM<N>& sm,
+                                                   uint16_t* mine, uint16_t* theirs, int pi,
+                                                   Mod md) {
+  using Ge = GeoMM<N>;
+  using Tb = TabMM<N>;
+  constexpr int R = Ge::R;
+  const uint32_t p = md.p;
+#pragma unroll 1
+  for (int item = threadIdx.x; item < 8 * kC; item += Ge::T) {
+    const int o = item / kC, j2 = item % kC;
+    uint32_t a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int k1 = brv(i, Ge::LOG_R);
+      a[i] = shoup(sm.z[(o * R + k1) * kZS + j2], __ldg(tab + Tb::TWI + k1 * kC + j2), p);
+    }
+    uint32_t bound = 2 * p;
+#pragma unroll
+    for (int m = R, t = 1; m > 1; m /= 2, t *= 2) {
+      const int h = m / 2;
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const uint2 s = __ldg(tab + Tb::PSI + h + i);
+#pragma unroll
+        for (int jj = 2 * i * t; jj < 2 * i * t + t; ++jj) {
+          const uint32_t u = a[jj], v = a[jj + t];
+          a[jj] = u + v;
+          a[jj + t] = shoup(u - v + bound, s, p);
+        }
+      }
+      bound *= 2;
+    }
+    // coefficient j1 C + j2 lies in half j1 / (R / 2)
+#pragma unroll
+    for (int j1 = 0; j1 < R; ++j1) {
+      uint16_t* d = (j1 < R / 2) == (pi == 0) ? mine : theirs;
+      d[o * (N / 2) + (j1 % (R / 2)) * kC + j2] = static_cast<uint16_t>(reduce(a[j1], md));
+    }
+  }
+}
+
+template <int N, bool kFull>
+__device__ __forceinline__ void split_round(const int32_t* __restrict__ digits,
+                                            const int32_t* __restrict__ acc_in,
+                                            const int32_t* __restrict__ t,
+                                            const int16_t* __restrict__ bk,
+                                            long long prime_stride,
+                                            const uint2* __restrict__ tabs,
+                                            const uint8_t* __restrict__ wc,
+                                            int32_t* __restrict__ out, int rows, Gadget g,
+                                            const ConstsMM& cs) {
+  using Ge = GeoMM<N>;
+  using Tb = TabMM<N>;
+  constexpr int R = Ge::R, E = Ge::E;
+  extern __shared__ uint4 smem_raw[];
+  const SmemMM<N> sm(reinterpret_cast<unsigned char*>(smem_raw), rows, PairBlock{});
+  const int pi = static_cast<int>(blockIdx.x & 1);
+  const long long m = blockIdx.x / 2;
+  const KeyStream<N> ks(sm, bk + pi * prime_stride, rows, split_ring_rows(N, rows));
+  cluster_arrive_relaxed();  // met before the first store to the partner
+  // WC and the first key rows land while the digits are formed
+  stage_wc_async<N>(sm.wc, wc + pi * 2 * kC * kC);
+  ks.start();
+  if constexpr (kFull)
+    for (int k = threadIdx.x; k < 2 * N; k += Ge::T)
+      sm.acc[k] = static_cast<uint32_t>(acc_in[m * 2 * N + k]);
+  __syncthreads();
+
+  const Mod md = mod_of(cs, pi);
+  const uint32_t p = md.p;
+  const uint2* tab = tabs + pi * Tb::STRIDE;
+  const uint8_t* wlo = sm.wc;
+  const uint8_t* whi = wlo + kC * kWS;
+  const uint2 c8 = c8_of(cs, pi), c16 = c16_of(cs, pi);
+
+  // forward: R-step and twiddle of the rows, then the C-step
+  if constexpr (kFull) {
+    rotate_diff<N>(sm, t[m], g.offset);
+    forward_pre<N>(GadgetDigits4<N>{sm.diff, g}, rows, tab, sm, p);
+  } else {
+    forward_pre<N>(RowDigits4<N>{digits + m * rows * N}, rows, tab, sm, p);
+  }
+  cp_async_wait_upto(ks.depth);  // WC: only the ring's groups may be in flight
+  __syncthreads();
+  mma_mod<N>(sm.ulo, sm.uhi, rows * R, wlo, whi, sm.z, md, c8, c16);
+  __syncthreads();
+
+  // MAC: this thread's coefficients pos, pos + 1 of all 8 outputs over the
+  // rows, the key rows from the ring
+  const int tid = threadIdx.x;
+  const int pos = E * tid, k1 = pos / kC, k2 = pos % kC;
+  uint32_t a[8][E];
+#pragma unroll
+  for (int o = 0; o < 8; ++o)
+#pragma unroll
+    for (int e = 0; e < E; ++e) a[o][e] = 0u;
+  const int lazy = lazy_of(cs, pi);
+  const int16_t* src = ks.bk + ks.depth * 8 * N;  // the row a release refills its slot with
+  StreamPos at;
+  int pending = 0;
+#pragma unroll 2
+  for (int j = 0; j < rows; ++j) {
+    ks.wait();
+    if (pending == lazy) {
+#pragma unroll
+      for (int o = 0; o < 8; ++o)
+#pragma unroll
+        for (int e = 0; e < E; ++e) a[o][e] = reduce_2p(a[o][e], md);
+      pending = 0;
+    }
+    ++pending;
+    const uint32_t dz = *reinterpret_cast<const uint32_t*>(sm.z + (j * R + k1) * kZS + k2);
+    const uint32_t d0 = dz & 0xffffu, d1 = dz >> 16;
+    const uint32_t* w = sm.ring + at.slot * (8 * N / 2) + tid;
+#pragma unroll
+    for (int o = 0; o < 8; ++o) {
+      const uint32_t x = w[o * (N / 2)];
+      a[o][0] += d0 * (x & 0xffffu);
+      a[o][1] += d1 * (x >> 16);
+    }
+    ks.release(at, rows, src);
+    src += 8 * N;
+  }
+
+  // the 8 sums, in [0, p), as the inverse C-step's left operand: row
+  // o * R + k1, column -k2 mod C (U was last read by the forward C-step,
+  // before the barrier above)
+#pragma unroll
+  for (int o = 0; o < 8; ++o)
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const uint32_t v = reduce(a[o][e], md);
+      const int off = (o * R + k1) * kWS + ((kC - k2 - e) & (kC - 1));
+      sm.ulo[off] = static_cast<uint8_t>(v & 255u);
+      sm.uhi[off] = static_cast<uint8_t>(v >> 8);
+    }
+  __syncthreads();
+  mma_mod<N>(sm.ulo, sm.uhi, 8 * R, wlo, whi, sm.z, md, c8, c16);
+  __syncthreads();
+  cluster_wait();  // the launch's arrival, before the first remote store
+  // the residues of the other half go to the CRT partner's inbox
+  inverse_post_split<N>(tab, sm, sm.r1, cg::this_cluster().map_shared_rank(sm.r2, pi ^ 1), pi,
+                        md);
+  cluster_arrive();  // both primes' residues of each half are in place
+  cluster_wait();
+
+  // CRT of both polynomials at the coefficients of half pi, two a thread,
+  // from this block's shared memory alone
+  const uint16_t* r0 = pi == 0 ? sm.r1 : sm.r2;  // prime 0's residues
+  const uint16_t* r1 = pi == 0 ? sm.r2 : sm.r1;
+#pragma unroll 1
+  for (int item = tid; item < 2 * (N / 4); item += Ge::T) {
+    const int u = item / (N / 4), kh = 2 * (item % (N / 4)), k = pi * (N / 2) + kh;
+    uint32_t d0 = 0u, d1 = 0u;
+#pragma unroll
+    for (int limb = 0; limb < 4; ++limb) {
+      const int o = u * 4 + limb;
+      const uint32_t w0 = *reinterpret_cast<const uint32_t*>(r0 + o * (N / 2) + kh);
+      const uint32_t w1 = *reinterpret_cast<const uint32_t*>(r1 + o * (N / 2) + kh);
+      d0 += crt2(w0 & 0xffffu, w1 & 0xffffu, cs) << (8 * limb);
+      d1 += crt2(w0 >> 16, w1 >> 16, cs) << (8 * limb);
+    }
+    if constexpr (kFull) {
+      d0 += sm.acc[u * N + k];
+      d1 += sm.acc[u * N + k + 1];
+    }
+    *reinterpret_cast<int2*>(out + (m * 2 + u) * N + k) =
+        make_int2(static_cast<int>(d0), static_cast<int>(d1));
+  }
+}
+
+// K2-mm on a cluster pair a ciphertext (split_round).
+template <int N>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GeoMM<N>::T, 1)
+    external_product_mm_pair_kernel(const int32_t* __restrict__ digits,
+                                    const int16_t* __restrict__ bk, long long prime_stride,
+                                    const uint2* __restrict__ tabs,
+                                    const uint8_t* __restrict__ wc, int32_t* __restrict__ out,
+                                    int rows, ConstsMM cs) {
+  split_round<N, false>(digits, nullptr, nullptr, bk, prime_stride, tabs, wc, out, rows,
+                        Gadget{}, cs);
+}
+
+// K3-mm on a cluster pair a ciphertext (split_round).
+template <int N>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GeoMM<N>::T, 1)
+    cmux_round_mm_pair_kernel(const int32_t* __restrict__ acc_in, const int32_t* __restrict__ t,
+                              const int16_t* __restrict__ bk, long long prime_stride,
+                              const uint2* __restrict__ tabs, const uint8_t* __restrict__ wc,
+                              int32_t* __restrict__ acc_out, Gadget g, ConstsMM cs) {
+  split_round<N, true>(nullptr, acc_in, t, bk, prime_stride, tabs, wc, acc_out, 2 * g.l, g, cs);
+}
+
 // K4-mm: all n rounds; block b owns ciphertext b; BK int16 [2][n][2l][8][N].
 template <int N>
 __global__ void __launch_bounds__(GeoMM<N>::T, 1) blind_rotate_mm_kernel(
@@ -869,6 +1187,61 @@ bool rows_ok(int N, int rows) { return rows > 0 && mm_smem_bytes(N, rows) <= kMa
 // aligned addresses.
 bool bk_ok(const int16_t* bk) { return reinterpret_cast<uintptr_t>(bk) % 16 == 0; }
 
+// The round kernels at `split` blocks a ciphertext: 1 (one a block) or 2
+// (a prime a block, a cluster pair), with the block fitting.
+bool split_ok(int N, int rows, int split) {
+  if (split == 1) return rows_ok(N, rows);
+  return split == 2 && rows > 0 && split_ring_rows(N, rows) >= 1;
+}
+size_t round_smem_bytes(int N, int rows, int split) {
+  return split == 1 ? mm_smem_bytes(N, rows) : split_smem_bytes(N, rows);
+}
+
+using ExtKernel = void (*)(const int32_t*, const int16_t*, long long, const uint2*,
+                           const uint8_t*, int32_t*, int, ConstsMM);
+using CmuxKernel = void (*)(const int32_t*, const int32_t*, const int16_t*, long long,
+                            const uint2*, const uint8_t*, int32_t*, Gadget, ConstsMM);
+
+// The instance of each round kernel at `split` (checked by split_ok), with
+// its own shared-memory opt-in state.
+template <int N>
+ExtKernel ext_kernel(int split, redsec::PerDevice*& state) {
+  static redsec::PerDevice s1, s2;
+  state = split == 1 ? &s1 : &s2;
+  return split == 1 ? external_product_mm_kernel<N> : external_product_mm_pair_kernel<N>;
+}
+template <int N>
+CmuxKernel cmux_kernel(int split, redsec::PerDevice*& state) {
+  static redsec::PerDevice s1, s2;
+  state = split == 1 ? &s1 : &s2;
+  return split == 1 ? cmux_round_mm_kernel<N> : cmux_round_mm_pair_kernel<N>;
+}
+
+// out[0]: ciphertexts a launch of `kernel` runs at once on the current
+// device (blocks at split 1, cluster pairs at 2); out[1],
+// out[2]: its registers and local bytes a thread.
+int round_occupancy(redsec::PerDevice& state, const void* kernel, int split, int threads,
+                    size_t bytes, int* out) {
+  if (!allow_smem(state, kernel, bytes)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes fa{};
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  int at_once = 0;
+  if (e == cudaSuccess && split == 1) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&at_once, kernel, threads, bytes);
+    at_once *= redsec::sm_count();
+  } else if (e == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(split * 1024);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = bytes;
+    e = cudaOccupancyMaxActiveClusters(&at_once, kernel, &cfg);
+  }
+  out[0] = at_once;
+  out[1] = fa.numRegs;
+  out[2] = static_cast<int>(fa.localSizeBytes);
+  return static_cast<int>(e);
+}
+
 }  // namespace
 
 #define REDSEC_DISPATCH_MM(N_, ...)                             \
@@ -897,43 +1270,69 @@ int redsec_mm_layout(int N, int rows, int* out) {
   return 0;
 }
 
+// The round kernels' layout at N, `rows` digit rows and `split` blocks a
+// ciphertext (1: one a block; 2: a cluster pair, split_round), of K3-mm
+// (full) or K2-mm: out[0] dynamic shared bytes, out[1] rows of the C-steps'
+// operands and results, out[2] threads a block, out[3] key rows in the
+// ring, out[4] ciphertexts the current device runs at once (blocks an SM
+// times SMs at split 1, else cluster pairs, from the occupancy calculator),
+// out[5] registers a thread and out[6] local (spilled) bytes a thread of the
+// instance.  Non-zero for what the kernels do not take.
+int redsec_round_mm_layout(int N, int rows, int split, int full, int* out) {
+  if (!n_ok(N) || !split_ok(N, rows, split)) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = round_smem_bytes(N, rows, split);
+  out[0] = static_cast<int>(bytes);
+  out[1] = split == 1 ? mm_mrows(N / kC, rows) : split_mrows(N / kC, rows);
+  out[2] = N / 2;
+  out[3] = split == 1 ? mm_ring_rows(N, rows) : split_ring_rows(N, rows);
+  REDSEC_DISPATCH_MM(N, {
+    redsec::PerDevice* state = nullptr;
+    const void* kernel = full ? reinterpret_cast<const void*>(cmux_kernel<NN>(split, state))
+                              : reinterpret_cast<const void*>(ext_kernel<NN>(split, state));
+    return round_occupancy(*state, kernel, split, NN / 2, bytes, out + 4);
+  });
+  return 0;
+}
+
 // K2-mm: delta[M, 2, N] = digits[M, rows, N] (x) bk[2][rows][8][N] (prime
 // stride prime_stride elements); tabs uint2 [2][TabMM stride], wc uint8
-// [2][2][128][128].
+// [2][2][128][128]; `split` blocks a ciphertext (redsec_round_mm_layout).
 int redsec_external_product_mm(const int32_t* digits, const int16_t* bk, long long prime_stride,
                                const uint2* tabs, const uint8_t* wc, int32_t* delta, int M,
-                               int N, int rows, int p0, int p1, cudaStream_t stream) {
-  if (M <= 0 || !primes_ok(p0, p1) || !n_ok(N) || !rows_ok(N, rows) || !bk_ok(bk))
+                               int N, int rows, int p0, int p1, int split, cudaStream_t stream) {
+  if (M <= 0 || !primes_ok(p0, p1) || !n_ok(N) || !split_ok(N, rows, split) || !bk_ok(bk) ||
+      !bk_ok(bk + prime_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   const ConstsMM cs = make_consts(p0, p1);
-  const size_t bytes = mm_smem_bytes(N, rows);
+  const size_t bytes = round_smem_bytes(N, rows, split);
   REDSEC_DISPATCH_MM(N, {
-    static redsec::PerDevice smem;
-    if (!allow_smem(smem, external_product_mm_kernel<NN>, bytes))
-      return static_cast<int>(cudaErrorInvalidValue);
-    external_product_mm_kernel<NN><<<M, GeoMM<NN>::T, bytes, stream>>>(
-        digits, bk, prime_stride, tabs, wc, delta, rows, cs);
+    redsec::PerDevice* state = nullptr;
+    const ExtKernel kernel = ext_kernel<NN>(split, state);
+    if (!allow_smem(*state, kernel, bytes)) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<M * split, GeoMM<NN>::T, bytes, stream>>>(digits, bk, prime_stride, tabs, wc, delta,
+                                                       rows, cs);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3-mm: acc_out[M, 2, N] = acc + ExtProd(Decomp(X^t[m] acc - acc), bk round).
+// K3-mm: acc_out[M, 2, N] = acc + ExtProd(Decomp(X^t[m] acc - acc), bk round);
+// `split` as for K2-mm.
 int redsec_cmux_round_mm(const int32_t* acc, const int32_t* t, const int16_t* bk,
                          long long prime_stride, const uint2* tabs, const uint8_t* wc,
                          int32_t* out, int M, int N, int l, int bg_bit, uint32_t offset, int p0,
-                         int p1, cudaStream_t stream) {
+                         int p1, int split, cudaStream_t stream) {
   if (M <= 0 || l <= 0 || bg_bit <= 0 || l * bg_bit > 32 || !primes_ok(p0, p1) ||
-      !n_ok(N) || !rows_ok(N, 2 * l) || !bk_ok(bk))
+      !n_ok(N) || !split_ok(N, 2 * l, split) || !bk_ok(bk) || !bk_ok(bk + prime_stride))
     return static_cast<int>(cudaErrorInvalidValue);
   const ConstsMM cs = make_consts(p0, p1);
   const Gadget g{l, bg_bit, offset};
-  const size_t bytes = mm_smem_bytes(N, 2 * l);
+  const size_t bytes = round_smem_bytes(N, 2 * l, split);
   REDSEC_DISPATCH_MM(N, {
-    static redsec::PerDevice smem;
-    if (!allow_smem(smem, cmux_round_mm_kernel<NN>, bytes))
-      return static_cast<int>(cudaErrorInvalidValue);
-    cmux_round_mm_kernel<NN><<<M, GeoMM<NN>::T, bytes, stream>>>(acc, t, bk, prime_stride, tabs,
-                                                                 wc, out, g, cs);
+    redsec::PerDevice* state = nullptr;
+    const CmuxKernel kernel = cmux_kernel<NN>(split, state);
+    if (!allow_smem(*state, kernel, bytes)) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<M * split, GeoMM<NN>::T, bytes, stream>>>(acc, t, bk, prime_stride, tabs, wc, out,
+                                                       g, cs);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -963,7 +1362,7 @@ int redsec_blind_rotate_mm(const int32_t* acc0, const int32_t* abar, const int16
 }  // extern "C"
 
 // the library's Python module (py_entries.cuh)
-REDSEC_PY_MODULE(blind_mm, REDSEC_PY_FN(redsec_mm_layout),
+REDSEC_PY_MODULE(blind_mm, REDSEC_PY_FN(redsec_mm_layout), REDSEC_PY_FN(redsec_round_mm_layout),
                  REDSEC_PY_LAUNCH(redsec_external_product_mm),
                  REDSEC_PY_LAUNCH(redsec_cmux_round_mm),
                  REDSEC_PY_LAUNCH(redsec_blind_rotate_mm))

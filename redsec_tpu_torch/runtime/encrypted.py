@@ -145,7 +145,7 @@ def _check_escalation(dkey: DeviceCloudKey, escalate) -> None:
 
 def build_forward_impl(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 512,
                        info=None, ks: Optional[Dict[int, int]] = None,
-                       escalate=None) -> Callable:
+                       escalate=None, round_kernel: Optional[str] = None) -> Callable:
     """Encrypted forward bound to a device key:
     ``forward(x [B, H, W, C, n+1]) -> [B, classes, n+1]`` (int32 tensors).
 
@@ -155,9 +155,10 @@ def build_forward_impl(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 
     boundary of those layers (sign, maxpool OR, relu quarter or FDFB)
     through the second key ``dkey2``, with its test vectors; same-seed keygen
     of both sets draws the same client LWE key, so ciphertexts pass between
-    the two keys' bootstraps."""
+    the two keys' bootstraps.  ``round_kernel``: every PBS's blind rotation
+    one launch a round (``make_bootstrap_impl``), through both keys."""
     params = dkey.params
-    pbs_fn = make_chunked_bootstrap(dkey, chunk=pbs_chunk)
+    pbs_fn = make_chunked_bootstrap(dkey, chunk=pbs_chunk, round_kernel=round_kernel)
     if info is None:
         info = _resolve_info(model, params)
     ks = ks or {}
@@ -165,7 +166,8 @@ def build_forward_impl(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 
     esc_layers, pbs2, params2 = set(), None, None
     if escalate is not None:
         esc_layers, dkey2 = escalate
-        pbs2, params2 = make_chunked_bootstrap(dkey2, chunk=pbs_chunk), dkey2.params
+        pbs2 = make_chunked_bootstrap(dkey2, chunk=pbs_chunk, round_kernel=round_kernel)
+        params2 = dkey2.params
     if max(ks.values(), default=1) > 1 and dkey.rerand is None:
         raise ValueError("majority voting needs a re-randomization pool on the cloud key "
                          "(keygen always emits CloudKey.rerand; re-generate keys saved "
@@ -243,7 +245,8 @@ def build_encrypted_forward(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: i
                             majority_from: int = 0, majority_plan: Optional[str] = None,
                             escalate=None, center: bool = True, tiebreak: bool = True,
                             gain_mode: str = "flip", cascade_w: float = CASCADE_W,
-                            max_flip: float = MAX_FLIP) -> Callable:
+                            max_flip: float = MAX_FLIP,
+                            round_kernel: Optional[str] = None) -> Callable:
     """Encrypted forward bound to a device key:
     int32 [B, H, W, C, n+1] -> [B, classes, n+1], on the key's device.
 
@@ -280,13 +283,19 @@ def build_encrypted_forward(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: i
     ``REDSEC_MAX_FLIP``).  The JAX package's per-program bootstrap ceiling
     (``REDSEC_MAX_PROGRAM_BOOTS``) and its escalated macro cap guard a TPU
     remote-compile backend and have no counterpart: a CUDA launch has no
-    such ceiling."""
+    such ceiling.
+
+    ``round_kernel`` (None, "full" or "partial"): the JAX package's
+    ``REDSEC_ROUND_KERNEL`` (``=1``, ``=partial``), every blind rotation run
+    one launch of a one-round kernel a round on a "matmul" key
+    (``crypto.bootstrap.make_bootstrap_impl``); raises for a key, or with
+    ``escalate`` a second key, outside its envelope."""
     ks = majority_ks(model, majority, majority_from, majority_plan)
     esc = None if escalate is None else (set(escalate[0]), escalate[1].params)
     info = _resolve_info(model, dkey.params, range_check, input_gain, relu_mode, ks, esc,
                          center=center, tiebreak=tiebreak, gain_mode=gain_mode,
                          cascade_w=cascade_w, max_flip=max_flip)
-    forward = build_forward_impl(model, dkey, pbs_chunk, info, ks, escalate)
+    forward = build_forward_impl(model, dkey, pbs_chunk, info, ks, escalate, round_kernel)
     forward.info = info
     forward.mode = jax_forward_mode(model, escalated=escalate is not None)
     forward.pbs_per_image = _pbs_per_image(model, info, ks)

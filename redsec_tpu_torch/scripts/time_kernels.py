@@ -33,7 +33,11 @@ schoolbook CMUX round at 512 instead of K4: S1 with its torch glue (rotate,
 difference, decompose, the add), and, where the checkout has it, the
 schoolbook round kernel (``schoolbook_round``) beside it in turns, each held
 against the other; ``--rounds-only`` times only those rounds, each item
-``name@B`` at batch B (default 512), and the command line.  ``--cli SET``
+``name@B`` at batch B (default 512), and the command line;
+``--round-mm-only`` times only K2-mm and K3-mm, each item ``name@M1/M2``
+at those batches (default 1, 32, 64, 133, 512) at every split the
+checkout's kernels take (one block a ciphertext, a cluster pair) and at
+the one its wrapper picks.  ``--cli SET``
 times ``run-encrypted`` of the checkout's command line on one
 ``mnist/sign1024x1`` image at SET (its JSON record: seconds, PBS/s,
 launches); the key files are made by the command line into ``--work`` on
@@ -51,7 +55,9 @@ microseconds a call (``time.perf_counter_ns`` around calls with no
 synchronize between them), that call by step (each step in a loop of its
 own), CUDA events of back-to-back calls and the device time (profiler);
 and the AND gate at full ``medium_v2``: its wall time, its rounds' device
-time and the idle share.  One JSON line per run ends the output.
+time and the idle share; with ``--graph`` also K7 beside ``torch.take`` in
+turns, 200 calls between one event pair and one CUDA-graph replay of 200
+captured calls.  One JSON line per run ends the output.
 
     python redsec_tpu_torch/scripts/time_kernels.py --root build/parent --tag parent \
         --sets medium_v2,large --cli medium_v2
@@ -102,10 +108,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds-only", action="store_true",
                     help="time only the schoolbook rounds of --sets (set@batch, default batch "
                          "512) and --cli: no K1-K4, no S1 list")
+    ap.add_argument("--round-mm-only", action="store_true",
+                    help="time only K2-mm and K3-mm on a 'matmul' key of each item of --sets "
+                         "(set@M1/M2/..., default batches 1/32/64/133/512) at every split")
     ap.add_argument("--launch", action="store_true",
                     help="time only the host path of a launch: each wrapper's host us a call and "
                          "by step, its events and device time, K7 beside torch.take, and the AND "
                          "gate at full medium_v2")
+    ap.add_argument("--graph", action="store_true",
+                    help="K7 and torch.take in turns, 200 calls between one event pair and in "
+                         "one CUDA graph replay (alone, or after --launch's list)")
     ap.add_argument("--paths", action="store_true",
                     help="time only the 512-batch paths: the sign1024x1 forward at small_v2_tpu "
                          "(8 images), run-encrypted on one sign1024x1 image at medium_v2 and "
@@ -156,6 +168,18 @@ def main(argv=None) -> dict:
         _time_cli(args, out, P, "cifar/binarynet")
         print(json.dumps(out), flush=True)
         return out
+    if args.graph and not args.launch:  # K7 and torch.take alone
+        from redsec_tpu_torch.crypto import probe_kernels as PK
+
+        out = {"tag": args.tag, "card": card}
+        w7 = ri(-2**31, 2**31, (1, 2 * PK.TOEPLITZ_TILE))
+        kk = torch.arange(PK.TOEPLITZ_TILE, device=dev)
+        idx7 = PK.TOEPLITZ_TILE - 1 + kk[None, :] - kk[:, None]
+        same("toeplitz_tile", PK.toeplitz_tile(w7), torch.take(w7, idx7))
+        _time_k7_graph(args, out, own_device, lambda: PK.toeplitz_tile(w7),
+                       lambda: torch.take(w7, idx7))
+        print(json.dumps(out), flush=True)
+        return out
     if args.launch:
         out = {"tag": args.tag, "card": card}
         _time_launch(args, out, own_device, ri, same)
@@ -170,6 +194,19 @@ def main(argv=None) -> dict:
                                    int(b or 512))
         if args.cli:
             _time_cli(args, out, get_params(args.cli))
+        print(json.dumps(out), flush=True)
+        return out
+    if args.round_mm_only:
+        out = {"tag": args.tag, "card": card}
+        for item in filter(None, args.sets.split(",")):
+            name, _, bs_ = item.partition("@")
+            Pr = get_params(name)
+            _, cloud_r = kg.keygen(Pr, seed=0)
+            mk = bs.prepare_cloud_key(cloud_r, device="cuda", ntt_flavor="matmul")
+            batches = tuple(int(b) for b in bs_.split("/")) if bs_ else ROUND_MM_BATCHES
+            _time_round_mm(args, out, K, Pr, mk.plan, mk.bk[:, 0].contiguous(), ri, same,
+                           own_device, batches)
+            del mk
         print(json.dumps(out), flush=True)
         return out
     t0 = time.perf_counter()
@@ -251,7 +288,7 @@ def main(argv=None) -> dict:
                     print(f"{args.tag} S1 twin (float64 FFT) [{B}, {rs}, {Ns}]: "
                           f"{out['schoolbook_twin_ms_N4096_rows8_512']:.4f} ms", flush=True)
     if "matmul" in flavors:
-        _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, ms)
+        _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, own_device)
     if args.forward:
         _time_forward(args, out, P, dkey)
     if args.cli:
@@ -470,6 +507,45 @@ def _time_launch(args, out, dv, ri, same) -> None:
     print(f"{args.tag} K7 against torch.take: events {k7['events_ms']:.4f} / "
           f"{take['events_ms']:.4f} ms, device {k7['device_ms']:.5f} / {take['device_ms']:.5f} "
           f"ms, host {min(k7['host_us']):.2f} / {min(take['host_us']):.2f} us a call", flush=True)
+    if args.graph:
+        _time_k7_graph(args, out, dv, lambda: PK.toeplitz_tile(w7), lambda: torch.take(w7, idx7))
+
+
+GRAPH_CALLS = 200  # K7 / torch.take launches between one event pair, or in one graph
+
+
+def _time_k7_graph(args, out, dv, k7, take) -> None:
+    """K7 beside ``torch.take``, in turns (K7, take, take, K7), two ways, ms
+    a call: (a) ``GRAPH_CALLS`` calls between one event pair (the host paces
+    back-to-back launches shorter than its path); (b) one replay of a CUDA
+    graph that captured ``GRAPH_CALLS`` calls, all in this process (the
+    host's path gone: what is left is the device's launch of each kernel and
+    its run).  The graph is a measurement here, on no path of the port."""
+    import torch
+
+    fns = {"k7": k7, "take": take}
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up on a side stream, as capture asks
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            for _ in range(GRAPH_CALLS):
+                fn()
+    res = {name: {"events_ms": [], "graph_ms": []} for name in fns}
+    for name in ("k7", "take", "take", "k7"):
+        res[name]["events_ms"].append(dv.cuda_ms(fns[name], GRAPH_CALLS, warmup=3))
+        res[name]["graph_ms"].append(dv.cuda_ms(graphs[name].replay, 5) / GRAPH_CALLS)
+    out["k7_graph"] = res
+    for way in ("events_ms", "graph_ms"):
+        print(f"{args.tag} K7 against torch.take, {GRAPH_CALLS} calls "
+              + ("between one event pair" if way == "events_ms" else "in one CUDA graph replay")
+              + f", in turns: K7 {', '.join(f'{v:.5f}' for v in res['k7'][way])} ms a call, "
+              f"torch.take {', '.join(f'{v:.5f}' for v in res['take'][way])}", flush=True)
 
 
 def _time_gate(args, out, dv, reps: int = 5) -> None:
@@ -608,7 +684,62 @@ def _time_forward(args, out, P, dkey) -> None:
                                              for s in secs), flush=True)
 
 
-def _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, ms) -> None:
+ROUND_MM_BATCHES = (1, 32, 64, 133, 512)  # K2-mm / K3-mm: the path's chunks (512, 32) and more
+
+
+def _time_round_mm(args, out, K, P, plan, bk0, ri, same, dv,
+                   batches=ROUND_MM_BATCHES) -> None:
+    """K2-mm and K3-mm at set ``P`` at each batch of ``batches``, each held
+    against its twin (on a prefix of 64 at most), then CUDA events of 50
+    launches and the profiler's device time; where the checkout's kernels
+    come in designs (``kernels._cmux_round_mm`` takes a ``split``, blocks a
+    ciphertext), at the split the wrapper picks and at each split
+    ``kernels.round_mm_fits`` takes, with the library's layout of each
+    (``kernels.round_mm_built``: shared bytes, clusters or blocks at once,
+    registers, spills).  Keys carry the set's name but for
+    ``small_v2_tpu``."""
+    N, rows = P.N, P.decomp_rows
+    has_split = hasattr(K, "_cmux_round_mm")
+    at = "" if P.name == "small_v2_tpu" else f"{P.name}_"
+    for full in (False, True):
+        name = "cmux_round_mm" if full else "external_product_mm"
+        splits = [None] + ([s for s in K.ROUND_MM_SPLITS if K.round_mm_fits(N, rows, s)]
+                           if has_split else [])
+        if has_split:
+            for s in splits[1:]:
+                lay = K.round_mm_built(N, rows, s, full)
+                out[f"{at}{name}_layout_split{s}"] = lay
+                print(f"{args.tag} {P.name} {name} split {s}: {lay}", flush=True)
+        for M in batches:
+            acc, t = ri(-2**31, 2**31, (M, 2, N)), ri(0, 2 * N, (M,))
+            digits = ri(-P.half_bg, P.half_bg, (M, rows, N))
+            m = min(M, 64)
+            for s in splits:
+                if full:
+                    def fn(s=s):
+                        return (K.cmux_round_mm(acc, t, bk0, P, plan) if s is None
+                                else K._cmux_round_mm(acc, t, bk0, P, plan, s))
+                    same(f"{name} [{M}] split {s}", fn()[:m],
+                         K.cmux_round_mm_plain(acc[:m], t[:m], bk0, P, plan))
+                else:
+                    def fn(s=s):
+                        return (K.external_product_mm(digits, bk0, plan) if s is None
+                                else K._external_product_mm(digits, bk0, plan, s))
+                    same(f"{name} [{M}] split {s}", fn()[:m],
+                         K.external_product_mm_plain(digits[:m], bk0, plan))
+                key = f"{at}{name}_ms_{M}" + ("" if s is None else f"_split{s}")
+                out[key] = dv.cuda_ms(fn, 50, warmup=3)
+                # the name covers both designs (the <N> kernel and the pair kernel)
+                out[key.replace("_ms_", "_device_ms_")] = dev_ms = dv.device_ms(
+                    fn, name, required=False)[0]
+                chosen = (f", picks split {K.round_mm_split_on(0, N, rows, M, full)}"
+                          if has_split and s is None else "")
+                print(f"{args.tag} {P.name} {name} [{M}] split {s or 'default'}: "
+                      f"{out[key]:.4f} ms (events), device "
+                      f"{dev_ms if dev_ms is None else f'{dev_ms:.4f}'} ms{chosen}", flush=True)
+
+
+def _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, dv) -> None:
     """The four-step kernels on a "matmul" key of the same raw key as
     ``dkey`` (``small_v2_tpu``), then of each set of ``--sets`` that
     ``supported_mm`` takes; K4-mm at 512 also against K4 on ``dkey``."""
@@ -623,15 +754,7 @@ def _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, ms) ->
     if any(built[k] != out["layout_mm"][k] for k in built):
         raise SystemExit(f"{args.tag}: the four-step layout {built} differs from k4mm_layout's")
     bk0 = mkey.bk[:, 0].contiguous()
-    digits = ri(-P.half_bg, P.half_bg, (64, rows, N))
-    same("external_product_mm", K.external_product_mm(digits, bk0, plan),
-         K.external_product_mm_plain(digits, bk0, plan))
-    out["external_product_mm_ms"] = ms(lambda: K.external_product_mm(digits, bk0, plan), 50)
-    acc = ri(-2**31, 2**31, (64, 2, N))
-    t = ri(0, 2 * N, (64,))
-    same("cmux_round_mm", K.cmux_round_mm(acc, t, bk0, P, plan),
-         K.cmux_round_mm_plain(acc, t, bk0, P, plan))
-    out["cmux_round_mm_ms"] = ms(lambda: K.cmux_round_mm(acc, t, bk0, P, plan), 50)
+    _time_round_mm(args, out, K, P, plan, bk0, ri, same, dv)
     runs = [("small_v2_tpu", B) for B in K4_BATCHES]
     runs += [(name, 512) for name in filter(None, args.sets.split(","))
              if "/" not in name and name != "small_v2_tpu"]
@@ -654,7 +777,7 @@ def _time_matmul(args, out, K, bs, kg, get_params, cloud, dkey, ri, same, ms) ->
         if name == "small_v2_tpu" and B == 512:
             same("blind_rotate_mm against blind_rotate on the same raw key", got,
                  K.blind_rotate(acc0, abar, dkey.bk, Pk, dkey.plan))
-        out[f"blind_rotate_mm_ms{tag}_{B}"] = ms(
+        out[f"blind_rotate_mm_ms{tag}_{B}"] = dv.cuda_ms(
             lambda: K.blind_rotate_mm(acc0, abar, mk.bk, Pk, mk.plan), K4_REPS)
         print(f"{args.tag} K4-mm {name} batch {B}: {out[f'blind_rotate_mm_ms{tag}_{B}']:.4f} ms, "
               f"{K.k4mm_layout(Pk, mk.plan)}", flush=True)

@@ -758,19 +758,62 @@ def test_blind_rotate_mm_equals_twin(mm_keys, name, batch):
 
 
 @pytest.mark.parametrize("name", MM_SETS)
-@pytest.mark.parametrize("M", [1, 64])
+@pytest.mark.parametrize("M", [1, 3, 32, 64, 133, 512])
 def test_round_mm_kernels_equal_twins(mm_keys, name, M):
+    """K2-mm and K3-mm at every split (one block a ciphertext, a cluster
+    pair) and at the one the wrapper picks, on round 5's slice read in place
+    from the whole key (a view: each prime contiguous), one launch a call."""
     Pm, mk = mm_keys[name]
     rng = np.random.default_rng(M)
-    bk = mk.bk[:, 5].contiguous()
+    bk = mk.bk[:, 5]
     digits = _ri(rng, -Pm.half_bg, Pm.half_bg, (M, Pm.decomp_rows, Pm.N))
     digits[0, :, :3] = -Pm.half_bg
-    assert torch.equal(K.external_product_mm(digits, bk, mk.plan),
-                       K.external_product_mm_plain(digits, bk, mk.plan))
     acc = _ri(rng, -2**31, 2**31, (M, 2, Pm.N))
     t = _ri(rng, 0, 2 * Pm.N, (M,))
-    assert torch.equal(K.cmux_round_mm(acc, t, bk, Pm, mk.plan),
-                       K.cmux_round_mm_plain(acc, t, bk, Pm, mk.plan))
+    want2 = K.external_product_mm_plain(digits, bk, mk.plan)
+    want3 = K.cmux_round_mm_plain(acc, t, bk, Pm, mk.plan)
+    for split in (None, 1, 2):
+        before = K.launches.get("cmux_round_mm")
+        assert torch.equal(K._external_product_mm(digits, bk, mk.plan, split), want2), split
+        assert torch.equal(K._cmux_round_mm(acc, t, bk, Pm, mk.plan, split), want3), split
+        assert K.launches.get("cmux_round_mm") == before + 1
+
+
+@pytest.mark.parametrize("name", MM_SETS)
+def test_round_mm_layout_is_the_librarys(mm_keys, name):
+    """The library's layout of every split (``redsec_round_mm_layout``) is
+    ``kernels.round_mm_layout``'s; the card runs a cluster of each at once
+    at least, no instance spills."""
+    Pm, mk = mm_keys[name]
+    for full in (False, True):
+        for split in K.ROUND_MM_SPLITS:
+            built = K.round_mm_built(Pm.N, Pm.decomp_rows, split, full)
+            lay = K.round_mm_layout(Pm, split, mk.plan)
+            assert {k: built[k] for k in lay if k in built} == {k: lay[k] for k in built
+                                                                if k in lay}
+            assert built["at_once"] >= 1 and built["local_bytes"] == 0
+    for split in (3, 4):
+        with pytest.raises(ValueError, match="split"):
+            K._cmux_round_mm(torch.zeros((1, 2, Pm.N), dtype=torch.int32, device="cuda"),
+                             torch.zeros((1,), dtype=torch.int32, device="cuda"), mk.bk[:, 0], Pm,
+                             mk.plan, split)
+
+
+@pytest.mark.parametrize("round_kernel", ["full", "partial"])
+def test_round_kernel_pbs_equals_k4mm(mm_keys, round_kernel):
+    """A 512-chunk PBS through ``round_kernel`` (n launches of K3-mm, or of
+    K2-mm with the torch round around it) equals K4-mm's."""
+    Pm, mk = mm_keys["small_v2_tpu"]
+    rng = np.random.default_rng(17)
+    sk, _ = kg.keygen(Pm, seed=3)
+    ct = torch.as_tensor(lwe.encrypt_integers(sk.lwe_key, rng.integers(-100, 100, size=512),
+                                              Pm, rng), device="cuda")
+    tv = bs.const_test_vector(Pm, 1, Pm.msg_space)
+    name = "cmux_round_mm" if round_kernel == "full" else "external_product_mm"
+    before = K.launches.get(name)
+    got = bs.make_batched_bootstrap(mk, round_kernel=round_kernel)(ct, tv)
+    assert K.launches.get(name) == before + Pm.n
+    assert torch.equal(got, bs.make_batched_bootstrap(mk)(ct, tv))
 
 
 def test_blind_rotate_mm_equals_k4_on_one_raw_key(mm_keys):

@@ -63,7 +63,7 @@ def wrapped(fn, kernel, reps=20, per_call=1, tries=5, required=True):
         dump(fn, kernel, reps)
     got = measure(fn, kernel, reps=reps, per_call=per_call, tries=1, required=False)
     print(f"DIAG result {kernel}: {got}", flush=True)
-    if kernel == "cmux_round_mm_kernel":
+    if kernel == "cmux_round_mm":  # the smoke names K3-mm so, both its designs
         raise SystemExit(0)
     if got[0] is None and required:
         return measure(fn, kernel, reps, per_call, tries, required)
