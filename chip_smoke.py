@@ -488,6 +488,8 @@ def profile_forward(fwd, ct, card: str, tag: str, warmup=None) -> tuple:
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from redsec_tpu_torch.device import is_annotation
+
     sched = None if warmup is None else schedule(wait=0, warmup=1, active=1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=sched) as prof:
@@ -500,10 +502,9 @@ def profile_forward(fwd, ct, card: str, tag: str, warmup=None) -> tuple:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: a CPU op's entry repeats the time of the
-    # kernels it launched
+    # kernels it launched, and a step's or a span's range those inside it
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith("ProfilerStep")]
+            if e.device_type == torch.autograd.DeviceType.CUDA and not is_annotation(e.key)]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     with open(os.path.join(OUT_DIR, f"profile_{tag}.txt"), "w") as f:

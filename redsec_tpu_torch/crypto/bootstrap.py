@@ -52,6 +52,11 @@ the add.  Both take a "matmul" key inside ``kernels.supported_mm`` (the JAX
 package's envelope for them on the sets the kernels are built for) and raise
 for any other key; the output is the same.
 
+Each bootstrap runs in a ``pbs`` span (``device.span``), its stages in
+``pbs.prologue`` (mod switch, test vectors, the accumulator's rotation),
+``pbs.blind_rotate``, ``pbs.extract``, ``pbs.key_switch`` and, where a batch
+runs in chunks, ``pbs.concat``.
+
 A numpy oracle of the whole pipeline (``bootstrap_host``) is kept for tests.
 """
 
@@ -63,7 +68,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..device import int32_matmul, resolve_device
+from ..device import int32_matmul, resolve_device, span
 from . import kernels
 from . import ntt as ntt_mod
 from . import ntt_matmul
@@ -341,11 +346,12 @@ class RoundOps:
         """Subtract digit-scaled rows of the multiply-form KSK [N*t, n+1]:
         one exact digit x KSK product (limbs of the KSK in fp32, in chunks of
         the N*t rows that keep each partial sum below 2^24)."""
-        dig = self.ks_digits(a_n)
-        ssum = int32_matmul(ksk.T, dig.T, self.p.ks_base - 1).T  # [B, n+1]
-        out = -ssum
-        out[:, self.p.n] += b_n
-        return out
+        with span("pbs.key_switch"):
+            dig = self.ks_digits(a_n)
+            ssum = int32_matmul(ksk.T, dig.T, self.p.ks_base - 1).T  # [B, n+1]
+            out = -ssum
+            out[:, self.p.n] += b_n
+            return out
 
 
 def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
@@ -426,27 +432,30 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
 
     def impl(dkey: DeviceCloudKey, ct: torch.Tensor, testvect) -> torch.Tensor:
         _check_key(dkey, want)
-        abar = ops.mod_switch(ct[:, :n]).contiguous()
-        bbar = ops.mod_switch(ct[:, n])
-        tv = _test_vectors(testvect, ct.shape[0], N, ct.device)
-        acc_b = ops.rotate(tv, (2 * N - bbar) % (2 * N))
-        acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1).contiguous()
-        if plan is None:
-            acc = blind_rotate_schoolbook(acc, abar, dkey)
-        elif round_kernel is not None:
-            acc = blind_rotate_rounds(acc, abar, dkey)
-        elif ntt_flavor == "matmul":
-            # the shape rule: the four-step kernel takes what the JAX package's
-            # Pallas kernel takes (two primes < 2^15, N = 256 or 1024, bundle
-            # 1); bundled keys, N = 2048 and three primes run the loop in
-            # torch, as the JAX package runs its XLA loop there
-            if kernels.supported_mm(p, plan, dkey.bundle):
-                acc = kernels.blind_rotate_mm(acc, abar, dkey.bk, p, plan)
+        with span("pbs.prologue"):
+            abar = ops.mod_switch(ct[:, :n]).contiguous()
+            bbar = ops.mod_switch(ct[:, n])
+            tv = _test_vectors(testvect, ct.shape[0], N, ct.device)
+            acc_b = ops.rotate(tv, (2 * N - bbar) % (2 * N))
+            acc = torch.stack([torch.zeros_like(acc_b), acc_b], dim=1).contiguous()
+        with span("pbs.blind_rotate"):
+            if plan is None:
+                acc = blind_rotate_schoolbook(acc, abar, dkey)
+            elif round_kernel is not None:
+                acc = blind_rotate_rounds(acc, abar, dkey)
+            elif ntt_flavor == "matmul":
+                # the shape rule: the four-step kernel takes what the JAX package's
+                # Pallas kernel takes (two primes < 2^15, N = 256 or 1024, bundle
+                # 1); bundled keys, N = 2048 and three primes run the loop in
+                # torch, as the JAX package runs its XLA loop there
+                if kernels.supported_mm(p, plan, dkey.bundle):
+                    acc = kernels.blind_rotate_mm(acc, abar, dkey.bk, p, plan)
+                else:
+                    acc = kernels.blind_rotate_mm_plain(acc, abar, dkey.bk, p, plan)
             else:
-                acc = kernels.blind_rotate_mm_plain(acc, abar, dkey.bk, p, plan)
-        else:
-            acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
-        a_n, b_n = ops.sample_extract(acc)
+                acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
+        with span("pbs.extract"):
+            a_n, b_n = ops.sample_extract(acc)
         return ops.key_switch(a_n, b_n, dkey.ksk)
 
     return impl
@@ -491,8 +500,9 @@ def make_batched_bootstrap(dkey: DeviceCloudKey, round_kernel: Optional[str] = N
     impl = make_bootstrap_impl(dkey.params, dkey.plan, dkey.ntt_flavor, round_kernel)
 
     def bootstrap(ct, testvect):
-        ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
-        return impl(dkey, ct, testvect)
+        with span("pbs", dkey.device):
+            ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
+            return impl(dkey, ct, testvect)
 
     return bootstrap
 
@@ -509,13 +519,16 @@ def make_chunked_bootstrap(dkey: DeviceCloudKey, chunk: int = 512,
     N = dkey.params.N
 
     def run(ct, testvect):
-        ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
-        m = ct.shape[0]
-        if m <= chunk:
-            return impl(dkey, ct, testvect)
-        tv = _test_vectors(testvect, m, N, ct.device)
-        return torch.cat([impl(dkey, ct[i0:i0 + chunk], tv[i0:i0 + chunk])
-                          for i0 in range(0, m, chunk)], dim=0)
+        with span("pbs", dkey.device):
+            ct = torch.as_tensor(ct, dtype=torch.int32, device=dkey.device)
+            m = ct.shape[0]
+            if m <= chunk:
+                return impl(dkey, ct, testvect)
+            tv = _test_vectors(testvect, m, N, ct.device)
+            parts = [impl(dkey, ct[i0:i0 + chunk], tv[i0:i0 + chunk])
+                     for i0 in range(0, m, chunk)]
+            with span("pbs.concat"):
+                return torch.cat(parts, dim=0)
 
     return run
 

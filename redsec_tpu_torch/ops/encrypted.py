@@ -23,7 +23,9 @@ activation, batch leading).
             decided by a leveled vote (``majority_pbs``).
 
 The test-vector builders are numpy; ciphertext arithmetic relies on torch's
-int32 wraparound in add and subtract.
+int32 wraparound in add and subtract.  Every leveled operator runs inside a
+``leveled`` span (``device.span``) and turns its host arrays into tensors
+through ``device.upload``.
 """
 
 from __future__ import annotations
@@ -34,16 +36,17 @@ import torch
 from ..crypto.bootstrap import const_test_vector
 from ..crypto.params import TfheParams
 from ..crypto.torus import mod_switch_to_torus32
-from ..device import int32_matmul
+from ..device import int32_matmul, span, upload
 from ..models.spec import ConvPlan, PoolPlan, QuantPlan
 from ..runtime.ptxt import gather_patches, wrap32
 
 
 def ternary_matmul_ct(patches: torch.Tensor, weights: np.ndarray) -> torch.Tensor:
     """[B, P, K, R] ciphertexts x ternary [K, O] -> [B, P, O, R], exact mod 2^32."""
-    w = torch.as_tensor(np.asarray(weights, np.int8), device=patches.device)
-    out = int32_matmul(patches.transpose(-1, -2), w, 1)  # [B, P, R, O]
-    return out.transpose(-1, -2)
+    with span("leveled"):
+        w = upload(np.asarray(weights, np.int8), patches.device)
+        out = int32_matmul(patches.transpose(-1, -2), w, 1)  # [B, P, R, O]
+        return out.transpose(-1, -2)
 
 
 def _add_body(x: torch.Tensor, mu) -> torch.Tensor:
@@ -52,7 +55,7 @@ def _add_body(x: torch.Tensor, mu) -> torch.Tensor:
     broadcasts against x[..., -1]."""
     mu = (np.asarray(mu, np.int64) + (1 << 31)) % (1 << 32) - (1 << 31)
     x = x.clone()
-    x[..., -1] += torch.as_tensor(mu.astype(np.int32), device=x.device)
+    x[..., -1] += upload(mu.astype(np.int32), x.device)
     return x
 
 
@@ -63,35 +66,37 @@ def conv_enc(plan: ConvPlan, x: torch.Tensor, msg_space: int = 4096,
 
     Zero-padding contributes all-zero LWE samples — identical to the
     reference's ``lweClear`` padding (lib/BinFunc.cpp:278-284)."""
-    if plan.flatten:
-        x = x.reshape(x.shape[0], 1, 1, -1, x.shape[-1])
-    B, R = x.shape[0], x.shape[-1]
-    wh, ww = plan.weights.shape[0], plan.weights.shape[1]
-    out = None
-    for fh in range(wh):
-        for fw in range(ww):
-            tap = gather_patches(
-                x, (1, 1), plan.stride,
-                (plan.offset[0] - fh, plan.offset[1] - fw),
-                (plan.out_h, plan.out_w),
-            )  # [B, OH, OW, 1, 1, C, R]
-            tap = tap.reshape(B, plan.out_h * plan.out_w, plan.in_dep, R)
-            part = ternary_matmul_ct(tap, plan.weights[fh, fw])
-            out = part if out is None else out + part
-    out = out.reshape(B, plan.out_h, plan.out_w, plan.out_dep, R)
-    if plan.neg_correction is not None:
-        # integer-domain 1's-complement correction as a noiseless trivial
-        # subtraction on the body column (see ConvPlan.neg_correction)
-        mu = mod_switch_to_torus32(plan.neg_correction.astype(np.int64) * g_in, msg_space)
-        out = _add_body(out, -mu.astype(np.int64))
-    return out
+    with span("leveled"):
+        if plan.flatten:
+            x = x.reshape(x.shape[0], 1, 1, -1, x.shape[-1])
+        B, R = x.shape[0], x.shape[-1]
+        wh, ww = plan.weights.shape[0], plan.weights.shape[1]
+        out = None
+        for fh in range(wh):
+            for fw in range(ww):
+                tap = gather_patches(
+                    x, (1, 1), plan.stride,
+                    (plan.offset[0] - fh, plan.offset[1] - fw),
+                    (plan.out_h, plan.out_w),
+                )  # [B, OH, OW, 1, 1, C, R]
+                tap = tap.reshape(B, plan.out_h * plan.out_w, plan.in_dep, R)
+                part = ternary_matmul_ct(tap, plan.weights[fh, fw])
+                out = part if out is None else out + part
+        out = out.reshape(B, plan.out_h, plan.out_w, plan.out_dep, R)
+        if plan.neg_correction is not None:
+            # integer-domain 1's-complement correction as a noiseless trivial
+            # subtraction on the body column (see ConvPlan.neg_correction)
+            mu = mod_switch_to_torus32(plan.neg_correction.astype(np.int64) * g_in, msg_space)
+            out = _add_body(out, -mu.astype(np.int64))
+        return out
 
 
 def sumpool_enc(plan: PoolPlan, x: torch.Tensor) -> torch.Tensor:
-    patches = gather_patches(
-        x, plan.window, plan.stride, plan.offset, (plan.out_h, plan.out_w)
-    )
-    return wrap32(patches.to(torch.int64).sum(dim=(3, 4)))
+    with span("leveled"):
+        patches = gather_patches(
+            x, plan.window, plan.stride, plan.offset, (plan.out_h, plan.out_w)
+        )
+        return wrap32(patches.to(torch.int64).sum(dim=(3, 4)))
 
 
 def quant_sign_pre(plan: QuantPlan, x: torch.Tensor, params: TfheParams,
@@ -107,10 +112,10 @@ def quant_sign_pre(plan: QuantPlan, x: torch.Tensor, params: TfheParams,
     total = plan.bias.astype(np.int64)
     if tie_break is not None:
         total = total[None, None, :] + np.asarray(tie_break, np.int64)  # [H, W, C]
-    x = _add_body(x, mod_switch_to_torus32(total * g_in, params.msg_space))
-    tv = torch.as_tensor(const_test_vector(params, out_value, params.msg_space),
-                         device=x.device)
-    return x, tv
+    with span("leveled"):
+        x = _add_body(x, mod_switch_to_torus32(total * g_in, params.msg_space))
+        tv = upload(const_test_vector(params, out_value, params.msg_space), x.device)
+        return x, tv
 
 
 def quant_sign_enc(plan: QuantPlan, x: torch.Tensor, pbs, params: TfheParams,
@@ -128,7 +133,8 @@ def quant_add_bias_enc(plan: QuantPlan, x: torch.Tensor, params: TfheParams,
     b = plan.bias.astype(np.int64)
     if center is not None:
         b = b + np.asarray(center, np.int64)
-    return _add_body(x, mod_switch_to_torus32(b * g_in, params.msg_space))
+    with span("leveled"):
+        return _add_body(x, mod_switch_to_torus32(b * g_in, params.msg_space))
 
 
 def maxpool_sign_value(plan: PoolPlan, params: TfheParams) -> int:
@@ -239,7 +245,7 @@ def _add_center(x: torch.Tensor, center, g_in: int, msize: int) -> torch.Tensor:
 def _per_channel(rows: np.ndarray, m: int, device) -> torch.Tensor:
     """Per-channel rows [C, ...] repeated over the m // C positions of a
     flattened [.., C] activation tensor -> [m, ...] (channel fastest)."""
-    t = torch.as_tensor(rows, device=device)
+    t = upload(rows, device)
     return t[None].expand(m // t.shape[0], *t.shape).reshape(m, *t.shape[1:])
 
 
@@ -247,11 +253,12 @@ def quant_relu_fdfb_stage1(plan: QuantPlan, x: torch.Tensor, params: TfheParams,
                            g_in: int = 1, center=None):
     """FDFB part 1: flat (centered) ciphertexts [m, n+1] + the sign test
     vector [N]."""
-    x = _add_center(x, center, g_in, params.msg_space)
-    flat = x.reshape(-1, x.shape[-1])
-    tv_sign = torch.as_tensor(
-        const_test_vector(params, params.msg_space // 4, params.msg_space), device=x.device)
-    return flat, tv_sign
+    with span("leveled"):
+        x = _add_center(x, center, g_in, params.msg_space)
+        flat = x.reshape(-1, x.shape[-1])
+        tv_sign = upload(const_test_vector(params, params.msg_space // 4, params.msg_space),
+                         x.device)
+        return flat, tv_sign
 
 
 def quant_relu_fdfb_stage2(plan: QuantPlan, flat: torch.Tensor, s: torch.Tensor,
@@ -261,12 +268,13 @@ def quant_relu_fdfb_stage2(plan: QuantPlan, flat: torch.Tensor, s: torch.Tensor,
     already be centered (stage 1 applied the shift); ``s`` is the sign
     bootstrap's output, an LWE of +-msize/4."""
     msize = params.msg_space
-    # phase of ct2 = (v mod msize/2); the subtraction wraps in int32
-    ct2 = _add_body(flat - s, mod_switch_to_torus32(msize // 4, msize))
-    tv_odd, tv_even, c = relu_fdfb_test_vectors(plan, params, g_in, g_out, center)
-    m = flat.shape[0]
-    return (ct2, _per_channel(tv_odd, m, flat.device), _per_channel(tv_even, m, flat.device),
-            _per_channel(c, m, flat.device))
+    with span("leveled"):
+        # phase of ct2 = (v mod msize/2); the subtraction wraps in int32
+        ct2 = _add_body(flat - s, mod_switch_to_torus32(msize // 4, msize))
+        tv_odd, tv_even, c = relu_fdfb_test_vectors(plan, params, g_in, g_out, center)
+        m = flat.shape[0]
+        return (ct2, _per_channel(tv_odd, m, flat.device),
+                _per_channel(tv_even, m, flat.device), _per_channel(c, m, flat.device))
 
 
 def quant_relu_fdfb_enc(plan: QuantPlan, x: torch.Tensor, pbs, params: TfheParams,
@@ -281,9 +289,11 @@ def quant_relu_fdfb_enc(plan: QuantPlan, x: torch.Tensor, pbs, params: TfheParam
     s = pbs(flat, tv_sign)  # LWE of +-msize/4
     ct2, tvs_o, tvs_e, c_flat = quant_relu_fdfb_stage2(plan, flat, s, params, g_in, g_out,
                                                        center)
-    out = pbs(flat, tvs_o) + pbs(ct2, tvs_e)
-    out[:, -1] += c_flat  # plaintext trivial of the seam constant
-    return out.reshape(x.shape)
+    odd, even = pbs(flat, tvs_o), pbs(ct2, tvs_e)
+    with span("leveled"):
+        out = odd + even
+        out[:, -1] += c_flat  # plaintext trivial of the seam constant
+        return out.reshape(x.shape)
 
 
 def quant_relu_pre(plan: QuantPlan, x: torch.Tensor, params: TfheParams, g_in: int = 1,
@@ -291,10 +301,11 @@ def quant_relu_pre(plan: QuantPlan, x: torch.Tensor, params: TfheParams, g_in: i
     """PBS boundary for the DoReFa relu: (pre-biased x, per-activation tv
     [m, N]); the caller flattens to [m, R], bootstraps, reshapes back."""
     msize = params.msg_space
-    x = _add_center(x, center, g_in, msize)
-    x = _add_body(x, mod_switch_to_torus32(msize // 4, msize))  # into [0, msize/2)
-    tvs = relu_test_vectors(plan, params, g_in, g_out, center)
-    return x, _per_channel(tvs, x.numel() // x.shape[-1], x.device)
+    with span("leveled"):
+        x = _add_center(x, center, g_in, msize)
+        x = _add_body(x, mod_switch_to_torus32(msize // 4, msize))  # into [0, msize/2)
+        tvs = relu_test_vectors(plan, params, g_in, g_out, center)
+        return x, _per_channel(tvs, x.numel() // x.shape[-1], x.device)
 
 
 def quant_relu_enc(plan: QuantPlan, x: torch.Tensor, pbs, params: TfheParams,
@@ -311,19 +322,19 @@ def quant_relu_enc(plan: QuantPlan, x: torch.Tensor, pbs, params: TfheParams,
 def maxpool_pre(plan: PoolPlan, x: torch.Tensor, params: TfheParams, g_out: int = 1):
     """PBS boundary for the window-OR maxpool: (biased window sums
     [B, OH, OW, C, R], tv [N]); caller flattens, bootstraps, reshapes."""
-    V = maxpool_sign_value(plan, params)
-    s = sumpool_enc(plan, x)  # [B, OH, OW, C, R]; out-of-bounds slots are zero
-    # per-position in-bounds count (static geometry, computed host-side)
-    ih = (np.arange(plan.out_h)[:, None] * plan.stride[0]
-          + np.arange(plan.window[0])[None, :] - plan.offset[0])
-    iw = (np.arange(plan.out_w)[:, None] * plan.stride[1]
-          + np.arange(plan.window[1])[None, :] - plan.offset[1])
-    ok_h = ((ih >= 0) & (ih < plan.in_h)).sum(axis=1)  # [OH]
-    ok_w = ((iw >= 0) & (iw < plan.in_w)).sum(axis=1)  # [OW]
-    counts = ok_h[:, None] * ok_w[None, :]  # [OH, OW]
-    s = _add_body(s, mod_switch_to_torus32((counts - 1) * V, params.msg_space)[:, :, None])
-    tv = torch.as_tensor(const_test_vector(params, g_out, params.msg_space), device=x.device)
-    return s, tv
+    with span("leveled"):
+        V = maxpool_sign_value(plan, params)
+        s = sumpool_enc(plan, x)  # [B, OH, OW, C, R]; out-of-bounds slots are zero
+        # per-position in-bounds count (static geometry, computed host-side)
+        ih = (np.arange(plan.out_h)[:, None] * plan.stride[0]
+              + np.arange(plan.window[0])[None, :] - plan.offset[0])
+        iw = (np.arange(plan.out_w)[:, None] * plan.stride[1]
+              + np.arange(plan.window[1])[None, :] - plan.offset[1])
+        ok_h = ((ih >= 0) & (ih < plan.in_h)).sum(axis=1)  # [OH]
+        ok_w = ((iw >= 0) & (iw < plan.in_w)).sum(axis=1)  # [OW]
+        counts = ok_h[:, None] * ok_w[None, :]  # [OH, OW]
+        s = _add_body(s, mod_switch_to_torus32((counts - 1) * V, params.msg_space)[:, :, None])
+        return s, upload(const_test_vector(params, g_out, params.msg_space), x.device)
 
 
 def maxpool_enc(plan: PoolPlan, x: torch.Tensor, pbs, params: TfheParams,
@@ -370,21 +381,22 @@ def majority_stage1_pre(ct_flat: torch.Tensor, params: TfheParams, k: int,
     copy c adds the pool entry ``(salt * (k - 1) + c - 1) mod E``, so
     ``salt`` (the layer index) rotates pool usage across boundaries."""
     E = rerand.shape[0]
-    tv1 = torch.as_tensor(const_test_vector(params, MAJORITY_G1, params.msg_space),
-                          device=ct_flat.device)
-    copies = [ct_flat] + [ct_flat + rerand[(salt * (k - 1) + c) % E][None].to(torch.int32)
-                          for c in range(k - 1)]
-    return torch.cat(copies, dim=0), tv1
+    with span("leveled"):
+        tv1 = upload(const_test_vector(params, MAJORITY_G1, params.msg_space), ct_flat.device)
+        copies = [ct_flat] + [ct_flat + rerand[(salt * (k - 1) + c) % E][None].to(torch.int32)
+                              for c in range(k - 1)]
+        return torch.cat(copies, dim=0), tv1
 
 
 def majority_vote_sum(votes: torch.Tensor, k: int) -> torch.Tensor:
     """Leveled vote merge: [k*m, R] stage-1 outputs -> [m, R] vote sum
     (int32 wraparound, as the JAX package's sum)."""
     m = votes.shape[0] // k
-    out = votes[:m]
-    for c in range(1, k):
-        out = out + votes[c * m:(c + 1) * m]
-    return out
+    with span("leveled"):
+        out = votes[:m]
+        for c in range(1, k):
+            out = out + votes[c * m:(c + 1) * m]
+        return out
 
 
 def majority_pbs(pbs, ct_flat: torch.Tensor, tv, params: TfheParams, k: int,

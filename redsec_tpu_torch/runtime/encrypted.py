@@ -4,7 +4,8 @@ The cloud side of the reference's ``make cpu-encrypt`` flow
 (nets/mnist/sign1024x1/net.cpp:117-131): evaluation key in, encrypted image
 in, encrypted class scores out.  Layers run eagerly on the key's device;
 every sign, relu and maxpool boundary is a batched PBS whose blind rotation
-is the ``blind_rotate`` kernel on CUDA.
+is the ``blind_rotate`` kernel on CUDA.  A forward runs in a ``forward`` span
+(``device.span``), each layer in ``L<i>``.
 
 Ported here: sign, relu (1-PBS quarter-range and 3-PBS full-range FDFB) and
 bias-only layers with conv/fc, sumpool and maxpool, the whole model in one
@@ -28,6 +29,7 @@ import torch
 
 from ..crypto import lwe
 from ..crypto.bootstrap import DeviceCloudKey, make_chunked_bootstrap
+from ..device import span, upload
 from ..models.spec import Activation, ModelPlan
 from ..ops import encrypted as eops
 from ..utils.metrics import model_stats
@@ -186,14 +188,17 @@ def build_forward_impl(model: ModelPlan, dkey: DeviceCloudKey, pbs_chunk: int = 
         return pbs, voted, pp
 
     fns = [layer_fns(i) for i in range(len(model.layers))]
+    names = [f"L{i}" for i in range(len(model.layers))]
 
     def forward(x) -> torch.Tensor:
-        x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x,
-                            dtype=torch.int32, device=dkey.device)
-        for i, layer in enumerate(model.layers):
-            pbs, vote, pp = fns[i]
-            x = _run_layer_ops(layer, x, pbs, vote, params, pp, info[i])
-        return x.reshape(x.shape[0], -1, x.shape[-1])
+        with span("forward", dkey.device):
+            x = upload(np.asarray(x) if not isinstance(x, torch.Tensor) else x, dkey.device,
+                       torch.int32)
+            for i, layer in enumerate(model.layers):
+                pbs, vote, pp = fns[i]
+                with span(names[i]):
+                    x = _run_layer_ops(layer, x, pbs, vote, params, pp, info[i])
+            return x.reshape(x.shape[0], -1, x.shape[-1])
 
     forward.out_gain = model_out_gain(info)
     forward.out_center = model_out_center(info)

@@ -22,7 +22,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..device import int32_matmul, resolve_device
+from ..device import int32_matmul, resolve_device, upload
 from ..models.spec import Activation, ConvPlan, LayerPlan, ModelPlan, PoolPlan, QuantPlan
 
 
@@ -58,7 +58,7 @@ def gather_patches(x: torch.Tensor, window, stride, offset, out_hw, fill_value=0
 
     mask = ok_h[:, None, :, None] & ok_w[None, :, None, :]  # [OH, OW, wh, ww]
     mask = mask.reshape((1,) + tuple(mask.shape) + (1,) * (g.ndim - 5))
-    return torch.where(mask, g, torch.tensor(fill_value, dtype=x.dtype, device=dev))
+    return torch.where(mask, g, upload(fill_value, dev, x.dtype))
 
 
 def conv_ptxt(plan: ConvPlan, x: torch.Tensor) -> torch.Tensor:
