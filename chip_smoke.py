@@ -9,8 +9,8 @@ Phases (any failure exits non-zero):
 
 1. Print the card's name and power limit (``nvidia-smi``).
 2. Build the CUDA kernels of ``redsec_tpu_torch/csrc/pbs.cu``,
-   ``csrc/blind_mm.cu``, ``csrc/probes.cu``, ``csrc/schoolbook.cu`` and
-   ``csrc/schoolbook_fft.cu`` with ``nvcc`` for ``sm_90a``,
+   ``csrc/blind_mm.cu``, ``csrc/probes.cu``, ``csrc/schoolbook.cu``,
+   ``csrc/schoolbook_fft.cu`` and ``csrc/key_switch.cu`` with ``nvcc`` for ``sm_90a``,
    one compiler per source, all started together (a thread each); the compiler's
    register/shared-memory report goes to ``chiprun_out/ptxas.txt``.
 3. Kernel phase: each kernel against its plain PyTorch twin on the card, on
@@ -72,6 +72,13 @@ Phases (any failure exits non-zero):
    device time (profiler), and every wrapper its host microseconds a call
    (calls with no synchronize between them: the launch path's own cost),
    printed on one "launch path" line before the kernel phase ends.
+   The PBS key switch (``csrc/key_switch.cu``, ``phase_key_switch``) at the
+   benchmark cells' sets (``small_v2_tpu``, ``medium_v2``) and PBS chunks
+   (196, 512), on random keys prepared by ``bootstrap.prepare_ksk``: equal
+   to its twin and to the digits-and-``int32_matmul`` formula the port ran
+   before, one launch a call; its events and device time, the twin's and
+   that formula's times, its bound (int8 operations at 1,979 TOPS against
+   the key's bytes at 3.35 TB/s) and share, layout, registers and spills.
 4. Sign slice: keygen ``small_v2_tpu`` (seed 0) -> ``prepare_cloud_key`` on
    the card -> ``mnist/sign1024x1`` with the golden reference weights ->
    encrypt a batch of synthetic images (numpy seed 1) -> encrypted forward
@@ -516,6 +523,137 @@ def profile_forward(fwd, ct, card: str, tag: str, warmup=None) -> tuple:
     return wall_ms, busy_ms, rows
 
 
+# the key switch phase: the two cells' sets, each at both of their PBS chunks
+KEY_SWITCH_SETS = ("small_v2_tpu", "medium_v2")
+KEY_SWITCH_BATCHES = (196, 512)
+
+
+def phase_key_switch(card: str, ptxas: str) -> dict:
+    """The PBS key switch kernel (``csrc/key_switch.cu``) against its twin
+    on the card, on random keys prepared by ``bootstrap.prepare_ksk`` (words
+    at both ends of int32 among them) and random masks (one row with every
+    digit base - 1), at the benchmark cells' sets and their PBS chunks; also
+    the formula the port ran before (digits and ``device.int32_matmul`` on
+    the int32 key), bit for bit, and its time as the yardstick.  Returns the
+    kernels-table records by name."""
+    import numpy as np
+    import torch
+
+    from redsec_tpu_torch.crypto import bootstrap as bs
+    from redsec_tpu_torch.crypto import kernels as K
+    from redsec_tpu_torch.crypto.params import get_params
+    from redsec_tpu_torch.device import (cuda_ms, device_ms, host_us, int32_matmul,
+                                         is_annotation, launches)
+
+    dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def span_ops(fn, where: str, reps: int = 5, tries: int = 5) -> list:
+        """The device's operations (name x count) of ``reps`` calls of ``fn``
+        in one trace, from a trace that saw the kernel ``reps`` times: deep
+        into a long process the tracer drops launches (``device.device_ms``)."""
+        from torch.profiler import ProfilerActivity, profile, schedule
+        for _ in range(tries):
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            evs = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and not is_annotation(e.key)]
+            if sum(e.count for e in evs if "key_switch_kernel" in e.key) == reps:
+                return sorted(f"{e.key} x{e.count}" for e in evs)
+        fail(f"key_switch {where}: no trace of {tries} saw {reps} launches of the kernel in "
+             f"{reps} pbs.key_switch calls")
+
+    out = {}
+    for name in KEY_SWITCH_SETS:
+        Pk = get_params(name)
+        n1, rows = Pk.n + 1, Pk.N * Pk.ks_t
+        rng = np.random.default_rng(25)
+        ksk = rng.integers(-2**31, 2**31, size=(Pk.N, Pk.ks_t, n1), dtype=np.int64)
+        ksk.reshape(-1)[:4] = [-2**31, 2**31 - 1, -1, 0x80808080 - 2**32]
+        ksk = ksk.astype(np.int32)
+        t0 = time.perf_counter()
+        tiles = bs.prepare_ksk(ksk, Pk, dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        ksk32 = torch.as_tensor(ksk.reshape(rows, n1), device=dev)
+        ops = bs.RoundOps(Pk)
+        kbits = Pk.ks_basebit * Pk.ks_t
+        all_ones = int(np.uint32(2**32 - 1 - ((1 << (31 - kbits)) if kbits < 32 else 0))
+                       .view(np.int32))
+
+        def old_path(a, b):
+            ssum = int32_matmul(ksk32.T, ops.ks_digits(a).T, Pk.ks_base - 1).T
+            o = -ssum
+            o[:, Pk.n] += b
+            return o
+
+        for B in KEY_SWITCH_BATCHES:
+            a = torch.as_tensor(rng.integers(-2**31, 2**31, size=(B, Pk.N), dtype=np.int64)
+                                .astype(np.int32), device=dev)
+            a[0] = all_ones
+            b = torch.as_tensor(rng.integers(-2**31, 2**31, size=(B, 2), dtype=np.int64)
+                                .astype(np.int32), device=dev)[:, 1]  # strided, as the PBS's
+            c0 = launches.get("key_switch")
+            got = K.key_switch(a, b, tiles, Pk)
+            torch.cuda.synchronize()
+            if launches.get("key_switch") != c0 + 1:
+                fail(f"key_switch {name} [{B}]: not one launch")
+            if not torch.equal(got, K.key_switch_plain(a, b, tiles, Pk)):
+                fail(f"key_switch {name} [{B}]: the kernel differs from its twin")
+            if not torch.equal(got, old_path(a, b)):
+                fail(f"key_switch {name} [{B}]: the kernel differs from the int32_matmul formula")
+            fn = lambda: K.key_switch(a, b, tiles, Pk)  # noqa: E731
+            # the device's operations of pbs.key_switch spans, as the PBS runs them
+            in_span = span_ops(lambda: ops.key_switch(a, b, tiles), f"{name} [{B}]")
+            if [k for k in in_span if not (k.startswith("Memset") or "key_switch_kernel" in k)]:
+                fail(f"key_switch {name} [{B}]: the span runs more than the kernel: {in_span}")
+            ms = cuda_ms(fn, 20, warmup=3)
+            dms, all_ms, _, retries = device_ms(fn, "key_switch_kernel", required=False)
+            plain_ms = cuda_ms(lambda: K.key_switch_plain(a, b, tiles, Pk), 3)
+            old_ms = cuda_ms(lambda: old_path(a, b), 3)
+            lay = K.key_switch_layout(B, Pk.N, Pk, sms)
+            regs, spill = ptxas_usage(ptxas, f"key_switch_kernelILi{lay['mt']}ELi"
+                                             f"{lay['groups']}ELi{Pk.ks_basebit}ELi{Pk.ks_t}E")
+            # int8 operations (a MAC is two) of the four limb products; the
+            # key's limbs read once, the mask and b read, the output written
+            ops_ms = 2 * 4 * B * rows * n1 / (2 * PEAK_INT8_MACS) * 1e3
+            bytes_ms = (4 * rows * n1 + B * Pk.N * 4 + B * 4 + B * n1 * 4) / PEAK_BYTES * 1e3
+            b_ms, b_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
+            key = f"key_switch/{name}/{B}"
+            out[key] = dict(
+                name=key, route="cuda", source="redsec_tpu_torch/csrc/key_switch.cu",
+                replaces="redsec_tpu/crypto/bootstrap.py:456 (XLA dot_general over ksk_limbs)",
+                counter="key_switch", params=(name, f"{name}/bundle2", f"{name}/schoolbook"),
+                launches=0, max_abs_err=0, ms=ms,
+                device_ms=dms, device_all_ms=all_ms, profiler_retries=retries,
+                plain_ms=plain_ms, int32_matmul_path_ms=old_ms, bound_ms=b_ms, bound_by=b_by,
+                bound_ops_ms=ops_ms, bound_bytes_ms=bytes_ms,
+                share=None if dms is None else b_ms / dms, library_ms=None,
+                shape=[B, Pk.N, rows, n1], layout=lay, registers=regs, spill_bytes=spill,
+                host_us=host_us(fn), prepare_s=prep_s, device_ops_in_span=in_span)
+            print(f"kernel key_switch {name} a [{B}, {Pk.N}] x key [{rows}, {n1}]: "
+                  f"{ms:.4f} ms (events), {ms_text(dms)} on the device (all kernels "
+                  f"{ms_text(all_ms)}), bound {b_ms:.4f} ms ({b_by}; operations "
+                  f"{ops_ms:.4f}, bytes {bytes_ms:.4f}), share "
+                  f"{'not measured' if dms is None else f'{100 * b_ms / dms:.1f}%'}; twin "
+                  f"{plain_ms:.4f} ms, the int32_matmul path {old_ms:.4f} ms; layout "
+                  f"{lay['rows']} rows x {8 * lay['groups']} columns a block, "
+                  f"{lay['splits']} splits, grid {lay['grid']}; {regs} registers, {spill} B "
+                  f"spilled; host {out[key]['host_us']:.1f} us a call; key prepared in "
+                  f"{prep_s:.3f} s; in one pbs.key_switch span: {in_span} on {card}", flush=True)
+        del tiles, ksk32
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------- #
 
 
@@ -935,8 +1073,9 @@ def phase12(c: dict) -> None:
         t_poly = time.perf_counter() - t0
         if not torch.equal(pout, outs["matmul"]):
             fail(f"poly-sharded PBS ({backend}, world 1) differs from the single-device one")
-        if dict(launches.counts):
-            fail(f"the poly-sharded PBS launched kernels: {dict(launches.counts)}")
+        # its rounds run in torch; its key switch is one launch of the kernel
+        if dict(launches.counts) != {"key_switch": 1}:
+            fail(f"the poly-sharded PBS launched {dict(launches.counts)}, expected one key switch")
         print(f"poly-sharded PBS ({backend}, world size 1, sp 1): {pbs_chunk} ciphertexts in "
               f"{t_poly * 1e3:.1f} ms against the single-device 'matmul' PBS's {mm_ms:.1f} ms, "
               f"bit-identical on {card}", flush=True)
@@ -1478,7 +1617,8 @@ def main() -> int:
 
     # ---- phase 2: build
     t0 = time.perf_counter()
-    sources = [K.SOURCE, K.MM_SOURCE, PK.SOURCE, K.SCHOOLBOOK_SOURCE, K.SBFFT_SOURCE]
+    sources = [K.SOURCE, K.MM_SOURCE, PK.SOURCE, K.SCHOOLBOOK_SOURCE, K.SBFFT_SOURCE,
+               K.KS_SOURCE]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         ptxas = "".join(pool.map(lambda src: K.build_library(src, force=True), sources))
     with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
@@ -2064,6 +2204,7 @@ def main() -> int:
           f"{tv_rot['per_ciphertext']:.4f} ms on {card}", flush=True)
     print(f"launch path, host us a call ({', '.join(f'{k} {v:.2f}' for k, v in launch_us.items())}"
           f"; calls with no synchronize between them) on {card}", flush=True)
+    rec.update(phase_key_switch(card, ptxas))
     print(f"kernel phase: {time.perf_counter() - t_kernels:.1f} s", flush=True)
 
     # ---- phase 4: the sign slice through the port's entry points

@@ -9,8 +9,10 @@ The blind rotation is the whole cost.  On CUDA it runs as ONE launch of the
 ``blind_rotate`` kernel (csrc/pbs.cu, bound in crypto/kernels.py), which keeps
 each ciphertext's accumulator on chip for all n rounds; on the CPU the same
 wrapper runs its plain PyTorch twin.  Mod-switch, sample extract and the key
-switch stay plain torch (XLA ops outside any Pallas kernel in the JAX
-package).
+switch's digits and its product with the key run as one launch of the key
+switch kernel (csrc/key_switch.cu, ``kernels.key_switch``) on the key's int8
+limbs, made once by ``prepare_cloud_key``; mod-switch and sample extract stay
+plain torch (XLA ops outside any Pallas kernel in the JAX package).
 
 The parameter sets without NTT primes (N >= 4096: ``medium``, ``large``,
 ``medium_v2``, ``large_v2``), and any set prepared with ``schoolbook=True``,
@@ -68,7 +70,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..device import int32_matmul, resolve_device, span
+from ..device import resolve_device, span
 from . import kernels
 from . import ntt as ntt_mod
 from . import ntt_matmul
@@ -101,13 +103,16 @@ class DeviceCloudKey:
     schoolbook round kernel reads a round at a time.  Flavour ``"matmul"``: the same residues in the
     four-step [k1, k2] order of ``ntt_matmul``, held as int16
     [P, n', R, 2*limbs, R4, C4] (N = R4 * C4): a shape the radix-2 kernels
-    refuse and the four-step ones (``kernels.*_mm``) take.  ``ksk``: int32
-    [N*t, n+1] multiply-form key-switching key."""
+    refuse and the four-step ones (``kernels.*_mm``) take.  ``ksk_limbs``:
+    the multiply-form key-switching key [N*t, n+1] as its four
+    sign-balanced int8 limbs (the JAX package's ``ksk_limbs``) in the key
+    switch's tiled order, int8 ``kernels.ksk_shape(N, params)``
+    (``kernels.ksk_tiles``), the key's only copy on the device."""
 
     params: TfheParams
     plan: Optional[ntt_mod.NttPlan]
     bk: torch.Tensor
-    ksk: torch.Tensor
+    ksk_limbs: torch.Tensor
     rerand: Optional[torch.Tensor] = None
     bundle: int = 1
     # NTT-domain order the BK was transformed with ("schoolbook": not
@@ -167,6 +172,25 @@ def _upload(a: np.ndarray, dev: torch.device, chunk: int) -> torch.Tensor:
     return out
 
 
+def prepare_ksk(ksk: np.ndarray, params: TfheParams, dev: torch.device) -> torch.Tensor:
+    """The key-switching key ``ksk`` [N, t, n+1] (or [N*t, n+1]) int32 as
+    the key switch reads it on ``dev``: its four sign-balanced int8 limbs
+    (``int8_limbs``) in ``kernels.ksk_tiles``' order, made about 4,096 key
+    rows (whole chunks of 16 coefficients) at a time, so that neither the
+    host nor the device holds a second whole copy of the key."""
+    t, n1 = params.ks_t, params.n + 1
+    ksk = ksk.reshape(params.N, t, n1)
+    out = torch.empty(kernels.ksk_shape(params.N, params), dtype=torch.int8, device=dev)
+    step = max(1, 4096 // (kernels.KS_CHUNK * t)) * kernels.KS_CHUNK  # coefficients a slab
+    per = out.shape[1] // (params.N // kernels.KS_CHUNK)  # k-steps a chunk
+    for j0 in range(0, params.N, step):
+        slab = torch.from_numpy(np.ascontiguousarray(ksk[j0:j0 + step], np.int32)).to(dev)
+        limbs = torch.stack(int8_limbs(slab.reshape(-1, n1))).to(torch.int8)
+        s0 = j0 // kernels.KS_CHUNK * per
+        out[:, s0:s0 + slab.shape[0] // kernels.KS_CHUNK * per] = kernels.ksk_tiles(limbs, t)
+    return out
+
+
 def _rerand(cloud: CloudKey, dev: torch.device) -> Optional[torch.Tensor]:
     return None if cloud.rerand is None else torch.as_tensor(
         cloud.rerand.astype(np.int32), device=dev)
@@ -204,14 +228,14 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
     p = cloud.params
     bundled = cloud.bk_pair is not None
     plan = bootstrap_plan(p, bundled, schoolbook)
-    ksk = _upload(cloud.ksk.reshape(-1, p.n + 1), dev, 4096)
+    ksk_limbs = prepare_ksk(cloud.ksk, p, dev)
     if plan is None:
         if ntt_flavor != "radix2":
             raise ValueError(f"{p.name}: a schoolbook key (no NTT plan) has no "
                              f"{ntt_flavor!r} flavour")
         bk = _upload(cloud.bk, dev, chunk)
-        return DeviceCloudKey(params=p, plan=None, bk=bk, ksk=ksk, rerand=_rerand(cloud, dev),
-                              ntt_flavor="schoolbook",
+        return DeviceCloudKey(params=p, plan=None, bk=bk, ksk_limbs=ksk_limbs,
+                              rerand=_rerand(cloud, dev), ntt_flavor="schoolbook",
                               spectra=kernels.prepare_key_spectra(bk, p, chunk))
     bundle = 2 if bundled else 1
     matmul = ntt_flavor == "matmul"
@@ -244,8 +268,8 @@ def prepare_cloud_key(cloud: CloudKey, device: str = "cuda", chunk: int = 64,
     bk_ntt = torch.stack([torch.cat(ps, dim=0) for ps in parts]).contiguous()
     if matmul:
         bk_ntt = bk_ntt.unflatten(-1, ntt_matmul._split_rc(N))
-    return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk=ksk, rerand=_rerand(cloud, dev),
-                          bundle=bundle, ntt_flavor=ntt_flavor)
+    return DeviceCloudKey(params=p, plan=plan, bk=bk_ntt, ksk_limbs=ksk_limbs,
+                          rerand=_rerand(cloud, dev), bundle=bundle, ntt_flavor=ntt_flavor)
 
 
 def const_test_vector(params: TfheParams, value: int, msize: int) -> np.ndarray:
@@ -342,16 +366,13 @@ class RoundOps:
         return dig.reshape(a_n.shape[0], -1)
 
     def key_switch(self, a_n: torch.Tensor, b_n: torch.Tensor,
-                   ksk: torch.Tensor) -> torch.Tensor:
-        """Subtract digit-scaled rows of the multiply-form KSK [N*t, n+1]:
-        one exact digit x KSK product (limbs of the KSK in fp32, in chunks of
-        the N*t rows that keep each partial sum below 2^24)."""
+                   ksk_limbs: torch.Tensor) -> torch.Tensor:
+        """Subtract the digit-scaled rows of the multiply-form KSK from
+        (0, b_n): ``kernels.key_switch`` on the key's int8 limbs
+        (``DeviceCloudKey.ksk_limbs``), one launch on CUDA, its twin on the
+        CPU.  Exact mod 2^32."""
         with span("pbs.key_switch"):
-            dig = self.ks_digits(a_n)
-            ssum = int32_matmul(ksk.T, dig.T, self.p.ks_base - 1).T  # [B, n+1]
-            out = -ssum
-            out[:, self.p.n] += b_n
-            return out
+            return kernels.key_switch(a_n, b_n, ksk_limbs, self.p)
 
 
 def _test_vectors(testvect, B: int, N: int, device) -> torch.Tensor:
@@ -456,7 +477,7 @@ def make_bootstrap_impl(p: TfheParams, plan: Optional[ntt_mod.NttPlan],
                 acc = kernels.blind_rotate(acc, abar, dkey.bk, p, plan)
         with span("pbs.extract"):
             a_n, b_n = ops.sample_extract(acc)
-        return ops.key_switch(a_n, b_n, dkey.ksk)
+        return ops.key_switch(a_n, b_n, dkey.ksk_limbs)
 
     return impl
 
@@ -486,6 +507,11 @@ def _check_key(dkey: DeviceCloudKey, need: Optional[str] = None) -> None:
             raise ValueError(f"a schoolbook key needs its spectra complex128 {list(want)} "
                              "(prepare it with prepare_cloud_key); this one has "
                              f"{None if dkey.spectra is None else tuple(dkey.spectra.shape)}")
+    want = kernels.ksk_shape(dkey.params.N, dkey.params)
+    if dkey.ksk_limbs.dtype != torch.int8 or tuple(dkey.ksk_limbs.shape) != want:
+        raise ValueError(f"the key-switching key's limbs must be int8 {list(want)} "
+                         "(prepare the key with prepare_cloud_key); this one is "
+                         f"{dkey.ksk_limbs.dtype} {tuple(dkey.ksk_limbs.shape)}")
     if dkey.plan is None and dkey.bundle != 1:
         raise ValueError("bundle=2 requires an NTT plan (the schoolbook path for the "
                          "medium/large parameter sets runs unbundled)")

@@ -73,6 +73,14 @@ of any set prepared with ``schoolbook=True``: the JAX package computes it as
 an XLA int8 convolution (``redsec_tpu/crypto/bootstrap.py:517-556``), not in
 Pallas.  S1 computes JAX's limb formulation, exactly, on the int8 tensor
 cores; its twin is an exact float64 FFT product.
+
+The last, ``key_switch`` (``csrc/key_switch.cu``), ends every PBS: the
+digits of the extracted mask against the key-switching key's int8 limbs,
+made once by ``bootstrap.prepare_cloud_key`` in the kernel's tiled order
+(``ksk_tiles``), as u8 x s8 products on the int8 tensor cores.  The JAX
+package computes it as an XLA ``dot_general`` a limb
+(``redsec_tpu/crypto/bootstrap.py:456``); the twin, ``key_switch_plain``,
+is that formula in torch.
 """
 
 from __future__ import annotations
@@ -176,6 +184,14 @@ _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 OTHER_DEVICE = -1  # a launch entry's answer when its device is not the current one
 
 
+class LaunchError(RuntimeError):
+    """A launch entry's non-zero answer ``code``."""
+
+    def __init__(self, msg: str, code: int):
+        super().__init__(msg)
+        self.code = code
+
+
 class Library:
     """A built and loaded library of one CUDA source, which is a CPython
     extension module of its extern "C" entries (``csrc/py_entries.cuh``:
@@ -214,7 +230,7 @@ class Library:
         if code:
             msg = self.lib.redsec_error_string(code)
             where = "" if failed is None else f" at round {failed.value}"
-            raise RuntimeError(f"CUDA kernel {kernel} failed{where}: {msg} ({code})")
+            raise LaunchError(f"CUDA kernel {kernel} failed{where}: {msg} ({code})", code)
         launches.bump(kernel, count)
 
 
@@ -1593,4 +1609,183 @@ def blind_rotate_mm(acc0: torch.Tensor, abar: torch.Tensor, bk: torch.Tensor,
                      abar.data_ptr(), bk.data_ptr(), tabs["tw"].data_ptr(), tabs["wc"].data_ptr(),
                      out.data_ptr(), B, n, N, *_gadget_args(params), plan.primes[0],
                      plan.primes[1])
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# The PBS key switch (csrc/key_switch.cu)                                     #
+# --------------------------------------------------------------------------- #
+
+KS_SOURCE = os.path.join(_PKG, "csrc", "key_switch.cu")
+_KS_ENTRIES = ("redsec_key_switch",)
+KS_CHUNK = 16  # coefficients a chunk of the tiled key's order
+KS_STEP_BYTES = 1024  # a column group's k-step: 4 limbs x 32 key rows x 8 columns
+KS_NO_PLAN = -2  # the C entry's answer for a digit plan it has no instance of
+_ks_loaded: list[Library] = []
+_sm_counts: dict = {}  # device index -> SMs
+
+
+def _ks_lib() -> Library:
+    if not _ks_loaded:
+        _ks_loaded.append(Library(KS_SOURCE, _KS_ENTRIES))
+    return _ks_loaded[0]
+
+
+def ksk_shape(N: int, params: TfheParams) -> tuple[int, int, int]:
+    """Shape of the tiled key of ``N`` coefficients (``ksk_tiles``):
+    (column groups of 8, k-steps of 32 key rows, bytes a k-step of a group)."""
+    return ((params.n + 8) // 8, N // KS_CHUNK * ((params.ks_t + 1) // 2), KS_STEP_BYTES)
+
+
+def ksk_tiles(limbs: torch.Tensor, t: int) -> torch.Tensor:
+    """The key switch's key layout from the key-switching key's four int8
+    limbs [4, N t, n+1] (row j t + l: coefficient j, level l; the JAX
+    package's ``ksk_limbs``), N a multiple of 16: int8 [ceil((n+1) / 8),
+    N / 16 * ceil(t / 2), 1024], a permutation with zeros for the padding.
+
+    The rows go in chunks of 16 coefficients, and in a chunk the levels two
+    at a time: k-step (c, p) holds coefficients 16 c .. 16 c + 15 at level
+    2 p (its k 0-15), then at level 2 p + 1 (k 16-31); an odd t gets a zero
+    level.  The columns go in groups of 8 (zero columns past n+1).  The 1,024
+    bytes of a group's k-step are [limb pair q][lane 4 g + tq][16 bytes],
+    the 16 bytes limb 2 q at k 4 tq .. 4 tq + 3 and 16 + 4 tq .. + 3 of the
+    group's column g, then limb 2 q + 1 the same: mma.sync m16n8k32's B
+    fragments as the lanes hold them (csrc/key_switch.cu)."""
+    _, rows, n1 = limbs.shape
+    N, t2, G = rows // t, t + t % 2, (n1 + 7) // 8
+    full = limbs.new_zeros((4, N, t2, 8 * G))
+    full[:, :, :t, :n1] = limbs.reshape(4, N, t, n1)
+    # [q, r, c, tq, e, p, h, cg, g] -> [cg, c, p, q, g, tq, r, h, e]: limb 2q + r,
+    # coefficient 16 c + 4 tq + e, level 2 p + h, column 8 cg + g
+    v = full.reshape(2, 2, N // KS_CHUNK, 4, 4, t2 // 2, 2, G, 8).permute(7, 2, 5, 0, 8, 3, 1, 6, 4)
+    return v.reshape(G, N // KS_CHUNK * (t2 // 2), KS_STEP_BYTES)
+
+
+def ksk_limbs_plain(tiles: torch.Tensor, N: int, t: int, n1: int) -> torch.Tensor:
+    """``ksk_tiles``' inverse: the limbs int8 [4, N t, n+1] in the key's own
+    row order (the JAX package's ``ksk_limbs``)."""
+    G, t2 = tiles.shape[0], t + t % 2
+    v = tiles.reshape(G, N // KS_CHUNK, t2 // 2, 2, 8, 4, 2, 2, 4)  # [cg, c, p, q, g, tq, r, h, e]
+    full = v.permute(3, 6, 1, 5, 8, 2, 7, 0, 4).reshape(4, N, t2, 8 * G)
+    return full[:, :, :t, :n1].reshape(4, N * t, n1)
+
+
+def _require_key_switch(N: int, params: TfheParams) -> None:
+    """N must split into chunks of 16 coefficients, and a limb's sum over
+    the N t digits must stay inside int32: N t (base - 1) 128 < 2^31."""
+    if N <= 0 or N % KS_CHUNK:
+        raise ValueError(f"the key switch takes N a positive multiple of {KS_CHUNK}, got {N}")
+    if params.ks_basebit * params.ks_t > 32 or params.ks_basebit > 7:
+        raise ValueError(f"{params.name}: key-switch digits of {params.ks_basebit} bits x "
+                         f"{params.ks_t} levels do not fit a word in bytes")
+    if N * params.ks_t * (params.ks_base - 1) * 128 >= 1 << 31:
+        raise ValueError(f"{params.name}: {N} x {params.ks_t} digits below {params.ks_base} "
+                         "against int8 limbs can pass 2^31 in an int32 sum")
+
+
+def _ks_prec(params: TfheParams) -> int:
+    """The digits' rounding offset (``RoundOps._prec_offset``) as uint32."""
+    kbits = params.ks_basebit * params.ks_t
+    return (1 << (32 - 1 - kbits)) if kbits < 32 else 0
+
+
+def key_switch_layout(B: int, N: int, params: TfheParams, sms: int) -> dict:
+    """How the key switch kernel cuts a call: 16 ``mt`` rows a warp, 8 warps
+    a block (``rows``: 512 for a batch above 256, so that the port's PBS
+    chunk of 512 is one tile, else 256), 8 ``groups`` columns a block (2 or
+    4: the block's accumulators take the same registers), and the key's rows
+    in ``splits`` parts of ``chunks_per_split`` chunks of 16 coefficients,
+    the count (up to 64) whose grid of one block per SM wastes the least:
+    the fewest waves times the chunks a block walks, plus two for its fill
+    and epilogue.  Mirrors the C entry's grid, which each launch takes."""
+    _require_key_switch(N, params)
+    mt = 4 if B > 256 else 2
+    groups, rows, chunks = 8 // mt, 128 * mt, N // KS_CHUNK
+    tiles = -(-ksk_shape(N, params)[0] // groups)
+    tiles_b = -(-B // rows)
+    best = None
+    for splits in range(1, min(chunks, 64) + 1):
+        per = -(-chunks // splits)
+        if -(-chunks // per) != splits:
+            continue  # the same grid as fewer splits
+        cost = -(-tiles * splits * tiles_b // sms) * (per + 2)
+        if best is None or cost < best[0]:
+            best = (cost, splits, per)
+    return {"mt": mt, "rows": rows, "groups": groups, "splits": best[1],
+            "chunks_per_split": best[2], "grid": (tiles, best[1], tiles_b)}
+
+
+@functools.lru_cache(maxsize=None)
+def _ks_layout_on(dev: int, B: int, N: int, params: TfheParams) -> tuple[int, int]:
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    lay = key_switch_layout(B, N, params, _sm_counts[dev])
+    return lay["mt"], lay["splits"]
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> the int32 with the same low 32 bits."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def key_switch_plain(a_n: torch.Tensor, b_n: torch.Tensor, ksk: torch.Tensor,
+                     params: TfheParams) -> torch.Tensor:
+    """The key switch in torch on any device, the JAX package's formula
+    (``redsec_tpu/crypto/bootstrap.py:456``): the digits of the extracted
+    mask ``a_n`` [B, N] (``RoundOps.ks_digits``) against the four limbs of
+    the tiled key ``ksk`` (``ksk_tiles``), ssum = sum_i (dig @ limb_i) << 8 i
+    mod 2^32, and out = -ssum with ``b_n`` [B] added to column n: int32
+    [B, n+1].  Each limb product is exact in float64 (its sums are integers
+    below 2^31, ``_require_key_switch``)."""
+    N, n1 = a_n.shape[1], params.n + 1
+    _require_key_switch(N, params)
+    dig = bs.RoundOps(params).ks_digits(a_n).to(torch.float64)  # [B, N t]
+    limbs = ksk_limbs_plain(ksk, N, params.ks_t, n1)
+    ssum = torch.zeros((a_n.shape[0], n1), dtype=torch.int64, device=a_n.device)
+    for i in range(4):
+        ssum += (dig @ limbs[i].to(torch.float64)).to(torch.int64) << (8 * i)
+    out = -ssum
+    out[:, params.n] += b_n.to(torch.int64)
+    return _wrap_int32(out)
+
+
+def key_switch(a_n: torch.Tensor, b_n: torch.Tensor, ksk: torch.Tensor,
+               params: TfheParams) -> torch.Tensor:
+    """The PBS key switch, see ``key_switch_plain``: one launch of
+    ``key_switch_kernel`` (csrc/key_switch.cu: the digits made in registers,
+    u8 x s8 products on the int8 tensor cores, the key read once), after an
+    asynchronous zeroing of the output where the layout splits the key's
+    rows (``key_switch_layout``); built for the digit plans that the C
+    entry lists, and raises for any other.  ``a_n`` int32 [B, N] contiguous, ``b_n``
+    int32 [B] with any stride, ``ksk`` int8 ``ksk_shape(N, params)`` (N may
+    be a block of the key's coefficients, as a poly-sharded rank holds)."""
+    if a_n.is_cpu:
+        return key_switch_plain(a_n, b_n, ksk, params)
+    if a_n.dim() != 2:
+        raise ValueError(f"a_n must be [B, N], got shape {tuple(a_n.shape)}")
+    B, N = a_n.shape
+    _require_key_switch(N, params)
+    dev = a_n.get_device()
+    _require_all(dev, (a_n, "a_n", torch.int32, (B, N)),
+                 (ksk, "ksk", torch.int8, ksk_shape(N, params)))
+    if not (b_n.dtype is torch.int32 and b_n.shape == (B,) and b_n.get_device() == dev):
+        raise ValueError(f"b_n must be int32 [{B}] on cuda:{dev}, got {b_n.dtype} "
+                         f"{tuple(b_n.shape)} on {b_n.device}")
+    pa, pk = a_n.data_ptr(), ksk.data_ptr()
+    if (pa | pk) % 16:
+        _require_aligned(("a_n", pa), ("ksk", pk))
+    out = a_n.new_empty((B, params.n + 1))
+    if B == 0:
+        return out
+    mt, splits = _ks_layout_on(dev, B, N, params)
+    try:
+        _ks_lib().launch("redsec_key_switch", "key_switch", dev, pa, pk, b_n.data_ptr(),
+                         b_n.stride(0), out.data_ptr(), B, N, params.n + 1, params.ks_t,
+                         params.ks_basebit, _ks_prec(params), mt, splits)
+    except LaunchError as e:
+        if e.code != KS_NO_PLAN:
+            raise
+        raise ValueError(f"{params.name}: the key switch kernel is not built for the digit "
+                         f"plan (bits, levels) ({params.ks_basebit}, {params.ks_t}); "
+                         "csrc/key_switch.cu lists the digit plans it has") from None
     return out

@@ -15,8 +15,9 @@ inside every CMUX round, on the four-step factorization N = R * C of
 
 The bootstrapping key lives frequency-sharded over k1: each rank holds N/sp of
 every BK polynomial of a "matmul" key (whose four-step order makes the shard a
-plain block slice), and the key-switching key's rows, whose partial products
-are all-reduced (the JAX package's ``psum``).  The accumulator stays
+plain block slice), and the key-switching key's limbs for its block of
+coefficients, whose partial products are all-reduced (the JAX package's
+``psum``).  The accumulator stays
 replicated in the coefficient domain, where the data-dependent rotation is a
 local permutation; each round's delta is all-gathered.  The arithmetic is
 the single-device "matmul" PBS's, exact, so the output is bit-identical to it.
@@ -33,7 +34,6 @@ from ..crypto import kernels
 from ..crypto import ntt_matmul as mm
 from ..crypto.bootstrap import BK_LIMBS, DeviceCloudKey, RoundOps, _check_key, _test_vectors
 from ..crypto.ntt import _mulmod_device
-from ..device import int32_matmul
 from .mesh import Mesh, all_reduce_int32
 
 
@@ -93,19 +93,22 @@ def inv_local(y_loc: torch.Tensor, plan, pi: int, group, sp: int, ti: int) -> to
 @dataclasses.dataclass(frozen=True)
 class PolyShardedKey:
     """A rank's share of an evaluation key for poly-sharded evaluation: its
-    k1 block of every BK polynomial, int16 [P, n, rows, 8, R/sp, C], and its
-    block of the key-switching key's rows, int32 [N/sp * t, n+1]."""
+    k1 block of every BK polynomial, int16 [P, n, rows, 8, R/sp, C], and the
+    key-switching key's limbs for its block of N/sp coefficients, int8
+    ``kernels.ksk_shape(N/sp, params)`` (a block of the full key's k-steps,
+    ``kernels.ksk_tiles``)."""
 
     bk: torch.Tensor
-    ksk: torch.Tensor
+    ksk_limbs: torch.Tensor
 
 
 def shard_cloud_key_poly(dkey: DeviceCloudKey, mesh: Mesh) -> PolyShardedKey:
     """This rank's block of a "matmul" key over the mesh's tp axis: the BK's
-    frequency axis in contiguous k1 blocks and the KSK's rows (coefficient
-    j, digit) in the matching contiguous blocks.  A radix-2 key is refused
+    frequency axis in contiguous k1 blocks and the KSK's limbs for the
+    matching contiguous block of coefficients (a block of its k-steps).  A radix-2 key is refused
     (its bit-reversed frequency order does not block-shard), as is a bundled
-    one, as in the JAX package."""
+    one, as in the JAX package, and a block of coefficients that does not
+    fill the key switch's chunks of 16."""
     if dkey.ntt_flavor != "matmul":
         raise ValueError(f"poly sharding needs a four-step-ordered key (flavour 'matmul'); "
                          f"this key is {dkey.ntt_flavor!r}: prepare it with "
@@ -116,10 +119,13 @@ def shard_cloud_key_poly(dkey: DeviceCloudKey, mesh: Mesh) -> PolyShardedKey:
     sp, ti = mesh.tp, mesh.tp_index
     if not poly_shard_viable(dkey.params.N, sp):
         raise ValueError(f"N={dkey.params.N} cannot shard over {sp} ranks")
+    if (dkey.params.N // sp) % kernels.KS_CHUNK:
+        raise ValueError(f"N={dkey.params.N} over {sp} ranks leaves blocks of coefficients "
+                         f"that are not whole chunks of {kernels.KS_CHUNK}")
     Rl = dkey.bk.shape[-2] // sp
-    rows_ks = dkey.ksk.shape[0] // sp
+    steps = dkey.ksk_limbs.shape[1] // sp
     return PolyShardedKey(bk=dkey.bk[..., ti * Rl:(ti + 1) * Rl, :].contiguous(),
-                          ksk=dkey.ksk[ti * rows_ks:(ti + 1) * rows_ks].contiguous())
+                          ksk_limbs=dkey.ksk_limbs[:, ti * steps:(ti + 1) * steps].contiguous())
 
 
 def exchange_bytes_per_round(p, plan, sp: int) -> dict:
@@ -185,10 +191,11 @@ def make_poly_sharded_bootstrap(dkey: DeviceCloudKey, mesh: Mesh):
             dist.all_gather(parts, delta_loc.contiguous(), group=group)
             acc = acc + torch.cat(parts, dim=3).reshape(B, 2, N)
         a_n, b_n = ops.sample_extract(acc)
-        # sharded key switch: this rank's coefficient block x its KSK rows
-        dig = ops.ks_digits(a_n[:, ti * Nl:(ti + 1) * Nl].contiguous())  # [B, Nl*t]
-        ssum = int32_matmul(skey.ksk.T, dig.T, p.ks_base - 1).T.contiguous()
-        out = -all_reduce_int32(ssum, group)
+        # sharded key switch: this rank's coefficient block against its limbs
+        # (-ssum of the block), summed over the ranks, then b
+        part = kernels.key_switch(a_n[:, ti * Nl:(ti + 1) * Nl].contiguous(),
+                                  torch.zeros_like(b_n), skey.ksk_limbs, p)
+        out = all_reduce_int32(part, group)
         out[:, n] += b_n
         return out
 

@@ -855,3 +855,130 @@ def test_mm_wrappers_reject_what_the_kernels_do_not_take(mm_keys):
     ct = torch.zeros((3, Pb.n + 1), dtype=torch.int32, device="cuda")
     bs.make_batched_bootstrap(bkey)(ct, bs.const_test_vector(Pb, 1, Pb.msg_space))
     assert K.launches.get("blind_rotate_mm") == before  # the bundled key keeps the torch loop
+
+
+# ---- the PBS key switch (csrc/key_switch.cu): the cells' keys and small's
+# ragged columns with base 2
+
+KS_SETS = ("small_v2_tpu", "medium_v2", "small")
+KS_EXTREMES = [-2**31, 2**31 - 1, -1, 0, 0x7F7F7F7F, 0x80808080 - 2**32, 0x00800080]
+
+
+@pytest.fixture(scope="module", params=KS_SETS)
+def ks_key(request):
+    """(params, the int32 key [N t, n+1] on the card, its prepared limbs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from redsec_tpu_torch.crypto.params import get_params
+
+    Pk = get_params(request.param)
+    rng = np.random.default_rng(11)
+    ksk = rng.integers(-2**31, 2**31, size=(Pk.N, Pk.ks_t, Pk.n + 1), dtype=np.int64)
+    ksk.reshape(-1)[:len(KS_EXTREMES)] = KS_EXTREMES
+    ksk[-1, -1, -len(KS_EXTREMES):] = KS_EXTREMES
+    ksk = ksk.astype(np.int32)
+    return (Pk, torch.as_tensor(ksk.reshape(-1, Pk.n + 1), device="cuda"),
+            bs.prepare_ksk(ksk, Pk, torch.device("cuda")))
+
+
+def _ks_inputs(Pk, B, seed):
+    """Mask words (row 0: every digit base - 1) and b_n as the PBS gives
+    it: a strided column of the accumulator."""
+    rng = np.random.default_rng(seed)
+    a = _ri(rng, -2**31, 2**31, (B, Pk.N))
+    kbits = Pk.ks_basebit * Pk.ks_t
+    prec = (1 << (31 - kbits)) if kbits < 32 else 0
+    a[0] = int(np.uint32(2**32 - 1 - prec).view(np.int32))
+    acc = _ri(rng, -2**31, 2**31, (B, 2, 8))
+    return a, acc[:, 1, 0]
+
+
+@pytest.mark.parametrize("batch", [1, 7, 196, 512, 513])
+def test_key_switch_kernel_equals_twin(ks_key, batch):
+    Pk, ksk32, tiles = ks_key
+    a, b = _ks_inputs(Pk, batch, batch)
+    before = K.launches.get("key_switch")
+    got = K.key_switch(a, b, tiles, Pk)
+    assert K.launches.get("key_switch") == before + 1
+    want = K.key_switch_plain(a, b, tiles, Pk)
+    assert torch.equal(got, want)
+    if batch == 7:  # and the formula the port ran before, on the int32 key
+        from redsec_tpu_torch.device import int32_matmul
+
+        dig = bs.RoundOps(Pk).ks_digits(a)
+        old = -int32_matmul(ksk32.T, dig.T, Pk.ks_base - 1).T
+        old[:, Pk.n] += b
+        assert torch.equal(got, old)
+
+
+@pytest.mark.parametrize("plan", [(4, 8), (3, 6), (3, 7)])  # the noise-budget experiments'
+@pytest.mark.parametrize("batch", [1, 96])
+def test_key_switch_kernel_equals_twin_at_the_other_digit_plans(plan, batch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    from redsec_tpu_torch.crypto.params import get_params
+
+    Pk = dataclasses.replace(get_params("small_v2"), ks_basebit=plan[0], ks_t=plan[1])
+    rng = np.random.default_rng(plan[1])
+    ksk = rng.integers(-2**31, 2**31, size=(Pk.N, Pk.ks_t, Pk.n + 1), dtype=np.int64)
+    tiles = bs.prepare_ksk(ksk.astype(np.int32), Pk, torch.device("cuda"))
+    a, b = _ks_inputs(Pk, batch, batch)
+    assert torch.equal(K.key_switch(a, b, tiles, Pk), K.key_switch_plain(a, b, tiles, Pk))
+
+
+@pytest.fixture(scope="module")
+def ks_trace(key):
+    """The kernels one ``pbs.key_switch`` launches, by torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from redsec_tpu_torch.device import is_annotation
+
+    dkey = key[2]
+    a, b = _ks_inputs(P, 37, 1)
+    ops = bs.RoundOps(P)
+    ops.key_switch(a, b, dkey.ksk_limbs)
+    torch.cuda.synchronize()
+    before = K.launches.get("key_switch")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ops.key_switch(a, b, dkey.ksk_limbs)
+        torch.cuda.synchronize()
+    # the device's kernels: no span's range, no zeroing of the output
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+           and not is_annotation(e.key) and not e.key.startswith("Memset")]
+    names = [e.key for e in evs for _ in range(e.count)]
+    return names, K.launches.get("key_switch") - before
+
+
+def test_one_key_switch_is_one_launch_and_no_gemm(ks_trace):
+    names, counted = ks_trace
+    assert counted == 1
+    assert len(names) == 1 and "key_switch_kernel" in names[0], names
+
+
+def test_key_switch_kernel_name_is_not_blind_rotation(ks_trace):
+    from benchmark.metrics.blind_rotation_roofline import KERNELS
+
+    assert not any(k in name for name in ks_trace[0] for k in KERNELS)
+
+
+def test_key_switch_wrapper_rejects_what_the_kernel_does_not_take(ks_key):
+    Pk, _, tiles = ks_key
+    a, b = _ks_inputs(Pk, 4, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        K.key_switch(a.to(torch.int64), b, tiles, Pk)
+    with pytest.raises(ValueError, match="shape"):
+        K.key_switch(a, b, tiles[:, 1:], Pk)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.key_switch(a, b, tiles.transpose(0, 1).contiguous().transpose(0, 1), Pk)
+    with pytest.raises(ValueError, match="b_n"):
+        K.key_switch(a, b[:3], tiles, Pk)
+    with pytest.raises(ValueError, match="16-byte"):  # a contiguous view 4 bytes off
+        off = torch.empty(a.numel() + 1, dtype=torch.int32, device="cuda")[1:].view(a.shape)
+        off.copy_(a)
+        K.key_switch(off, b, tiles, Pk)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        K.key_switch(a[:, :Pk.N - 8].contiguous(), b, tiles, Pk)
+    with pytest.raises(ValueError, match="digit plans"):  # a plan with no instance
+        Pd = dataclasses.replace(Pk, ks_t=Pk.ks_t - 1)
+        K.key_switch(a, b, torch.zeros(K.ksk_shape(Pk.N, Pd), dtype=torch.int8, device="cuda"),
+                     Pd)

@@ -292,13 +292,15 @@ def test_poly_sharded_bootstrap_bit_exact(groups, case, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_sharded_key_footprint(groups, case, world):
-    """Each rank holds 1/sp of the BK's frequency axis and of the KSK's rows,
-    the same block shapes as the JAX package's addressable shards."""
+    """Each rank holds 1/sp of the BK's frequency axis and of the KSK's limbs
+    (the k-steps of its block of coefficients), the BK in the same block
+    shapes as the JAX package's addressable shards."""
     bk_full = tuple(_every_rank(groups, world, "poly/bk_full"))
     ksk_full = tuple(_every_rank(groups, world, "poly/ksk_full"))
     assert tuple(_every_rank(groups, world, "poly/bk_shard")) == \
         bk_full[:-2] + (bk_full[-2] // 2, bk_full[-1])
-    assert tuple(_every_rank(groups, world, "poly/ksk_shard")) == (ksk_full[0] // 2, ksk_full[1])
+    assert tuple(_every_rank(groups, world, "poly/ksk_shard")) == \
+        (ksk_full[0], ksk_full[1] // 2, ksk_full[2])
     jbk = case["mm_jdkey"].bk_ntt[0]
     assert int(np.prod(bk_full[1:])) == int(np.prod(jbk.shape))
 

@@ -176,7 +176,8 @@ def test_every_schoolbook_set_prepares_and_bootstraps(name):
     dkey = bs.prepare_cloud_key(cloud, device="cpu", chunk=1)
     assert (dkey.plan, dkey.ntt_flavor, dkey.bundle) == (None, "schoolbook", 1)
     assert dkey.bk.dtype == torch.int32 and torch.equal(dkey.bk, torch.as_tensor(cloud.bk))
-    assert tuple(dkey.ksk.shape) == (P.N * P.ks_t, P.n + 1)
+    assert dkey.ksk_limbs.dtype == torch.int8
+    assert tuple(dkey.ksk_limbs.shape) == ((P.n + 8) // 8, P.N // 16 * ((P.ks_t + 1) // 2), 1024)
     vals, ct = _encrypt_signs(sk, P, 2, 3)
     out = bs.make_batched_bootstrap(dkey)(ct, bs.const_test_vector(P, 1, P.msg_space))
     np.testing.assert_array_equal(lwe.decrypt_integers(sk.lwe_key, out.numpy(), P),
@@ -215,8 +216,8 @@ def test_schoolbook_chunked_matches_batched(monkeypatch):
 
 @pytest.mark.parametrize("K", [65536, 131072])
 def test_int32_matmul_is_exact_past_one_fp32_contraction(K):
-    """K x 128 x w_max >= 2^24 (the key switch at medium_v2 and large_v2):
-    exact mod 2^32 against numpy int64."""
+    """K x 128 x w_max >= 2^24 (K as large as medium_v2's and large_v2's
+    key-switching keys have rows): exact mod 2^32 against numpy int64."""
     rng = np.random.default_rng(K)
     x = rng.integers(-2**31, 2**31, size=(3, K), dtype=np.int64).astype(np.int32)
     x[:, :8] = -2**31

@@ -87,8 +87,8 @@ def _poly_pbs(job, dev):
     out = fn(pm.shard_ciphertext_batch(job["ct"], m), job["tv"])
     return {"out": pm.gather_ciphertext_batch(out, m),
             "bk_shard": np.array(fn.sharded_key.bk.shape),
-            "ksk_shard": np.array(fn.sharded_key.ksk.shape),
-            "bk_full": np.array(dkey.bk.shape), "ksk_full": np.array(dkey.ksk.shape)}
+            "ksk_shard": np.array(fn.sharded_key.ksk_limbs.shape),
+            "bk_full": np.array(dkey.bk.shape), "ksk_full": np.array(dkey.ksk_limbs.shape)}
 
 
 def _all_reduce(job, dev):
